@@ -1,0 +1,36 @@
+"""Device and solver-backend resolution: the port's one device contract.
+
+* ``device=None`` means ``"cuda"``.  When no GPU is present that raises
+  a ``RuntimeError`` asking for ``device="cpu"`` / ``--device cpu``; the
+  port never carries on, on the CPU, unasked.
+* Solver backends: ``cuda`` runs the hand-written kernels of
+  :mod:`repro_torch.kernels.segment_fairshare` (their wrappers take the
+  plain PyTorch version only for tensors that lie on the CPU); ``torch``
+  runs the plain PyTorch versions on any device.  There is no ``auto``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+SIM_BACKENDS = ("cuda", "torch")
+
+
+def resolve_device(device: "str | torch.device | None" = None
+                   ) -> torch.device:
+    """``torch.device`` for an entry point's ``device`` argument."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' "
+            "(CLI: --device cpu) to run the port on the CPU")
+    return dev
+
+
+def resolve_sim_backend(backend: "str | None" = None) -> str:
+    """Normalize a fair-share solver backend name (``None`` = ``cuda``)."""
+    backend = "cuda" if backend is None else backend
+    if backend not in SIM_BACKENDS:
+        raise ValueError(f"unknown fairshare backend {backend!r}; "
+                         f"expected one of {SIM_BACKENDS}")
+    return backend

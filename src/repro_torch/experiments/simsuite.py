@@ -1,0 +1,152 @@
+"""The ``sim`` suite: measured flow-completion times (port of
+``repro/experiments/simsuite.py::run_sim_suite``, MPHX array engine).
+
+For each (topology, scenario): a steady-state cross-validation row
+(simulator load accounting vs the analytic routing engine) and one
+measured-FCT row per offered load from the event loop.  The reference's
+measured-collective rows become explicit skip records until
+collective_sim, spray and planes are ported.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import torch
+
+from .._device import resolve_device, resolve_sim_backend
+from ..core.netsim import load_sweep, make_router
+from ..sim.fairshare import flow_incidence
+from .artifacts import (artifact_payload, markdown_table, write_json,
+                        write_markdown)
+from .scenarios import get_scenario
+from .sweep import DEFAULT_OUTDIR, SWEEP_TOPOLOGIES
+
+DEFAULT_SIM_TOPOS = ["mphx-2p-8x8"]
+DEFAULT_SIM_SCENARIOS = ["uniform", "neighbor_shift"]
+SIM_MODE = "minimal"
+SIM_COLLECTIVES = ("allreduce_ring", "allgather_ring", "alltoall")
+COLLECTIVE_SKIP_REASON = (
+    "measured collectives need collective_sim, spray and planes, which "
+    "are not ported to repro_torch yet (ROADMAP.md, queue 1: "
+    "collective_sim / spray / planes)")
+
+
+def _sim_topo_rows(topo, scenario_names, load_fractions, flow_time_s,
+                   msg_bytes, sim_backend, device) -> "list[dict]":
+    router = make_router(topo, device=device)
+    rows = []
+    for name in scenario_names:
+        sc = get_scenario(name)
+
+        def build(t, o, sc=sc):
+            return sc.build(t, o, device=device)
+
+        # steady-state cross-validation at full injection
+        dem = build(topo, topo.nic_bw_gbps)
+        ll = router.route(dem, SIM_MODE)
+        inc = flow_incidence(router, dem, SIM_MODE)
+        u_sim = inc.utilization(dem.gbps, sim_backend)
+        diff = float((u_sim - ll.utilization_array()).abs().max()) \
+            if u_sim.numel() else 0.0
+        rows.append({"topology": topo.name, "scenario": name,
+                     "kind": "steady_check", "mode": SIM_MODE,
+                     "engine": "array",
+                     "max_util_analytic": round(ll.max_utilization(), 6),
+                     "max_util_sim": round(float(u_sim.max()), 6)
+                     if u_sim.numel() else 0.0,
+                     "max_abs_util_diff": diff,
+                     "agrees_1e-6": bool(diff < 1e-6)})
+        # measured FCTs per load level
+        t0 = time.perf_counter()
+        sweep = load_sweep(topo, build, mode=SIM_MODE,
+                           load_fractions=load_fractions,
+                           msg_bytes=msg_bytes, router=router, simulate=True,
+                           flow_time_s=flow_time_s, sim_backend=sim_backend)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+        for r in sweep:
+            rows.append({"topology": topo.name, "scenario": name,
+                         "kind": "fct", "mode": SIM_MODE, "engine": "array",
+                         **r, "sim_wall_s": round(dt, 4)})
+    for kind in SIM_COLLECTIVES:
+        print(f"sim: skipping collective {kind!r} on {topo.name!r}: "
+              f"{COLLECTIVE_SKIP_REASON}", file=sys.stderr)
+        rows.append({"topology": topo.name, "scenario": kind,
+                     "kind": "skip", "engine": "array", "skipped": True,
+                     "reason": COLLECTIVE_SKIP_REASON})
+    return rows
+
+
+def device_params(device: torch.device) -> dict:
+    """What the suite ran on, for the artifact's params."""
+    if device.type == "cuda":
+        return {"device": str(device),
+                "device_name": torch.cuda.get_device_name(device),
+                "device_count": torch.cuda.device_count()}
+    return {"device": str(device), "device_name": "cpu", "device_count": 0}
+
+
+def run_sim_suite(outdir: str = DEFAULT_OUTDIR,
+                  topo_names: "list[str] | None" = None,
+                  scenario_names: "list[str] | None" = None,
+                  load_fractions=(0.5, 0.9),
+                  flow_time_s: float = 200e-6,
+                  msg_bytes: float = 4096,
+                  sim_backend: "str | None" = None,
+                  device=None) -> dict:
+    """Run the flow simulator over (topology, scenario, load) cells on
+    ``device`` (default ``cuda``) and write ``sim.json`` / ``sim.md``.
+    ``sim_backend`` is the fair-share solver backend (``cuda``: the
+    hand-written kernels, the default; ``torch``: the plain versions)."""
+    sim_backend = resolve_sim_backend(sim_backend)
+    dev = resolve_device(device)
+    names = topo_names or list(DEFAULT_SIM_TOPOS)
+    scenario_names = scenario_names or list(DEFAULT_SIM_SCENARIOS)
+    all_rows = []
+    for tn in names:
+        all_rows += _sim_topo_rows(SWEEP_TOPOLOGIES[tn], scenario_names,
+                                   load_fractions, flow_time_s, msg_bytes,
+                                   sim_backend, dev)
+    checks = [r for r in all_rows if r.get("kind") == "steady_check"]
+    payload = artifact_payload(
+        "sim",
+        {"topologies": names, "scenarios": scenario_names,
+         "mode": SIM_MODE, "load_fractions": list(load_fractions),
+         "flow_time_s": flow_time_s, "msg_bytes": msg_bytes,
+         "engine": "array", "sim_backend": sim_backend,
+         **device_params(dev),
+         "n_steady_checks": len(checks),
+         "all_steady_checks_agree_1e-6":
+             bool(all(r["agrees_1e-6"] for r in checks)) if checks
+             else None,
+         "n_skipped": sum(1 for r in all_rows if r.get("skipped"))},
+        all_rows)
+    write_json(os.path.join(outdir, "sim.json"), payload)
+    sections = [
+        ("", "Measured flow-completion times from the PyTorch port of the "
+             "event-driven flow simulator (`repro_torch.sim`), "
+             f"run on {payload['params']['device_name']}."),
+        ("Steady-state cross-validation (sim vs analytic loads)",
+         markdown_table(checks,
+                        ["topology", "scenario", "engine",
+                         "max_util_analytic", "max_util_sim",
+                         "max_abs_util_diff", "agrees_1e-6"])),
+        ("Measured FCTs",
+         markdown_table([r for r in all_rows if r.get("kind") == "fct"],
+                        ["topology", "scenario", "offered_fraction",
+                         "max_util", "sim_delivered_fraction",
+                         "fct_p50_us", "fct_p99_us", "slowdown_mean",
+                         "slowdown_p99", "sim_stalled", "sim_epochs",
+                         "sim_wall_s"])),
+        ("Skipped",
+         markdown_table([r for r in all_rows if r.get("skipped")],
+                        ["topology", "scenario", "reason"])),
+    ]
+    write_markdown(os.path.join(outdir, "sim.md"),
+                   "Flow-level simulation (PyTorch port) — measured FCTs",
+                   sections)
+    return payload

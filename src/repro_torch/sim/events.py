@@ -1,0 +1,242 @@
+"""Event-driven flow-level simulation loop (port of
+``repro/sim/events.py``).
+
+Finite flows start, share the fabric max-min fairly and complete; the
+loop advances time between start and completion events and re-solves
+the fair shares every epoch (:func:`repro_torch.sim.fairshare.waterfill`).
+The epochs are those of the reference's jitted loop: ``eps = 1e-9``
+completion threshold, the ``4F + 8`` epoch bound, arrival batching at
+``start <= t * (1 + 1e-12) + 1e-18``, a ``dt = 0`` epoch that stalls
+flows whose fair share is 0, and per-flow ``start_s`` offsets.
+
+Sizes are bytes, rates Gbps, times seconds.  A flow's FCT is its
+transfer time plus the path alpha term
+``t_nic + sw_hops * t_switch + (sw_hops + 2) * t_prop``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .._device import resolve_device, resolve_sim_backend
+from ..core.netsim import DEFAULT_NET, NetParams, gbps_to_Bps
+from .fairshare import (FlowIncidence, SolveProblem, _waterfill_scale,
+                        flow_incidence, waterfill)
+
+F64 = torch.float64
+
+
+@dataclass(frozen=True)
+class FlowSpec:
+    """One finite flow: ``size_bytes`` from switch ``src`` to ``dst``."""
+
+    src: int
+    dst: int
+    size_bytes: float
+    start_s: float = 0.0
+
+
+@dataclass
+class FlowSimResult:
+    """Per-flow outcome of one fabric simulation (tensors on the
+    simulation's device)."""
+
+    start_s: torch.Tensor        # (F,)
+    finish_s: torch.Tensor       # (F,) transfer-complete time (inf = stalled)
+    fct_s: torch.Tensor          # (F,) finish - start + path alpha term
+    latency_s: torch.Tensor      # (F,) the per-flow path alpha term
+    size_bytes: torch.Tensor     # (F,)
+    edge_bytes: torch.Tensor     # (E,) bytes carried per edge
+    incidence: FlowIncidence
+    backend: str
+    makespan_s: float = 0.0      # last finish (stalled flows excluded)
+    n_epochs: int = 0
+    waterfill_rounds: int = 0    # water-filling rounds over all epochs
+
+    @property
+    def stalled(self) -> torch.Tensor:
+        return ~torch.isfinite(self.finish_s)
+
+    def transfer_s(self) -> torch.Tensor:
+        return self.finish_s - self.start_s
+
+    def fct_percentiles(self, qs=(50, 95, 99)) -> dict:
+        """FCT percentiles of the finished flows (numpy's linear
+        interpolation, on a host copy)."""
+        fct = self.fct_s.cpu().numpy()
+        ok = fct[np.isfinite(self.finish_s.cpu().numpy())]
+        if ok.size == 0:
+            return {f"p{q}": None for q in qs}
+        return {f"p{q}": float(np.percentile(ok, q)) for q in qs}
+
+    def slowdown(self, rate_caps_gbps) -> torch.Tensor:
+        """(F,) FCT over the uncontended FCT at each flow's own rate cap
+        (1.0 = no contention)."""
+        caps = torch.as_tensor(rate_caps_gbps, dtype=F64,
+                               device=self.fct_s.device
+                               ).broadcast_to(self.size_bytes.shape)
+        bneck = self.incidence.bottleneck_gbps(self.backend)
+        ideal = (self.size_bytes / gbps_to_Bps(torch.minimum(caps, bneck))
+                 + self.latency_s)
+        return self.fct_s / ideal
+
+    def delivered_gbps(self) -> float:
+        """Aggregate delivered injection rate over the makespan."""
+        done = np.isfinite(self.finish_s.cpu().numpy())
+        total = self.size_bytes.cpu().numpy()[done].sum()
+        return float(total * 8 / 1e9 / self.makespan_s) \
+            if self.makespan_s > 0 else 0.0
+
+
+def path_latency(inc: FlowIncidence, net: NetParams = DEFAULT_NET,
+                 backend: "str | None" = None) -> torch.Tensor:
+    """(F,) per-flow path alpha term from the incidence hop counts
+    (+2 access hops, as ``netsim.avg_latency`` counts them)."""
+    sw = inc.switch_hops(backend)
+    return net.t_nic + sw * net.t_switch + (sw + 2.0) * net.t_prop_per_hop
+
+
+def _event_loop(prob: SolveProblem, size, caps, start, tol: float):
+    """The epochs of one simulation: ``(finish, used_edge_bytes,
+    n_epochs, waterfill_rounds)``."""
+    F = size.shape[0]
+    thresh = 1e-9 * size.clamp_min(1.0)
+    t = start.min()
+    remaining = size.clone()
+    finish = torch.where(size == 0, start, torch.inf)
+    stalled = torch.zeros(F, dtype=torch.bool, device=size.device)
+    edge_bytes = torch.zeros(prob.n_edges, dtype=F64, device=size.device)
+    n_epochs = rounds = 0
+    for _ in range(4 * F + 8):
+        open_f = (remaining > thresh) & ~stalled
+        active = open_f & (start <= t * (1 + 1e-12) + 1e-18)
+        pend = open_f & ~active
+        has_pending = bool(pend.any())
+        pending_min = torch.where(pend, start, torch.inf).min()
+        if not bool(active.any()):
+            if not has_pending:
+                return finish, edge_bytes, n_epochs, rounds
+            t = pending_min
+            continue
+        rates, converged, r = waterfill(prob, caps, active, tol)
+        if not converged:
+            raise RuntimeError("water-filling failed to converge "
+                               f"({F} flows, {prob.n_edges} edges)")
+        rounds += r
+        rates = torch.where(active, rates, 0.0)
+        dead = active & (rates <= 0)
+        act = active
+        if not has_pending and bool(dead.any()):
+            stalled = stalled | dead
+            act = active & ~dead
+        Bps = rates * (1e9 / 8.0)
+        if bool(act.any()):
+            per_dt = torch.where(
+                act, remaining / Bps.clamp_min(1e-30), torch.inf)
+            dt = per_dt.min()
+            if has_pending:
+                dt = torch.minimum(dt, pending_min - t)
+        else:
+            # everything active just stalled: the reference's dt = 0 epoch
+            dt = torch.zeros((), dtype=F64, device=size.device)
+        moved = Bps * dt
+        remaining = (remaining - moved).clamp_min(0.0)
+        t = t + dt
+        finish = torch.where(act & (remaining <= thresh), t, finish)
+        edge_bytes = edge_bytes + prob.edge_sum(moved[prob.flow] * prob.frac)
+        n_epochs += 1
+    raise RuntimeError(f"flow sim failed to converge ({F} flows)")
+
+
+def simulate_incidence(inc: FlowIncidence, size_bytes, rate_caps_gbps,
+                       start_s=None, net: NetParams = DEFAULT_NET,
+                       backend: "str | None" = None,
+                       device=None) -> FlowSimResult:
+    """Run the event loop over a prebuilt incidence tensor.
+
+    ``size_bytes`` / ``rate_caps_gbps`` / ``start_s`` broadcast to (F,).
+    Active flows whose fair share is 0 (every path crosses a
+    zero-capacity edge) are marked stalled (``finish_s = inf``).
+    ``inc`` is moved to ``device`` (default ``cuda``).
+    """
+    backend = resolve_sim_backend(backend)
+    dev = resolve_device(device)
+    inc = inc.to(dev)
+    F = inc.n_flows
+
+    def vec(x):
+        return torch.as_tensor(x, dtype=F64, device=dev).broadcast_to(
+            (F,)).clone()
+
+    size, caps = vec(size_bytes), vec(rate_caps_gbps)
+    start = torch.zeros(F, dtype=F64, device=dev) if start_s is None \
+        else vec(start_s)
+    if bool((size < 0).any()) or bool((caps <= 0).any()):
+        raise ValueError("sizes must be >= 0 and rate caps > 0")
+    prob = SolveProblem.build(inc, backend)
+    edge_bytes = torch.zeros(inc.n_edges, dtype=F64, device=dev)
+    if F == 0:
+        finish, n_epochs, rounds = size.clone(), 0, 0
+    else:
+        tol = 1e-12 * _waterfill_scale(inc, caps)
+        finish, used_bytes, n_epochs, rounds = _event_loop(prob, size, caps,
+                                                           start, tol)
+        edge_bytes[prob.used] = used_bytes
+    lat = path_latency(inc, net, backend)
+    done = torch.isfinite(finish)
+    makespan = float((finish[done] - start.min()).max()) \
+        if bool(done.any()) else 0.0
+    return FlowSimResult(
+        start_s=start, finish_s=finish, fct_s=finish - start + lat,
+        latency_s=lat, size_bytes=size, edge_bytes=edge_bytes,
+        incidence=inc, backend=backend, makespan_s=makespan,
+        n_epochs=n_epochs, waterfill_rounds=rounds)
+
+
+def simulate_demands(router, demands, flow_time_s: float,
+                     mode: str = "minimal", net: NetParams = DEFAULT_NET,
+                     backend: "str | None" = None,
+                     inc: "FlowIncidence | None" = None,
+                     start_s=None) -> dict:
+    """Measured-FCT summary of one traffic matrix at its offered rates.
+
+    Each demand row becomes one flow sized to transfer for exactly
+    ``flow_time_s`` at its offered Gbps (uncontended, every FCT is
+    ``flow_time_s + alpha`` and the slowdown is 1.0).  ``inc`` may come
+    from a demand matrix with the same (src, dst) rows.  Runs on the
+    router's device.  Returns the flat row the sim suite writes: the
+    reference's columns plus ``sim_nnz`` and ``sim_waterfill_rounds``.
+    """
+    gbps = demands.gbps.to(router.device, F64)
+    if inc is None:
+        inc = flow_incidence(router, demands, mode)
+    res = simulate_incidence(inc, gbps_to_Bps(gbps) * flow_time_s, gbps,
+                             start_s=start_s, net=net, backend=backend,
+                             device=router.device)
+    pct = res.fct_percentiles()
+    slow = res.slowdown(gbps).cpu().numpy()
+    ok = np.isfinite(res.finish_s.cpu().numpy())
+    offered = float(gbps.cpu().numpy().sum())
+
+    def us(p):
+        return round(p * 1e6, 3) if p is not None else None
+
+    return {
+        "sim_flows": int(inc.n_flows),
+        "sim_epochs": res.n_epochs,
+        "sim_stalled": int((~ok).sum()),
+        "sim_delivered_fraction":
+            round(res.delivered_gbps() / offered, 6) if offered else 1.0,
+        "fct_p50_us": us(pct["p50"]),
+        "fct_p95_us": us(pct["p95"]),
+        "fct_p99_us": us(pct["p99"]),
+        "slowdown_mean": round(float(slow[ok].mean()), 4) if ok.any()
+            else None,
+        "slowdown_p99": round(float(np.percentile(slow[ok], 99)), 4)
+            if ok.any() else None,
+        "sim_nnz": inc.nnz,
+        "sim_waterfill_rounds": res.waterfill_rounds,
+    }

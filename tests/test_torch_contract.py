@@ -1,0 +1,137 @@
+"""The port's package contract.
+
+* No module under ``src/repro_torch/``, and not ``chip_smoke.py``, imports
+  ``jax`` or anything of the JAX package ``repro`` (an AST scan).
+* With ``jax`` and ``repro`` blocked, every module imports and the CPU
+  slice runs (a subprocess).
+* With no CUDA device, entry points called without ``device="cpu"`` raise
+  instead of running on the CPU; unknown backends raise; a wrapper handed
+  a tensor that is neither on the CPU nor on a GPU raises.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import resolve_sim_backend  # noqa: E402
+from repro_torch.convert import (demands_from_arrays,  # noqa: E402
+                                 incidence_from_arrays)
+from repro_torch.core.hyperx import MPHX  # noqa: E402
+from repro_torch.core.netsim import make_router, resolve_engine  # noqa: E402
+from repro_torch.core.routing_vec import (  # noqa: E402
+    VectorizedHyperXRouter, neighbor_shift_demands, uniform_demands)
+from repro_torch.experiments.run import main as cli_main  # noqa: E402
+from repro_torch.experiments.simsuite import run_sim_suite  # noqa: E402
+from repro_torch.kernels.segment_fairshare import segment_sum  # noqa: E402
+from repro_torch.sim.events import simulate_incidence  # noqa: E402
+from repro_torch.sim.fairshare import max_min_rates  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "src", "repro_torch")
+
+
+def port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, files in os.walk(PKG):
+        out += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    return out
+
+
+def forbidden(name: str) -> bool:
+    root = name.split(".")[0]
+    return root in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_reference_imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(forbidden(n) for n in names), (path, names)
+
+
+def test_package_runs_with_jax_blocked(tmp_path):
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import repro_torch
+        for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+            importlib.import_module(m.name)
+        from repro_torch.experiments.run import main
+        sys.exit(main(["--topos", "mphx-2p-8x8", "--device", "cpu",
+                       "--out", {str(tmp_path)!r}]))
+    """)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert (tmp_path / "sim.json").exists()
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+
+
+def test_entry_points_refuse_to_run_on_the_cpu_unasked(no_cuda, tmp_path):
+    topo = MPHX(n=2, p=8, dims=(8, 8))
+    inc = incidence_from_arrays([0], [0], [1.0], 1, [1.0], device="cpu")
+    calls = [
+        lambda: make_router(topo),
+        lambda: VectorizedHyperXRouter(topo),
+        lambda: uniform_demands(topo, 800.0),
+        lambda: neighbor_shift_demands(topo, 800.0),
+        lambda: max_min_rates(inc, [1.0]),
+        lambda: simulate_incidence(inc, 1.0, 1.0),
+        lambda: incidence_from_arrays([0], [0], [1.0], 1, [1.0]),
+        lambda: demands_from_arrays([0], [1], [1.0]),
+        lambda: run_sim_suite(str(tmp_path)),
+        lambda: cli_main(["--out", str(tmp_path)]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not (tmp_path / "sim.json").exists()
+
+
+def test_unknown_backend_raises():
+    with pytest.raises(ValueError, match="unknown fairshare backend 'auto'"):
+        resolve_sim_backend("auto")
+    inc = incidence_from_arrays([0], [0], [1.0], 1, [1.0], device="cpu")
+    for bad in ("auto", "numpy", "jax", "pallas"):
+        with pytest.raises(ValueError, match="expected one of"):
+            max_min_rates(inc, [1.0], backend=bad, device="cpu")
+
+
+def test_graph_engine_is_not_ported():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        resolve_engine(MPHX(n=2, p=8, dims=(8, 8)), "graph")
+
+
+def test_wrapper_has_no_fallback_off_the_cpu():
+    vals = torch.zeros(4, dtype=torch.float64, device="meta")
+    ids = torch.zeros(4, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        segment_sum(vals, ids, 2)
+
+
+def test_convert_checks_flow_order():
+    with pytest.raises(ValueError, match="sorted by flow"):
+        incidence_from_arrays(np.array([1, 0]), [0, 1], [1.0, 1.0], 2,
+                              [1.0, 1.0], device="cpu")

@@ -1,0 +1,173 @@
+"""The port's event loop against the JAX package's.
+
+The staggered golden trace of ``tests/golden/fairshare_golden.json`` with
+the exact epoch count (as ``tests/test_fairshare_golden.py`` holds the
+reference to it), ``simulate_demands`` rows against the reference's
+jitted loop (``backend="jax"``) at 1e-9 relative with integers exact, and
+the stalled-flow and uncontended cases against the reference's numpy
+loop.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.experimental  # noqa: E402
+
+from repro.core.hyperx import MPHX as RefMPHX  # noqa: E402
+from repro.core.netsim import make_router as ref_make_router  # noqa: E402
+from repro.core.routing_vec import (  # noqa: E402
+    neighbor_shift_demands as ref_shift, uniform_demands as ref_uniform)
+from repro.sim.events import (  # noqa: E402
+    path_latency as ref_path_latency, simulate_demands as ref_sim_demands,
+    simulate_incidence as ref_sim_incidence)
+from repro.sim.fairshare import FlowIncidence as RefIncidence  # noqa: E402
+from repro_torch.convert import incidence_from_arrays  # noqa: E402
+from repro_torch.core.hyperx import MPHX  # noqa: E402
+from repro_torch.core.netsim import make_router  # noqa: E402
+from repro_torch.core.routing_vec import (  # noqa: E402
+    neighbor_shift_demands, uniform_demands)
+from repro_torch.sim.events import (  # noqa: E402
+    path_latency, simulate_demands, simulate_incidence)
+from repro_torch.sim.fairshare import flow_incidence  # noqa: E402
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
+                      "fairshare_golden.json")
+BACKENDS = ("torch", "cuda")
+TOPOS = {"mphx-2p-8x8": dict(n=2, p=8, dims=(8, 8)),
+         "trunked": dict(n=4, p=8, dims=(9, 4), links_per_dim=(8, 8))}
+SCENARIOS = {"uniform": (ref_uniform, uniform_demands),
+             "neighbor_shift": (ref_shift, neighbor_shift_demands)}
+
+
+@pytest.fixture(autouse=True)
+def jax_x64_shim(monkeypatch):
+    """jax 0.9 moved ``enable_x64`` out of ``jax.experimental``, where the
+    reference imports it from; undone after each test."""
+    monkeypatch.setattr(jax.experimental, "enable_x64", jax.enable_x64,
+                        raising=False)
+
+
+def as_port(ref_inc):
+    return incidence_from_arrays(ref_inc.flow, ref_inc.edge, ref_inc.frac,
+                                 ref_inc.n_flows, ref_inc.capacity,
+                                 device="cpu")
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_staggered_trace_matches_golden(backend):
+    with open(GOLDEN) as f:
+        rec = json.load(f)["staggered"]
+    topo = MPHX(n=2, p=8, dims=(8, 8))
+    router = make_router(topo, device="cpu")
+    inc = flow_incidence(router, neighbor_shift_demands(topo, 800.0,
+                                                        device="cpu"))
+    size = np.asarray(rec["size_bytes"])
+    res = simulate_incidence(inc, size, np.asarray(rec["rate_caps_gbps"]),
+                             start_s=np.asarray(rec["start_s"]),
+                             backend=backend, device="cpu")
+    makespan = rec["makespan_s"]
+    tight = 1e-12
+    # exact epoch count: arrival batching and dead-flow stalling are the
+    # reference's, not merely its totals
+    assert res.n_epochs == rec["n_epochs"]
+    np.testing.assert_allclose(res.finish_s.numpy(), rec["finish_s"],
+                               rtol=0, atol=tight * makespan)
+    np.testing.assert_allclose(res.fct_s.numpy(), rec["fct_s"], rtol=0,
+                               atol=tight * makespan)
+    assert abs(res.makespan_s - makespan) <= tight * makespan
+    golden_bytes = np.zeros(inc.n_edges)
+    for e, v in rec["edge_bytes_nonzero"].items():
+        golden_bytes[int(e)] = v
+    np.testing.assert_allclose(res.edge_bytes.numpy(), golden_bytes,
+                               rtol=tight, atol=tight * size.sum())
+
+
+def assert_rows_match(got: dict, want: dict):
+    for k, v in want.items():
+        w = got[k]
+        if isinstance(v, float) and v != 0:
+            assert abs(w - v) <= 1e-9 * abs(v), (k, w, v)
+        else:
+            assert w == v, (k, w, v)
+
+
+@pytest.mark.parametrize("load", (0.5, 1.2))
+@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
+@pytest.mark.parametrize("topo_name", sorted(TOPOS))
+def test_simulate_demands_matches_jit_reference(topo_name, scenario, load):
+    kw = TOPOS[topo_name]
+    ref_topo, topo = RefMPHX(**kw), MPHX(**kw)
+    ref_build, build = SCENARIOS[scenario]
+    offered = load * topo.nic_bw_gbps
+    want = ref_sim_demands(ref_make_router(ref_topo, backend="numpy"),
+                           ref_build(ref_topo, offered), 200e-6,
+                           backend="jax")
+    for backend in BACKENDS:
+        got = simulate_demands(make_router(topo, device="cpu"),
+                               build(topo, offered, device="cpu"), 200e-6,
+                               backend=backend)
+        assert_rows_match(got, want)
+        assert got["sim_nnz"] > 0 and got["sim_waterfill_rounds"] >= 1
+
+
+def stalled_incidence():
+    """Flows 0 and 1 cross a zero-capacity edge; flow 2 arrives later."""
+    return RefIncidence(flow=np.array([0, 0, 1, 2]),
+                        edge=np.array([0, 1, 1, 2]),
+                        frac=np.array([1.0, 1.0, 0.5, 1.0]), n_flows=3,
+                        capacity=np.array([4.0, 0.0, 2.0]))
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_dead_flows_stall_like_the_reference(backend):
+    ref_inc = stalled_incidence()
+    size, caps = np.array([1e6, 2e6, 5e5]), np.array([3.0, 3.0, 1.0])
+    start = np.array([0.0, 0.0, 1e-3])
+    want = ref_sim_incidence(ref_inc, size, caps, start_s=start,
+                             backend="numpy")
+    got = simulate_incidence(as_port(ref_inc), size, caps, start_s=start,
+                             backend=backend, device="cpu")
+    assert got.n_epochs == want.n_epochs
+    np.testing.assert_array_equal(got.stalled.numpy(), want.stalled)
+    np.testing.assert_allclose(got.finish_s.numpy(), want.finish_s,
+                               rtol=1e-12)
+    np.testing.assert_allclose(got.edge_bytes.numpy(), want.edge_bytes,
+                               rtol=1e-12)
+    assert got.makespan_s == pytest.approx(want.makespan_s, rel=1e-12)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_uncontended_flow_is_the_closed_form(backend):
+    ref_inc = RefIncidence(flow=np.array([0, 0]), edge=np.array([1, 3]),
+                           frac=np.array([1.0, 0.5]), n_flows=1,
+                           capacity=np.array([9.0, 4.0, 9.0, 1.0]))
+    inc = as_port(ref_inc)
+    lat = path_latency(inc, backend=backend)
+    np.testing.assert_allclose(lat.numpy(), ref_path_latency(ref_inc),
+                               rtol=1e-15)
+    res = simulate_incidence(inc, 1e6, 10.0, backend=backend, device="cpu")
+    # bottleneck min(4/1, 1/0.5) = 2 Gbps
+    want = 1e6 / (2.0 * 1e9 / 8) + float(lat[0])
+    assert float(res.fct_s[0]) == pytest.approx(want, rel=1e-12)
+    assert float(res.slowdown(10.0)[0]) == pytest.approx(1.0, rel=1e-12)
+    assert res.fct_percentiles() == {f"p{q}": float(res.fct_s[0])
+                                     for q in (50, 95, 99)}
+
+
+def test_empty_flow_set():
+    inc = incidence_from_arrays([], [], [], 0, np.ones(3), device="cpu")
+    res = simulate_incidence(inc, np.zeros(0), 1.0, device="cpu")
+    assert res.n_epochs == 0 and res.makespan_s == 0.0
+    assert res.edge_bytes.shape == (3,)
+    assert res.fct_percentiles() == {"p50": None, "p95": None, "p99": None}
+
+
+def test_negative_sizes_rejected():
+    inc = incidence_from_arrays([0], [0], [1.0], 1, [1.0], device="cpu")
+    with pytest.raises(ValueError, match="sizes must be >= 0"):
+        simulate_incidence(inc, -1.0, 1.0, device="cpu")

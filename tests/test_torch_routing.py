@@ -1,0 +1,104 @@
+"""The port's MPHX and minimal router against the JAX package's.
+
+Same topology parameters on both sides; the reference routes with its
+numpy backend.  Demand arrays and edge capacities must be equal, the
+incidence's ``flow`` and ``edge`` columns equal (the same COO order, which
+is the summation order downstream) with ``frac`` within 1e-15, and the
+``route_minimal`` loads within 1e-12 of the largest load.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core.hyperx import MPHX as RefMPHX  # noqa: E402
+from repro.core.routing_vec import (  # noqa: E402
+    VectorizedHyperXRouter as RefRouter,
+    neighbor_shift_demands as ref_shift, uniform_demands as ref_uniform)
+from repro_torch.core.hyperx import MPHX  # noqa: E402
+from repro_torch.core.netsim import make_router  # noqa: E402
+from repro_torch.core.routing_vec import (  # noqa: E402
+    neighbor_shift_demands, uniform_demands)
+
+TOPOS = {
+    "mphx-2p-8x8": dict(n=2, p=8, dims=(8, 8)),
+    "3d": dict(n=1, p=4, dims=(4, 3, 5)),
+    # dim 2 trunks 8 links over its 3 neighbours, as mphx-4p-86x9 does
+    "trunked": dict(n=4, p=8, dims=(9, 4), links_per_dim=(8, 8)),
+}
+SCENARIOS = {"uniform": (ref_uniform, uniform_demands),
+             "neighbor_shift": (ref_shift, neighbor_shift_demands)}
+
+
+def setup(topo_name, scenario, load=0.7):
+    kw = TOPOS[topo_name]
+    ref_topo, topo = RefMPHX(**kw), MPHX(**kw)
+    ref_build, build = SCENARIOS[scenario]
+    offered = load * topo.nic_bw_gbps
+    return (RefRouter(ref_topo, backend="numpy"), ref_build(ref_topo, offered),
+            make_router(topo, device="cpu"),
+            build(topo, offered, device="cpu"))
+
+
+@pytest.mark.parametrize("topo_name", sorted(TOPOS))
+def test_topology_quantities_match(topo_name):
+    ref, port = RefMPHX(**TOPOS[topo_name]), MPHX(**TOPOS[topo_name])
+    for attr in ("name", "n_nics", "n_switches", "n_optics", "diameter",
+                 "port_gbps", "switches_per_plane", "radix_used"):
+        assert getattr(port, attr) == getattr(ref, attr), attr
+    assert port.avg_hops() == ref.avg_hops()
+    assert port.bisection_links() == ref.bisection_links()
+    assert port.feasibility() == ref.feasibility()
+
+
+@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
+@pytest.mark.parametrize("topo_name", sorted(TOPOS))
+def test_demands_and_capacity_equal(topo_name, scenario):
+    ref_router, ref_dem, router, dem = setup(topo_name, scenario)
+    np.testing.assert_array_equal(dem.src.numpy(), ref_dem.src)
+    np.testing.assert_array_equal(dem.dst.numpy(), ref_dem.dst)
+    np.testing.assert_array_equal(dem.gbps.numpy(), ref_dem.gbps)
+    np.testing.assert_array_equal(router.edge_capacity().numpy(),
+                                  ref_router.edge_capacity())
+    assert router.mean_switch_hops() == ref_router.mean_switch_hops()
+
+
+@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
+@pytest.mark.parametrize("topo_name", sorted(TOPOS))
+def test_incidence_has_the_reference_order(topo_name, scenario):
+    ref_router, ref_dem, router, dem = setup(topo_name, scenario)
+    rf, re, rfr = ref_router.incidence(ref_dem, "minimal")
+    f, e, fr = router.incidence(dem, "minimal")
+    assert f.dtype == e.dtype == torch.int64 and fr.dtype == torch.float64
+    np.testing.assert_array_equal(f.numpy(), rf)
+    np.testing.assert_array_equal(e.numpy(), re)
+    np.testing.assert_allclose(fr.numpy(), rfr, rtol=0, atol=1e-15)
+
+
+@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
+@pytest.mark.parametrize("topo_name", sorted(TOPOS))
+def test_route_minimal_loads_match(topo_name, scenario):
+    ref_router, ref_dem, router, dem = setup(topo_name, scenario)
+    ref_ll = ref_router.route(ref_dem, "minimal")
+    ll = router.route(dem, "minimal")
+    want = np.asarray(ref_ll.loads)
+    np.testing.assert_allclose(ll.loads.numpy(), want, rtol=0,
+                               atol=1e-12 * want.max())
+    assert abs(ll.max_utilization() - ref_ll.max_utilization()) <= 1e-12
+    np.testing.assert_allclose(ll.utilization_array().numpy(),
+                               ref_ll.utilization_array(), rtol=0,
+                               atol=1e-12)
+
+
+def test_unported_modes_raise():
+    _, _, router, dem = setup("mphx-2p-8x8", "uniform")
+    for mode in ("valiant", "adaptive"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            router.route(dem, mode)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        router.incidence(dem, "valiant")
+    with pytest.raises(ValueError, match="no static per-flow incidence"):
+        router.incidence(dem, "adaptive")
+    with pytest.raises(ValueError, match="unknown mode"):
+        router.route(dem, "bogus")
