@@ -5,16 +5,19 @@ Usage (from the repository root, on a machine with a CUDA card):
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure raises and the exit code
-is nonzero:
+Phases, each printing JSON lines; any failure raises and the exit code is
+nonzero:
 
 1. ``env``: the card (``nvidia-smi``), torch and CUDA versions.
-2. ``build``: nvcc builds the segment-reduce kernels from ``src/``.
-3. ``kernel``: each kernel against its plain PyTorch version on the card,
-   at edge-case sizes and at the main path's shapes (mphx-4p-86x9
-   uniform: the incidence's edge and flow columns), twice for bitwise
-   repeatability, with its time, the time of its plain version and of
-   the one PyTorch call that computes the same function, and its bound.
+2. ``build``: nvcc builds the three kernel libraries from ``src/``
+   (segment reduce, RMSNorm, flash attention), one nvcc each, all started
+   together, with each kernel's registers and spills.
+3. ``kernel``: the segment kernels against their plain PyTorch versions
+   on the card, at edge-case sizes and at the sim path's shapes
+   (mphx-4p-86x9 uniform: the incidence's edge and flow columns), twice
+   for bitwise repeatability, with their time, the time of the plain
+   version and of the one PyTorch call that computes the same function,
+   and their bound.
 4. ``main_path``: ``--suite sim`` on mphx-4p-86x9 (uniform and
    neighbor_shift, loads 0.5 and 0.9) through the hand-written kernels,
    with the launch counts read around that run alone; then again with
@@ -23,7 +26,21 @@ is nonzero:
 5. ``golden``: the mphx-2p-8x8 cells and the staggered trace of
    ``tests/golden/fairshare_golden.json`` on the card, with the exact
    epoch count.
-6. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
+6. ``model_kernel``: RMSNorm and flash attention against their plain
+   versions (edge cases: ragged sizes, decode, GQA and MQA, a window, a
+   ring cache with empty and wrapped slots, float32 and bfloat16), at
+   the serve path's shapes (float32 at 2e-5; bfloat16, and for
+   attention each output row within 2e-2 of its max), twice for bitwise
+   repeatability, with the same times and bounds as phase 3.
+7. ``serve``: yi-9b at full width and depth (random bf16 weights drawn
+   on the card from a seed) serves 8 requests of 1,024 prompt tokens and
+   32 new tokens each in waves of 4 through the kernels, with the launch
+   counts read around that run alone (97 RMSNorm and 48 attention
+   launches per forward pass); then the same requests on the plain path.
+   Prefill and teacher-forced decode logits of the two paths must agree,
+   and a float32 2-layer yi-9b must agree at 2e-5; a decode wave is
+   profiled for the device's idle share.
+8. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
@@ -49,10 +66,12 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "build" / "repro_torch" / "chip_smoke"
 GOLDEN = ROOT / "tests" / "golden" / "fairshare_golden.json"
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and float64 outside
-# the tensor cores.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, float64 and float32
+# outside the tensor cores, bf16 on the tensor cores (dense).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP64_PER_S = 34e12
+PEAK_FP32_PER_S = 67e12
+PEAK_BF16_PER_S = 989e12
 
 MAIN_TOPO = "mphx-4p-86x9"
 MAIN_SCENARIOS = ["uniform", "neighbor_shift"]
@@ -66,6 +85,28 @@ KERNELS = {
     "segment_min": "src/repro/kernels/segment_fairshare/kernel.py:107",
 }
 SOURCE = "src/repro_torch/kernels/segment_fairshare/csrc/segment_reduce.cu"
+MODEL_KERNELS = {
+    "rmsnorm": ("src/repro/kernels/rmsnorm/kernel.py:25",
+                "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu"),
+    "flash_attention": (
+        "src/repro/kernels/flash_attention/kernel.py:97",
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"),
+}
+# the serve path: yi-9b, 8 requests of 1,024 tokens, 32 new, waves of 4
+SERVE_ARCH = "yi-9b"
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_BATCH = 8, 1024, 32, 4
+SERVE_SEED = 0
+SERVE_MAX_LEN = SERVE_PROMPT + SERVE_NEW + 1
+# logits of the kernel path vs the plain path, as max |diff| / max |logit|:
+# bf16 at tests/test_kernels.py's 5e-2, float32 at its 2e-5
+SERVE_TOL = {"bfloat16": 5e-2, "float32": 2e-5}
+# bf16 attention at the serve path's shapes, per output row (one query
+# head's Dh values): max |kernel - plain| within this share of the row's
+# max |plain|.  The kernel keeps the softmax weights in fp32 where the
+# plain version rounds them to bf16 before the PV product; the two then
+# differ by one bf16 ulp of the row's max (2^-7 of it on an NVIDIA H100
+# 80GB HBM3 at 700 W), and 2e-2 leaves 2.5 times that.
+ATTN_ROW_TOL_BF16 = 2e-2
 
 
 def emit(phase: str, **fields) -> None:
@@ -414,6 +455,440 @@ def phase_golden() -> None:
          epochs=res.n_epochs, finish_max_abs_err=ferr, ok=True)
 
 
+def phase_build() -> None:
+    """nvcc for the three libraries at once (one process each)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.flash_attention.ops import LIBRARY as attn_lib
+    from repro_torch.kernels.rmsnorm.ops import LIBRARY as norm_lib
+    from repro_torch.kernels.segment_fairshare.ops import LIBRARY as seg_lib
+
+    def build(lib):
+        t0 = time.perf_counter()
+        path, log = lib.build()
+        return lib, path, log, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        built = list(pool.map(build, (seg_lib, norm_lib, attn_lib)))
+    wall = time.perf_counter() - t0
+    for lib, path, log, seconds in built:
+        lib.load()
+        emit("build", library=os.path.relpath(path, ROOT), seconds=seconds,
+             ptxas=[l.strip() for l in log.splitlines()
+                    if "Compiling entry" in l or "registers" in l
+                    or "spill" in l])
+    emit("build", parallel_wall_s=wall, ok=True)
+
+
+def check_close(name: str, got, again, want, tol: float,
+                where: str) -> float:
+    """Kernel vs plain version: within ``tol`` absolute and relative (the
+    dtype's tolerance), the same shape and dtype, two kernel runs the same
+    bits.  Returns the max abs error."""
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name} {where}: two runs differ")
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name} {where}: {tuple(got.shape)} "
+                             f"{got.dtype} != {tuple(want.shape)} "
+                             f"{want.dtype}")
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{name} {where}: non-finite output")
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    if not bool(((g - w).abs() <= tol + tol * w.abs()).all()):
+        raise AssertionError(f"{name} {where}: max abs err {err} beyond "
+                             f"{tol} abs + {tol} rel")
+    return err
+
+
+def row_rel_err(got, want) -> float:
+    """max over the last axis's rows of max |got - want| / max |want|."""
+    g, w = got.float(), want.float()
+    gap = (g - w).abs().amax(dim=-1)
+    top = w.abs().amax(dim=-1)
+    if bool((gap > 0).logical_and(top == 0).any()):
+        return math.inf
+    return float((gap / top.clamp_min(torch.finfo(torch.float32).tiny))
+                 .max())
+
+
+def ring_kv_pos(cap: int, written: int, device) -> torch.Tensor:
+    """kv_pos of a ring cache after positions 0..written-1: -1 = empty."""
+    kv_pos = torch.full((cap,), -1, dtype=torch.int32)
+    for p in range(written):
+        kv_pos[p % cap] = p
+    return kv_pos.to(device)
+
+
+def attention_inputs(gen, B, Sq, K, G, Skv, Dh, dtype):
+    """q (B,Sq,K,G,Dh), k and v (B,Skv,K,Dh), standard normal."""
+    dev = torch.device("cuda")
+    q = torch.randn(B, Sq, K, G, Dh, device=dev, generator=gen).to(dtype)
+    kv = [torch.randn(B, Skv, K, Dh, device=dev, generator=gen).to(dtype)
+          for _ in range(2)]
+    return q, kv[0], kv[1]
+
+
+def attention_cost(q, k, q_pos, kv_pos, causal, window) -> dict:
+    """Least time for one attention call: q, o and the attended keys'
+    k and v moved once, or 4*Dh operations per attended (query head,
+    key) pair on the bf16 tensor cores (float32 outside them)."""
+    from repro_torch.kernels.flash_attention import attention_mask
+
+    B, Sq, K, G, Dh = q.shape
+    mask = attention_mask(q_pos, kv_pos, causal, window)
+    pairs = int(mask.sum())
+    keys = int(mask.any(dim=0).sum())
+    elt = q.element_size()
+    n_bytes = 2 * q.numel() * elt + 2 * B * keys * K * Dh * elt \
+        + 4 * (q_pos.numel() + kv_pos.numel())
+    ops = 4 * Dh * B * K * G * pairs
+    peak = PEAK_BF16_PER_S if q.dtype == torch.bfloat16 else PEAK_FP32_PER_S
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, ops / peak
+    return {"bytes": n_bytes, "flops": ops,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def rmsnorm_cost(x, scale) -> dict:
+    """Least time for one RMSNorm: x read and written once, the scale
+    read once, or 4 float32 operations per element outside the tensor
+    cores."""
+    n_bytes = 2 * x.numel() * x.element_size() \
+        + scale.numel() * scale.element_size()
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = 4 * x.numel() / PEAK_FP32_PER_S
+    return {"bytes": n_bytes, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_model_kernels() -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tol = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dtypes = (torch.float32, torch.bfloat16)
+
+    # RMSNorm edge cases: (N, D), ragged and misaligned rows
+    for n, d in [(1, 16), (7, 64), (5, 13), (33, 1000), (9, 8192)]:
+        for dt in dtypes:
+            x = torch.randn(n, d, device=dev, generator=gen).to(dt)
+            s = torch.randn(d, device=dev, generator=gen).to(dt)
+            err = check_close("rmsnorm", rn.rmsnorm(x, s, 1e-6),
+                              rn.rmsnorm(x, s, 1e-6),
+                              rn.rmsnorm_ref(x, s, 1e-6), tol[dt],
+                              f"({n}, {d}) {dt}")
+            emit("model_kernel", kernel="rmsnorm", case="edge",
+                 shape=[n, d], dtype=str(dt), max_abs_err=err, ok=True)
+
+    # rows of a wider buffer (the prefill's last position), with and
+    # without 16-byte vector loads
+    for pad in (8, 3):
+        x = torch.randn(4, 4096 + pad, device=dev, generator=gen).to(
+            torch.bfloat16)[:, :4096]
+        s = torch.randn(4096, device=dev, generator=gen).to(torch.bfloat16)
+        err = check_close("rmsnorm", rn.rmsnorm(x, s, 1e-6),
+                          rn.rmsnorm(x, s, 1e-6), rn.rmsnorm_ref(x, s, 1e-6),
+                          tol[x.dtype], f"strided rows, pad {pad}")
+        emit("model_kernel", kernel="rmsnorm", case=f"strided rows +{pad}",
+             shape=[4, 4096], dtype="bfloat16", max_abs_err=err, ok=True)
+
+    # attention edge cases: (name, B, Sq, K, G, Skv, Dh, positions, window)
+    # positions: None = right-aligned contiguous, else (q_pos, cap, written)
+    edge = [("prefill-gqa-ragged", 2, 100, 2, 4, 100, 64, None, None),
+            ("prefill-mha-1024-rows", 1, 1030, 2, 1, 1030, 128, None, None),
+            ("mqa-window", 2, 80, 1, 8, 80, 16, None, 8),
+            ("cross-ragged-dh32", 1, 33, 2, 2, 77, 32, None, None),
+            ("decode-ring-empty", 4, 1, 4, 8, 70, 128, ([40], 70, 41), None),
+            ("decode-ring-wrapped", 2, 1, 2, 4, 64, 64, ([150], 64, 151),
+             16)]
+    for name, B, Sq, K, G, Skv, Dh, pos, window in edge:
+        for dt in dtypes:
+            q, k, v = attention_inputs(gen, B, Sq, K, G, Skv, Dh, dt)
+            if pos is None:
+                q_pos, kv_pos = fa.right_aligned_positions(Sq, Skv, dev)
+            else:
+                q_pos = torch.tensor(pos[0], dtype=torch.int32, device=dev)
+                kv_pos = ring_kv_pos(pos[1], pos[2], dev)
+            args = (q, k, v, q_pos, kv_pos)
+            kw = dict(causal=True, window=window)
+            err = check_close("flash_attention", fa.flash_attention(*args,
+                                                                    **kw),
+                              fa.flash_attention(*args, **kw),
+                              fa.attention_ref(*args, **kw), tol[dt],
+                              f"{name} {dt}")
+            emit("model_kernel", kernel="flash_attention", case=name,
+                 dtype=str(dt), q=list(q.shape), kv=list(k.shape),
+                 window=window, max_abs_err=err, ok=True)
+
+    results = {}
+    # the serve path's RMSNorm shapes: prefill rows B*S, decode rows B;
+    # float32 at its tolerance, then bf16 (timed)
+    for rows in (SERVE_BATCH * SERVE_PROMPT, SERVE_BATCH):
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(rows, 4096, device=dev, generator=gen).to(dt)
+            s = torch.randn(4096, device=dev, generator=gen).to(dt)
+            errs[dt] = check_close("rmsnorm", rn.rmsnorm(x, s, 1e-6),
+                                   rn.rmsnorm(x, s, 1e-6),
+                                   rn.rmsnorm_ref(x, s, 1e-6), tol[dt],
+                                   f"path ({rows}, 4096) {dt}")
+        # x and s are now the bf16 inputs: timed below
+
+        def call():
+            rn.rmsnorm(x, s, 1e-6)
+
+        def lib_call():
+            F.rms_norm(x, (4096,), weight=s, eps=1e-6)
+
+        row = {"max_abs_err": errs[torch.bfloat16], "ms": time_ms(call),
+               "plain_ms": time_ms(lambda: rn.rmsnorm_ref(x, s, 1e-6)),
+               "library_ms": time_ms(lib_call), **rmsnorm_cost(x, s)}
+        results.setdefault("rmsnorm", row)
+        emit("model_kernel", kernel="rmsnorm",
+             case="prefill" if rows > SERVE_BATCH else "decode",
+             shape=[rows, 4096], dtype="bfloat16", **row,
+             float32_max_abs_err=errs[torch.float32],
+             library="torch.nn.functional.rms_norm",
+             kernel_device_ms=device_ms(call, "rmsnorm_kernel"),
+             library_device_ms=device_ms(lib_call, ""),
+             achieved_GBps=row["bytes"] / (row["ms"] * 1e-3) / 1e9, ok=True)
+
+    # the serve path's attention: prefill over the prompt's own keys (as
+    # the reference's prefill), the same queries over a 1,057-slot cache
+    # holding the prompt, and a decode step over 1,040 filled slots
+    B, K, G, Dh = SERVE_BATCH, 4, 8, 128
+    S, cap = SERVE_PROMPT, SERVE_MAX_LEN
+    cache_pos = ring_kv_pos(cap, S, dev)
+    path = [("prefill", S, S, None, None),
+            ("prefill-over-cache", S, cap, None, cache_pos),
+            ("decode", 1, cap, [1039], ring_kv_pos(cap, 1040, dev))]
+    for name, Sq, Skv, qp, kv_pos in path:
+        if kv_pos is None:
+            q_pos, kv_pos = fa.right_aligned_positions(Sq, Skv, dev)
+        else:
+            q_pos = torch.arange(Sq, dtype=torch.int32, device=dev) \
+                if qp is None else torch.tensor(qp, dtype=torch.int32,
+                                                device=dev)
+        # float32 at its tolerance first: no bf16 rounding hides a
+        # dropped tile or a wrong mask; then bf16 (timed), held per row
+        q, k, v = attention_inputs(gen, B, Sq, K, G, Skv, Dh, torch.float32)
+        args = (q, k, v, q_pos, kv_pos)
+        err32 = check_close("flash_attention", fa.flash_attention(*args),
+                            fa.flash_attention(*args),
+                            fa.attention_ref(*args), tol[q.dtype],
+                            f"path {name} float32")
+        q, k, v = attention_inputs(gen, B, Sq, K, G, Skv, Dh,
+                                   torch.bfloat16)
+        args = (q, k, v, q_pos, kv_pos)
+        got, want = fa.flash_attention(*args), fa.attention_ref(*args)
+        err = check_close("flash_attention", got, fa.flash_attention(*args),
+                          want, tol[q.dtype], f"path {name}")
+        row_err = row_rel_err(got, want)
+        if row_err > ATTN_ROW_TOL_BF16:
+            raise AssertionError(f"flash_attention path {name}: a row "
+                                 f"differs by {row_err} of its max |o| > "
+                                 f"{ATTN_ROW_TOL_BF16}")
+        del got, want
+        # the yardstick: SDPA on (B, H, S, Dh) copies made beforehand
+        qs = q.reshape(B, Sq, K * G, Dh).transpose(1, 2).contiguous()
+        ks, vs = (t.transpose(1, 2).contiguous() for t in (k, v))
+        mask = fa.attention_mask(q_pos, kv_pos, True, None)
+        sdpa_kw = dict(is_causal=True) if name == "prefill" else \
+            dict(attn_mask=mask)
+
+        def call():
+            fa.flash_attention(*args)
+
+        def lib_call():
+            return F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True,
+                                                  **sdpa_kw)
+
+        lib_err = float((lib_call().transpose(1, 2).reshape(q.shape).float()
+                         - fa.attention_ref(*args).float()).abs().max())
+        heavy = Sq > 1
+        row = {"max_abs_err": err,
+               "ms": time_ms(call, reps=5 if heavy else 20),
+               "plain_ms": time_ms(lambda: fa.attention_ref(*args),
+                                   reps=3 if heavy else 20, samples=3),
+               "library_ms": time_ms(lib_call, reps=5 if heavy else 20),
+               **attention_cost(q, k, q_pos, kv_pos, True, None)}
+        results.setdefault("flash_attention", row)
+        emit("model_kernel", kernel="flash_attention", case=name,
+             q=list(q.shape), kv=list(k.shape), dtype="bfloat16", **row,
+             max_row_rel_err=row_err, row_tolerance=ATTN_ROW_TOL_BF16,
+             float32_max_abs_err=err32, float32_tolerance=tol[torch.float32],
+             library="scaled_dot_product_attention(enable_gqa=True, "
+                     + ("is_causal=True)" if name == "prefill"
+                        else "attn_mask)"),
+             library_max_abs_err_vs_plain=lib_err,
+             kernel_device_ms=device_ms(call, "flash_attention_kernel",
+                                        reps=5),
+             library_device_ms=device_ms(lib_call, "", reps=5),
+             achieved_TFLOPs=row["flops"] / (row["ms"] * 1e-3) / 1e12,
+             ok=True)
+    return results
+
+
+def logits_gap(got, want) -> "tuple[float, float]":
+    """max |got - want| and max |want| over finite logits."""
+    if not bool(torch.isfinite(got).all() and torch.isfinite(want).all()):
+        raise AssertionError("non-finite logits")
+    return float((got - want).abs().max()), float(want.abs().max())
+
+
+def teacher_forced(kern, plain, params, prompts, steps: int, tol: float,
+                   where: str) -> dict:
+    """Prefill and ``steps`` decode steps on both paths, each fed the
+    plain path's greedy token, so one near-tie cannot decide the
+    comparison.  Every logit within ``tol * max |logit|``."""
+    lk, ck = kern.prefill(params, prompts, max_len=SERVE_MAX_LEN)
+    lp, cp = plain.prefill(params, prompts, max_len=SERVE_MAX_LEN)
+    if lk.shape != (prompts.shape[0], kern.cfg.vocab_size) \
+            or lk.dtype != torch.float32:
+        raise AssertionError(f"{where}: logits {tuple(lk.shape)} {lk.dtype}")
+    gap, top = logits_gap(lk, lp)
+    worst = {"prefill_max_abs_diff": gap, "prefill_max_abs_logit": top}
+    rel = [gap / top]
+    for _ in range(steps):
+        tok = torch.argmax(lp, dim=-1)[:, None]
+        lk, ck = kern.decode_step(params, tok, ck)
+        lp, cp = plain.decode_step(params, tok, cp)
+        gap, top = logits_gap(lk, lp)
+        rel.append(gap / top)
+    worst.update(decode_steps=steps, max_rel_diff=max(rel),
+                 prefill_rel_diff=rel[0], decode_max_rel_diff=max(rel[1:]),
+                 tolerance=tol)
+    if max(rel) > tol:
+        raise AssertionError(f"{where}: logits differ by {max(rel)} of "
+                             f"max |logit| > {tol}")
+    return worst
+
+
+def phase_serve(card: str) -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.serve.engine import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(SERVE_ARCH)
+    kern = get_model(cfg, kernel_backend="cuda")
+    plain = get_model(cfg, kernel_backend="torch")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = kern.init(SERVE_SEED)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    n_params = kern.param_count()
+    emit("serve", card=card, arch=SERVE_ARCH, params=n_params,
+         param_dtype=cfg.param_dtype, layers=cfg.n_layers,
+         weight_fill_s=fill_s,
+         weights_GB=torch.cuda.memory_allocated() / 1e9)
+
+    def serve(model, requests: int, prompt: int, new: int):
+        reqs = make_requests(cfg, requests, prompt, new, SERVE_SEED)
+        eng = ServeEngine(model, params, max_batch=SERVE_BATCH,
+                          max_len=prompt + new + 1, seed=SERVE_SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        return eng.stats, reqs, time.perf_counter() - t0, \
+            torch.cuda.max_memory_allocated()
+
+    # a short run of each path first: neither timed run pays first use
+    serve(kern, 1, 64, 2)
+    serve(plain, 1, 64, 2)
+    rn.reset_launch_counts()
+    fa.reset_launch_counts()
+    runs = {"cuda": serve(kern, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW)}
+    launches = {"rmsnorm": rn.LAUNCHES["rmsnorm"],
+                "flash_attention": fa.LAUNCHES["flash_attention"]}
+    runs["torch"] = serve(plain, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW)
+    for backend, (stats, reqs, wall, peak) in runs.items():
+        if stats.tokens_out != SERVE_REQUESTS * SERVE_NEW or any(
+                len(r.output) != SERVE_NEW or not r.done for r in reqs):
+            raise AssertionError(f"{backend}: {stats.tokens_out} tokens out")
+        emit("serve", card=card, kernel_backend=backend,
+             requests=SERVE_REQUESTS,
+             prompt_tokens=SERVE_PROMPT, new_tokens=SERVE_NEW,
+             max_batch=SERVE_BATCH, waves=stats.waves, wall_s=wall,
+             prefill_s=stats.prefill_s, decode_s=stats.decode_s,
+             decode_tok_per_s=stats.decode_tok_per_s,
+             prefill_tok_per_s=SERVE_REQUESTS * SERVE_PROMPT
+             / stats.prefill_s, peak_memory_GB=peak / 1e9)
+    # each wave: one prefill, then one decode step per new token (the
+    # last step's logits are not sampled, as in the reference's engine)
+    passes = runs["cuda"][0].waves * (1 + SERVE_NEW)
+    want = {"rmsnorm": passes * (2 * cfg.n_layers + 1),
+            "flash_attention": passes * cfg.n_layers}
+    if launches != want:
+        raise AssertionError(f"serve launches {launches} != {want} "
+                             f"({passes} forward passes)")
+    same = sum(a == b for r, p in zip(runs["cuda"][1], runs["torch"][1])
+               for a, b in zip(r.output, p.output))
+    emit("serve", launches=launches, forward_passes=passes,
+         launches_per_pass={k: v / passes for k, v in launches.items()},
+         tokens_equal_to_plain_path=same,
+         tokens_total=SERVE_REQUESTS * SERVE_NEW)
+
+    prompts = torch.as_tensor(np.stack(
+        [r.prompt for r in runs["cuda"][1][:SERVE_BATCH]]), device="cuda")
+    bf16 = teacher_forced(kern, plain, params, prompts, SERVE_NEW,
+                          SERVE_TOL["bfloat16"], "yi-9b bf16")
+    emit("serve", check="teacher-forced logits, kernels vs plain",
+         dtype="bfloat16", **bf16, ok=True)
+
+    # where the time goes in one decode wave (sampling and the host read
+    # of the tokens included, as in the engine)
+    _, caches = kern.prefill(params, prompts, max_len=SERVE_MAX_LEN)
+    tok = prompts[:, -1:]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(SERVE_NEW):
+            logits, caches = kern.decode_step(params, tok, caches)
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            tok.cpu()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = device_events(prof)
+    busy_ms = sum(e[2] for e in events) / 1e3
+    emit("serve", card=card, profiled="decode wave", steps=SERVE_NEW,
+         wall_s=wall, device_busy_ms=busy_ms,
+         device_idle_share=1.0 - busy_ms / (wall * 1e3),
+         top_device_ops=[{"name": n[:80], "count": c, "ms": t / 1e3}
+                         for n, c, t in events[:10]])
+    del caches, params
+    torch.cuda.empty_cache()
+
+    # float32, 2 layers at full width: the kernels without bf16 rounding
+    cfg32 = cfg.replace(n_layers=2, param_dtype="float32",
+                        activation_dtype="float32")
+    kern32 = get_model(cfg32, kernel_backend="cuda")
+    params32 = kern32.init(SERVE_SEED)
+    f32 = teacher_forced(kern32, get_model(cfg32, kernel_backend="torch"),
+                         params32, prompts, 8, SERVE_TOL["float32"],
+                         "yi-9b 2-layer float32")
+    emit("serve", check="teacher-forced logits, kernels vs plain",
+         dtype="float32", layers=2, **f32, ok=True)
+    del params32
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -430,21 +905,16 @@ def main() -> int:
          device_name=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count())
 
-    from repro_torch.kernels.segment_fairshare import build
-
-    t0 = time.perf_counter()
-    path, log = build.build()
-    build.load_library()
-    emit("build", seconds=time.perf_counter() - t0,
-         library=os.path.relpath(path, ROOT),
-         ptxas=[l for l in log.splitlines() if "registers" in l
-                or "spill" in l])
-
+    phase_build()
     kernel_results = phase_kernels()
     launches = phase_main_path()
     phase_golden()
+    kernel_results.update(phase_model_kernels())
+    launches.update(phase_serve(card))
 
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
+    sources = {name: (replaces, SOURCE) for name, replaces in KERNELS.items()}
+    sources.update(MODEL_KERNELS)
+    kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": kernel_results[name]["max_abs_err"],
                 "ms": kernel_results[name]["ms"],
@@ -453,7 +923,7 @@ def main() -> int:
                 "bound_by": kernel_results[name]["bound_by"],
                 "library_ms": kernel_results[name]["library_ms"],
                 "ok": True}
-               for name, replaces in KERNELS.items()]
+               for name, (replaces, source) in sources.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

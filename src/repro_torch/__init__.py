@@ -1,4 +1,5 @@
-"""repro_torch — the MPHX flow simulator on PyTorch and CUDA.
+"""repro_torch — the MPHX flow simulator and the dense decoder LM on
+PyTorch and CUDA.
 
 A port of the JAX package ``repro`` (the reference, which stays as it
 is) to PyTorch on an NVIDIA Hopper GPU.  Module names mirror the
@@ -11,6 +12,8 @@ raises and asks for ``device="cpu"`` instead of quietly running on the
 CPU (:mod:`repro_torch._device`).
 """
 
-from ._device import SIM_BACKENDS, resolve_device, resolve_sim_backend
+from ._device import (KERNEL_BACKENDS, SIM_BACKENDS, resolve_device,
+                      resolve_kernel_backend, resolve_sim_backend)
 
-__all__ = ["SIM_BACKENDS", "resolve_device", "resolve_sim_backend"]
+__all__ = ["KERNEL_BACKENDS", "SIM_BACKENDS", "resolve_device",
+           "resolve_kernel_backend", "resolve_sim_backend"]

@@ -3,17 +3,18 @@
 * ``device=None`` means ``"cuda"``.  When no GPU is present that raises
   a ``RuntimeError`` asking for ``device="cpu"`` / ``--device cpu``; the
   port never carries on, on the CPU, unasked.
-* Solver backends: ``cuda`` runs the hand-written kernels of
-  :mod:`repro_torch.kernels.segment_fairshare` (their wrappers take the
-  plain PyTorch version only for tensors that lie on the CPU); ``torch``
-  runs the plain PyTorch versions on any device.  There is no ``auto``.
+* Backends, of the flow solver and of the model's kernels alike:
+  ``cuda`` runs the hand-written kernels of :mod:`repro_torch.kernels`
+  (their wrappers take the plain PyTorch version only for tensors that
+  lie on the CPU); ``torch`` runs the plain PyTorch versions on any
+  device.  There is no ``auto``.
 """
 
 from __future__ import annotations
 
 import torch
 
-SIM_BACKENDS = ("cuda", "torch")
+SIM_BACKENDS = KERNEL_BACKENDS = ("cuda", "torch")
 
 
 def resolve_device(device: "str | torch.device | None" = None
@@ -27,10 +28,19 @@ def resolve_device(device: "str | torch.device | None" = None
     return dev
 
 
-def resolve_sim_backend(backend: "str | None" = None) -> str:
-    """Normalize a fair-share solver backend name (``None`` = ``cuda``)."""
+def _resolve_backend(backend: "str | None", what: str) -> str:
     backend = "cuda" if backend is None else backend
     if backend not in SIM_BACKENDS:
-        raise ValueError(f"unknown fairshare backend {backend!r}; "
+        raise ValueError(f"unknown {what} backend {backend!r}; "
                          f"expected one of {SIM_BACKENDS}")
     return backend
+
+
+def resolve_sim_backend(backend: "str | None" = None) -> str:
+    """Normalize a fair-share solver backend name (``None`` = ``cuda``)."""
+    return _resolve_backend(backend, "fairshare")
+
+
+def resolve_kernel_backend(backend: "str | None" = None) -> str:
+    """Normalize a model kernel backend name (``None`` = ``cuda``)."""
+    return _resolve_backend(backend, "kernel")

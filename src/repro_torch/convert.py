@@ -1,11 +1,12 @@
 """Carry the reference's state across: numpy arrays in, the port's
 objects out.
 
-This system has no weights; its state is the routed flow set (the
-incidence COO and the edge capacities) and the demand matrix.  The
-functions take plain numpy arrays — an incidence's ``flow``, ``edge``,
-``frac``, ``n_flows`` and ``capacity``, a demand set's ``src``, ``dst``
-and ``gbps`` — so nothing of the reference package is imported.
+The simulator's state is the routed flow set (the incidence COO and the
+edge capacities) and the demand matrix: an incidence's ``flow``,
+``edge``, ``frac``, ``n_flows`` and ``capacity``, a demand set's
+``src``, ``dst`` and ``gbps``.  The decoder LM's state is its parameter
+tree.  The functions take plain numpy arrays (nested dicts of them for a
+parameter tree), so nothing of the reference package is imported.
 """
 
 from __future__ import annotations
@@ -14,7 +15,10 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .configs.base import ModelConfig
 from .core.routing_vec import DemandArrays
+from .models.layers import torch_dtype
+from .models.registry import NOT_PORTED
 from .sim.fairshare import FlowIncidence
 
 
@@ -42,3 +46,42 @@ def demands_from_arrays(src, dst, gbps, device=None) -> DemandArrays:
         torch.as_tensor(np.asarray(src), dtype=torch.int64, device=dev),
         torch.as_tensor(np.asarray(dst), dtype=torch.int64, device=dev),
         torch.as_tensor(np.asarray(gbps), dtype=torch.float64, device=dev))
+
+
+def _tensor(a, dtype, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)       # ml_dtypes' bfloat16: exact in fp32
+    return torch.tensor(a, device=device).to(dtype)
+
+
+def _tree(tree, dtype, device):
+    if isinstance(tree, dict):
+        return {k: _tree(v, dtype, device) for k, v in tree.items()}
+    return _tensor(tree, dtype, device)
+
+
+def decoder_params_from_numpy(tree: dict, cfg: ModelConfig,
+                              device=None) -> dict:
+    """The reference ``DecoderLM``'s parameter tree (nested dicts of numpy
+    arrays, layer leaves stacked on a leading ``(L, ...)`` axis) as the
+    port's parameters: the same dicts with a list of per-layer dicts under
+    ``"layers"``, in ``cfg.param_dtype`` on ``device`` (default
+    ``cuda``)."""
+    if "dense_layers" in tree or cfg.family != "dense":
+        raise NotImplementedError(f"the parameters of family {cfg.family!r} "
+                                  f"{NOT_PORTED}")
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.param_dtype)
+    out = {k: _tree(v, dtype, dev) for k, v in tree.items() if k != "layers"}
+    stacked = _tree(tree["layers"], dtype, dev)
+
+    def layer(i, t):
+        return {k: layer(i, v) for k, v in t.items()} \
+            if isinstance(t, dict) else t[i].contiguous()
+
+    n = len(tree["layers"]["attn_norm"]["scale"])
+    if n != cfg.n_layers:
+        raise ValueError(f"tree has {n} layers, config {cfg.n_layers}")
+    out["layers"] = [layer(i, stacked) for i in range(n)]
+    return out

@@ -1,0 +1,15 @@
+"""Attention of every decoder layer, prefill and decode.
+
+Port of ``repro/kernels/flash_attention`` (Pallas) to CUDA C++ for
+``sm_90a``: ``csrc/flash_attention.cu`` (the kernel, built by
+:mod:`repro_torch.kernels._build`), ``ops.py`` (the checked wrappers and
+the launch count) and ``ref.py`` (the plain PyTorch version).
+"""
+
+from .ops import (LAUNCHES, flash_attention, flash_attention_kernel_layout,
+                  reset_launch_counts, right_aligned_positions)
+from .ref import attention_mask, attention_ref
+
+__all__ = ["LAUNCHES", "attention_mask", "attention_ref", "flash_attention",
+           "flash_attention_kernel_layout", "reset_launch_counts",
+           "right_aligned_positions"]

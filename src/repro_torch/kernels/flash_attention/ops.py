@@ -1,0 +1,151 @@
+"""Checked wrappers of the CUDA flash attention, and its launch count.
+
+``flash_attention(q, k, v, q_pos, kv_pos, causal=, window=)`` is the
+model's attention (:mod:`.ref`): q (B, Sq, K, G, Dh), k and v
+(B, Skv, K, Dh) with any strides whose last dimension is contiguous (a
+ring cache's (B, cap, K, Dh) slice is read in place), q_pos (Sq,) and
+kv_pos (Skv,) int32 shared across the batch, ``kv_pos < 0`` marking an
+empty cache slot.  ``flash_attention_kernel_layout(q, k, v)`` takes the
+Pallas kernel's layout and meaning instead (q (B, H, Sq, Dh), k and v
+(B, K, Skv, Dh), queries right-aligned to the kv tail), as views of the
+same call.
+
+For tensors on the CPU the wrappers return the plain PyTorch version.
+For CUDA tensors they launch the kernel or raise; there is no fallback.
+``LAUNCHES`` counts kernel launches: one is added where the kernel is
+launched, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from .._build import CudaLibrary
+from .ref import attention_ref
+
+LAUNCHES = {"flash_attention": 0}
+HEAD_DIMS = (16, 32, 64, 128)
+
+LIBRARY = CudaLibrary(
+    "flash_attention",
+    Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
+    {"flash_attention_forward": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]})
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check(q, k, v, q_pos, kv_pos, window) -> None:
+    if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("flash_attention: q must be (B, Sq, K, G, Dh) and "
+                         "k, v (B, Skv, K, Dh), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Sq, K, _, Dh = q.shape
+    if k.shape[0] != B or k.shape[2] != K or k.shape[3] != Dh:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} does not "
+                         f"match q {tuple(q.shape)}")
+    if q_pos.shape != (Sq,) or kv_pos.shape != (k.shape[1],):
+        raise ValueError(f"flash_attention: q_pos must be ({Sq},) and kv_pos "
+                         f"({k.shape[1]},), got {tuple(q_pos.shape)} and "
+                         f"{tuple(kv_pos.shape)}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError("flash_attention: q, k and v must share one dtype, "
+                        f"float32 or bfloat16, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if q_pos.dtype != torch.int32 or kv_pos.dtype != torch.int32:
+        raise TypeError("flash_attention: positions must be int32")
+    if any(t.device != q.device for t in (k, v, q_pos, kv_pos)):
+        raise ValueError("flash_attention: inputs lie on different devices")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be >= 1, got "
+                         f"{window}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """The model's attention -> (B, Sq, K, G, Dh) in q's dtype."""
+    _check(q, k, v, q_pos, kv_pos, window)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, q_pos, kv_pos, causal=causal,
+                             window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    B, Sq, K, G, Dh = q.shape
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {Dh} not in {HEAD_DIMS}")
+    # query head k*G+g lies at k*stride(2) + g*stride(3): one head stride
+    head_stride = q.stride(3) if G > 1 else q.stride(2)
+    if K > 1 and G > 1 and q.stride(2) != G * q.stride(3):
+        raise ValueError("flash_attention: q's (K, G) axes must step as one "
+                         "head axis")
+    for name, t in (("q_pos", q_pos), ("kv_pos", kv_pos)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention: {name} must be contiguous")
+    vec = 16 // q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        strides = [s for s, n in zip(t.stride()[:-1], t.shape) if n > 1]
+        if t.stride(-1) != 1 or any(s % vec for s in strides) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must have a "
+                             "contiguous last axis, strides that are "
+                             f"multiples of {vec} and a 16-byte aligned "
+                             f"start, got strides {t.stride()}")
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if out.numel() == 0:
+        return out
+    dims = (ctypes.c_int64 * 20)(
+        B, Sq, k.shape[1], K, G, Dh,
+        q.stride(0), q.stride(1), head_stride,
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        out.stride(0), out.stride(1), out.stride(3),
+        int(causal), 0 if window is None else int(window))
+    with torch.cuda.device(q.device):
+        LIBRARY.call("flash_attention", "flash_attention_forward",
+                     q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
+                     dims, 1.0 / math.sqrt(Dh), _DTYPE_CODES[q.dtype],
+                     torch.cuda.current_stream().cuda_stream)
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def right_aligned_positions(sq: int, skv: int, device
+                            ) -> "tuple[torch.Tensor, torch.Tensor]":
+    """The Pallas kernel's positions: kv 0..Skv-1, queries on the tail."""
+    kv_pos = torch.arange(skv, dtype=torch.int32, device=device)
+    q_pos = torch.arange(skv - sq, skv, dtype=torch.int32, device=device)
+    return q_pos, kv_pos
+
+
+def flash_attention_kernel_layout(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, *, causal: bool = True,
+                                  window: Optional[int] = None
+                                  ) -> torch.Tensor:
+    """q (B, H, Sq, Dh); k, v (B, K, Skv, Dh) -> (B, H, Sq, Dh), queries
+    right-aligned to the kv tail (``repro.kernels.flash_attention``)."""
+    B, H, Sq, Dh = q.shape
+    K, Skv = k.shape[1], k.shape[2]
+    if H % K:
+        raise ValueError("H must be a multiple of K")
+    q_pos, kv_pos = right_aligned_positions(Sq, Skv, q.device)
+    qm = q.permute(0, 2, 1, 3).unflatten(2, (K, H // K))
+    out = flash_attention(qm, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+                          q_pos, kv_pos, causal=causal, window=window)
+    return out.flatten(2, 3).permute(0, 2, 1, 3)

@@ -1,9 +1,9 @@
 """COO segment reductions of the water-filling solver and the event loop.
 
 Port of ``repro/kernels/segment_fairshare`` (Pallas) to CUDA C++ for
-``sm_90a``: ``csrc/segment_reduce.cu`` (the kernels), ``build.py`` (nvcc
-+ ctypes loader), ``ops.py`` (the checked wrappers and their launch
-counts) and ``ref.py`` (the plain PyTorch versions).
+``sm_90a``: ``csrc/segment_reduce.cu`` (the kernels, built by
+:mod:`repro_torch.kernels._build`), ``ops.py`` (the checked wrappers and
+their launch counts) and ``ref.py`` (the plain PyTorch versions).
 """
 
 from .ops import (LAUNCHES, SegmentPlan, make_plan, reset_launch_counts,

@@ -19,11 +19,21 @@ kernel is launched, and nowhere else.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
+from pathlib import Path
 
 import torch
 
+from .._build import CudaLibrary
 from .ref import segment_min_ref, segment_sum_ref
+
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+         ctypes.c_void_p, ctypes.c_void_p]
+LIBRARY = CudaLibrary(
+    "segment_reduce",
+    Path(__file__).resolve().parent / "csrc" / "segment_reduce.cu",
+    {"segment_sum_f64": _ARGS, "segment_min_f64": _ARGS})
 
 LAUNCHES = {"segment_sum": 0, "segment_min": 0}
 
@@ -118,19 +128,11 @@ def _launch(name: str, entry: str, values, segment_ids, num_segments: int,
                               or not t.is_contiguous()):
             raise ValueError(f"{name}: plan tensors must be contiguous int32 "
                              f"on {values.device}")
-    from .build import load_library
-
-    lib = load_library()
     with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, entry)(
-            values.data_ptr(),
-            None if plan.perm is None else plan.perm.data_ptr(),
-            plan.offsets.data_ptr(), num_segments, out.data_ptr(), stream)
-    if rc != 0:
-        msg = lib.segment_reduce_error_string(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
-                           f"({msg})")
+        LIBRARY.call(name, entry, values.data_ptr(),
+                     None if plan.perm is None else plan.perm.data_ptr(),
+                     plan.offsets.data_ptr(), num_segments, out.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
     LAUNCHES[name] += 1
     return out
 

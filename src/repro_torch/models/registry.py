@@ -1,0 +1,54 @@
+"""Model factory and arch-config registry: a copy of
+``repro/models/registry.py`` for the architectures ported so far."""
+
+from __future__ import annotations
+
+import importlib
+
+from ..configs.base import ModelConfig
+
+ARCH_IDS = [
+    "kimi-k2-1t-a32b",
+    "mixtral-8x22b",
+    "phi3-medium-14b",
+    "qwen3-32b",
+    "yi-9b",
+    "qwen1.5-32b",
+    "llava-next-34b",
+    "whisper-small",
+    "xlstm-125m",
+    "recurrentgemma-2b",
+]
+
+# configs copied from repro/configs so far: the dense decoders
+PORTED_ARCH_IDS = ["phi3-medium-14b", "qwen3-32b", "yi-9b", "qwen1.5-32b"]
+# where ROADMAP.md says when the rest comes
+NOT_PORTED = ("is not ported yet (ROADMAP.md queue 1: 'MoE serve slice', "
+              "'Hybrid slice' and the families after it)")
+
+
+def _module_name(arch_id: str) -> str:
+    return arch_id.replace("-", "_").replace(".", "_")
+
+
+def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
+    """Load ``repro_torch/configs/<arch>.py`` and return CONFIG (or
+    smoke())."""
+    if arch_id not in ARCH_IDS:
+        raise KeyError(f"unknown arch '{arch_id}'; known: {ARCH_IDS}")
+    if arch_id not in PORTED_ARCH_IDS:
+        raise NotImplementedError(f"the config of {arch_id} {NOT_PORTED}; "
+                                  f"ported: {PORTED_ARCH_IDS}")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{_module_name(arch_id)}")
+    return mod.smoke() if smoke else mod.CONFIG
+
+
+def get_model(cfg: ModelConfig, *, device=None,
+              kernel_backend: "str | None" = None):
+    """The model of ``cfg``'s family on ``device`` (default ``cuda``)."""
+    if cfg.family == "dense":
+        from .transformer import DecoderLM
+        return DecoderLM(cfg, device=device, kernel_backend=kernel_backend)
+    raise NotImplementedError(f"the model of family {cfg.family!r} "
+                              f"{NOT_PORTED}")

@@ -1,0 +1,193 @@
+"""Decoder-only transformer LM of the dense family: a PyTorch copy of
+``repro/models/transformer.py``'s ``DecoderLM`` as the serving path runs
+it.
+
+Supports GQA (+qk-norm, +QKV bias), RoPE, SwiGLU FFN, sliding-window
+attention and ring-buffer KV caches.  The layers are a list of per-layer
+parameter dicts walked by a Python loop (the reference stacks them for
+``lax.scan``).  RMSNorm and attention go through the hand-written CUDA
+kernels (``kernel_backend="cuda"``) or their plain PyTorch versions
+(``"torch"``).
+
+Not ported yet (ROADMAP.md queue 1): the MoE FFN (``_ffn_apply``'s MoE
+branch, with its expert-parallel and TP-f paths: "MoE serve slice"), the
+VLM prefix, sharding constraints and meshes, remat and the training loss
+("Training"); a config of the moe or vlm family raises
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .._device import resolve_device, resolve_kernel_backend
+from ..configs.base import ModelConfig
+from . import layers as L
+from .registry import NOT_PORTED
+
+
+class DecoderLM:
+    """Functional decoder LM; parameters and caches are explicit dicts.
+
+    ``device=None`` means ``cuda`` (it raises without a card);
+    ``kernel_backend`` is ``cuda`` (the kernels) or ``torch`` (the plain
+    versions).
+    """
+
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 kernel_backend: "str | None" = None):
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"DecoderLM for family {cfg.family!r} {NOT_PORTED}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.backend = resolve_kernel_backend(kernel_backend)
+        self.dtype = L.torch_dtype(cfg.param_dtype)
+        self.adtype = L.torch_dtype(cfg.activation_dtype)
+
+    # ---------------------------------------------------------------- init
+
+    def _dense_block_init(self, generator, device):
+        cfg, dt = self.cfg, self.dtype
+        return {
+            "attn_norm": L.rmsnorm_init(cfg.d_model, dt, device),
+            "attn": L.mha_init(generator, cfg, dt, device),
+            "ffn_norm": L.rmsnorm_init(cfg.d_model, dt, device),
+            "ffn": L.swiglu_init(generator, cfg.d_model, cfg.d_ff, dt,
+                                 device),
+        }
+
+    def init(self, seed: int = 0, *, device=None):
+        """Random parameters drawn on the model's device (or ``device``)
+        from a ``torch.Generator`` seeded with ``seed``.  The numbers are
+        not the reference's (``jax.random`` differs); the tests carry the
+        reference's parameters across with ``repro_torch.convert``."""
+        cfg, dt = self.cfg, self.dtype
+        dev = self.device if device is None else torch.device(device)
+        gen = None if dev.type == "meta" else \
+            torch.Generator(device=dev).manual_seed(seed)
+        params = {"embed": L.embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                        dt, dev),
+                  "final_norm": L.rmsnorm_init(cfg.d_model, dt, dev)}
+        if not cfg.tie_embeddings:
+            params["unembed"] = L.dense_init(
+                gen, (cfg.d_model, cfg.vocab_size), dt, dev)
+        params["layers"] = [self._dense_block_init(gen, dev)
+                            for _ in range(cfg.n_layers)]
+        return params
+
+    def param_count(self) -> int:
+        """Total parameters N (from shapes on the meta device)."""
+        return sum(t.numel() for t in _leaves(self.init(device="meta")))
+
+    # ------------------------------------------------------------- blocks
+
+    def _norm(self, p, x):
+        return L.rmsnorm(p, x, self.cfg.norm_eps, backend=self.backend)
+
+    def _block(self, p, x, positions, *, window):
+        h = self._norm(p["attn_norm"], x)
+        h = L.self_attention(p["attn"], h, self.cfg, positions, causal=True,
+                             window=window, backend=self.backend)
+        x = x + h
+        h = self._norm(p["ffn_norm"], x)
+        return x + L.swiglu(p["ffn"], h)
+
+    def _block_decode(self, p, x, cache, pos, *, window):
+        h = self._norm(p["attn_norm"], x)
+        h, cache = L.self_attention_decode(p["attn"], h, self.cfg, cache,
+                                           pos, window=window,
+                                           backend=self.backend)
+        x = x + h
+        h = self._norm(p["ffn_norm"], x)
+        return x + L.swiglu(p["ffn"], h), cache
+
+    # ------------------------------------------------------------ forward
+
+    def _embed_tokens(self, params, tokens):
+        return params["embed"][tokens.long()].to(self.adtype)
+
+    def _positions(self, S: int):
+        return torch.arange(S, dtype=torch.int32, device=self.device)
+
+    @torch.no_grad()
+    def forward(self, params, tokens):
+        """Training/prefill forward over the full sequence -> (logits
+        (B,S,V), aux); aux is 0 for the dense family."""
+        cfg = self.cfg
+        x = self._embed_tokens(params, tokens)
+        positions = self._positions(x.shape[1])
+        for p in params["layers"]:
+            x = self._block(p, x, positions, window=cfg.sliding_window)
+        x = self._norm(params["final_norm"], x)
+        return self._unembed(params, x), torch.zeros((), device=x.device)
+
+    def _unembed(self, params, x):
+        w = params["embed"].T if self.cfg.tie_embeddings \
+            else params["unembed"]
+        return (x @ w).to(L.torch_dtype(self.cfg.logits_dtype))
+
+    # ------------------------------------------------------------ serving
+
+    def cache_capacity(self, max_len: int) -> int:
+        if self.cfg.sliding_window is not None:
+            return min(max_len, self.cfg.sliding_window)
+        return max_len
+
+    def init_cache(self, batch: int, max_len: int):
+        """Zeroed ring caches of every layer, and the next position
+        (``pos``, a Python int: the host drives the decode loop)."""
+        cap = self.cache_capacity(max_len)
+        return {"layers": L.make_kv_cache(self.cfg, batch, cap, self.adtype,
+                                          self.device,
+                                          n_layers=self.cfg.n_layers),
+                "pos": 0}
+
+    @torch.no_grad()
+    def prefill(self, params, tokens, max_len: int | None = None):
+        """Run the prompt, build decode caches; returns (last_logits,
+        caches)."""
+        cfg = self.cfg
+        x = self._embed_tokens(params, tokens)
+        B, S, _ = x.shape
+        caches = self.init_cache(B, max_len or S)
+        positions = self._positions(S)
+        for i, p in enumerate(params["layers"]):
+            h = self._norm(p["attn_norm"], x)
+            q, k, v = L.mha_project_qkv(p["attn"], h, cfg, positions,
+                                        backend=self.backend)
+            o = L.attention(q, k, v, positions, positions, causal=True,
+                            window=cfg.sliding_window, backend=self.backend)
+            x = x + L.mha_out(p["attn"], o, B, S)
+            h = self._norm(p["ffn_norm"], x)
+            x = x + L.swiglu(p["ffn"], h)
+            L.cache_write_prefill(L.layer_cache(caches["layers"], i), k, v)
+        caches["pos"] = S
+        # the final norm is per position: only the last one is read
+        x = self._norm(params["final_norm"], x[:, -1:])
+        return self._unembed(params, x)[:, 0], caches
+
+    @torch.no_grad()
+    def decode_step(self, params, token, caches):
+        """token (B,1) -> (logits (B,V), caches).  The caches are updated
+        in place and returned."""
+        x = self._embed_tokens(params, token)
+        pos = caches["pos"]
+        for i, p in enumerate(params["layers"]):
+            x, _ = self._block_decode(p, x,
+                                      L.layer_cache(caches["layers"], i),
+                                      pos, window=self.cfg.sliding_window)
+        caches["pos"] = pos + 1
+        x = self._norm(params["final_norm"], x)
+        return self._unembed(params, x)[:, 0], caches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree

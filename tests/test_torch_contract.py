@@ -3,7 +3,8 @@
 * No module under ``src/repro_torch/``, and not ``chip_smoke.py``, imports
   ``jax`` or anything of the JAX package ``repro`` (an AST scan).
 * With ``jax`` and ``repro`` blocked, every module imports and the CPU
-  slice runs (a subprocess).
+  slices run: the sim CLI, the serve CLI and a yi-9b smoke forward pass
+  (a subprocess).
 * With no CUDA device, entry points called without ``device="cpu"`` raise
   instead of running on the CPU; unknown backends raise; a wrapper handed
   a tensor that is neither on the CPU nor on a GPU raises.
@@ -20,16 +21,22 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch import resolve_sim_backend  # noqa: E402
-from repro_torch.convert import (demands_from_arrays,  # noqa: E402
-                                 incidence_from_arrays)
+from repro_torch import (resolve_kernel_backend,  # noqa: E402
+                         resolve_sim_backend)
+from repro_torch.convert import (decoder_params_from_numpy,  # noqa: E402
+                                 demands_from_arrays, incidence_from_arrays)
 from repro_torch.core.hyperx import MPHX  # noqa: E402
 from repro_torch.core.netsim import make_router, resolve_engine  # noqa: E402
 from repro_torch.core.routing_vec import (  # noqa: E402
     VectorizedHyperXRouter, neighbor_shift_demands, uniform_demands)
 from repro_torch.experiments.run import main as cli_main  # noqa: E402
 from repro_torch.experiments.simsuite import run_sim_suite  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa
+from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
 from repro_torch.kernels.segment_fairshare import segment_sum  # noqa: E402
+from repro_torch.launch.serve import main as serve_main  # noqa: E402
+from repro_torch.models.registry import get_config, get_model  # noqa: E402
+from repro_torch.models.transformer import DecoderLM  # noqa: E402
 from repro_torch.sim.events import simulate_incidence  # noqa: E402
 from repro_torch.sim.fairshare import max_min_rates  # noqa: E402
 
@@ -73,8 +80,22 @@ def test_package_runs_with_jax_blocked(tmp_path):
         for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
             importlib.import_module(m.name)
         from repro_torch.experiments.run import main
-        sys.exit(main(["--topos", "mphx-2p-8x8", "--device", "cpu",
-                       "--out", {str(tmp_path)!r}]))
+        rc = main(["--topos", "mphx-2p-8x8", "--device", "cpu",
+                   "--out", {str(tmp_path)!r}])
+        import torch
+        from repro_torch.launch.serve import main as serve
+        stats = serve(["--arch", "yi-9b", "--smoke", "--device", "cpu",
+                       "--requests", "2", "--prompt-len", "8",
+                       "--max-new", "3"])
+        assert stats.tokens_out == 6, stats
+        from repro_torch.models.registry import get_config, get_model
+        model = get_model(get_config("yi-9b", smoke=True), device="cpu")
+        logits, _ = model.forward(model.init(0),
+                                  torch.zeros((2, 5), dtype=torch.int64))
+        assert logits.shape == (2, 5, 512)
+        assert bool(torch.isfinite(logits).all())
+        assert "jax" not in sys.modules or sys.modules["jax"] is None
+        sys.exit(rc)
     """)
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -103,6 +124,11 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(no_cuda, tmp_path):
         lambda: demands_from_arrays([0], [1], [1.0]),
         lambda: run_sim_suite(str(tmp_path)),
         lambda: cli_main(["--out", str(tmp_path)]),
+        lambda: DecoderLM(get_config("yi-9b", smoke=True)),
+        lambda: get_model(get_config("yi-9b", smoke=True)),
+        lambda: decoder_params_from_numpy({}, get_config("yi-9b",
+                                                          smoke=True)),
+        lambda: serve_main(["--smoke"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -119,6 +145,18 @@ def test_unknown_backend_raises():
             max_min_rates(inc, [1.0], backend=bad, device="cpu")
 
 
+def test_unknown_kernel_backend_raises():
+    with pytest.raises(ValueError, match="unknown kernel backend 'auto'"):
+        resolve_kernel_backend("auto")
+    for bad in ("auto", "triton", "jax"):
+        with pytest.raises(ValueError, match="expected one of"):
+            get_model(get_config("yi-9b", smoke=True), device="cpu",
+                      kernel_backend=bad)
+    with pytest.raises(SystemExit):
+        serve_main(["--smoke", "--device", "cpu", "--kernel-backend",
+                    "auto"])
+
+
 def test_graph_engine_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         resolve_engine(MPHX(n=2, p=8, dims=(8, 8)), "graph")
@@ -129,6 +167,18 @@ def test_wrapper_has_no_fallback_off_the_cpu():
     ids = torch.zeros(4, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         segment_sum(vals, ids, 2)
+
+
+def test_model_kernel_wrappers_have_no_fallback_off_the_cpu():
+    x = torch.zeros(3, 16, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        rmsnorm(x, torch.ones(16, device="meta"))
+    q = torch.zeros(1, 2, 1, 2, 16, device="meta")
+    k = torch.zeros(1, 3, 1, 16, device="meta")
+    pos = torch.zeros(2, dtype=torch.int32, device="meta")
+    kv_pos = torch.zeros(3, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        flash_attention(q, k, k, pos, kv_pos)
 
 
 def test_convert_checks_flow_order():

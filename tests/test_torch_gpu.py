@@ -10,7 +10,10 @@ and no JAX:
 
 Tolerances: sum within ``1e-12 * max|value| * NNZ`` (the kernel sums in
 another order), min exact, two kernel runs bitwise equal; suite rows at
-1e-9 relative with integers exact.
+1e-9 relative with integers exact.  RMSNorm and attention: 2e-5 for
+float32 and 5e-2 for bfloat16 (``tests/test_kernels.py``'s tolerances;
+the attention kernel keeps its softmax weights in fp32 where the plain
+version rounds them to v's dtype), two kernel runs bitwise equal.
 """
 
 import dataclasses
@@ -27,9 +30,12 @@ from repro_torch.core.netsim import make_router  # noqa: E402
 from repro_torch.core.routing_vec import (  # noqa: E402
     neighbor_shift_demands, uniform_demands)
 from repro_torch.experiments.simsuite import run_sim_suite  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels.segment_fairshare import (  # noqa: E402
     LAUNCHES, make_plan, reset_launch_counts, segment_min, segment_min_ref,
     segment_sum, segment_sum_ref)
+from repro_torch.models.registry import get_config, get_model  # noqa: E402
 from repro_torch.sim.events import simulate_incidence  # noqa: E402
 from repro_torch.sim.fairshare import (SolveProblem,  # noqa: E402
                                        flow_incidence)
@@ -138,3 +144,125 @@ def test_staggered_golden_on_gpu(cuda):
     np.testing.assert_allclose(res.finish_s.cpu().numpy(), rec["finish_s"],
                                rtol=0, atol=1e-9 * makespan)
     assert abs(res.makespan_s - makespan) <= 1e-9 * makespan
+
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+
+
+def check_twice(kernel, plain, *args, **kw):
+    """Kernel == plain within TOL of the dtype; two runs bitwise equal."""
+    got, again = kernel(*args, **kw), kernel(*args, **kw)
+    want = plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    tol = TOL[got.dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(1, 16), (7, 64), (33, 1000), (5, 13),
+                                 (4, 4096), (4096, 4096), (9, 8192)])
+def test_rmsnorm_kernel_matches_plain(cuda, dtype, n, d):
+    gen = torch.Generator(device=cuda).manual_seed(n * d)
+    x = torch.randn(n, d, device=cuda, generator=gen).to(dtype)
+    scale = torch.randn(d, device=cuda, generator=gen).to(dtype)
+    rn.reset_launch_counts()
+    check_twice(rn.rmsnorm, rn.rmsnorm_ref, x, scale, 1e-6)
+    assert rn.LAUNCHES["rmsnorm"] == 2
+
+
+@pytest.mark.parametrize("pad", [0, 3, 8])
+def test_rmsnorm_kernel_reads_strided_rows(cuda, pad):
+    """Rows of a wider buffer (a prefill batch's last positions), with
+    vector loads (pad 0, 8) and without (pad 3)."""
+    gen = torch.Generator(device=cuda).manual_seed(pad)
+    big = torch.randn(6, 4096 + pad, device=cuda, generator=gen)
+    x = big.bfloat16()[:, :4096]
+    s = torch.randn(4096, device=cuda, generator=gen).bfloat16()
+    check_twice(rn.rmsnorm, rn.rmsnorm_ref, x, s, 1e-6)
+    assert rn.rmsnorm(x, s).is_contiguous()
+
+
+def ring_positions(cap, written, device):
+    kv_pos = torch.full((cap,), -1, dtype=torch.int32)
+    for p in range(written):
+        kv_pos[p % cap] = p
+    return kv_pos.to(device)
+
+
+# B, Sq, K, G, Skv, Dh, q positions, kv positions (None: right-aligned
+# contiguous), window
+ATTN_CASES = {
+    "prefill-gqa-ragged": (2, 100, 2, 4, 100, 64, None, None, None),
+    "prefill-mha-long-rows": (1, 300, 4, 1, 300, 128, None, None, None),
+    "prefill-gqa-1024-rows": (1, 256, 2, 4, 256, 128, None, None, None),
+    "mqa-window": (2, 80, 1, 8, 80, 16, None, None, 8),
+    "cross-ragged": (1, 33, 2, 1, 77, 128, None, None, None),
+    "decode-ring-empty": (4, 1, 4, 8, 70, 128, [40], (70, 41), None),
+    "decode-ring-wrapped": (2, 1, 2, 4, 64, 64, [150], (64, 151), 16),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(ATTN_CASES))
+def test_flash_attention_kernel_matches_plain(cuda, dtype, name):
+    B, Sq, K, G, Skv, Dh, qp, ring, window = ATTN_CASES[name]
+    gen = torch.Generator(device=cuda).manual_seed(len(name))
+    q = torch.randn(B, Sq, K, G, Dh, device=cuda, generator=gen).to(dtype)
+    k, v = (torch.randn(B, Skv, K, Dh, device=cuda, generator=gen).to(dtype)
+            for _ in range(2))
+    if ring is None:
+        q_pos, kv_pos = fa.right_aligned_positions(Sq, Skv, cuda)
+    else:
+        q_pos = torch.tensor(qp, dtype=torch.int32, device=cuda)
+        kv_pos = ring_positions(*ring, cuda)
+    fa.reset_launch_counts()
+    check_twice(fa.flash_attention, fa.attention_ref, q, k, v, q_pos, kv_pos,
+                causal=True, window=window)
+    assert fa.LAUNCHES["flash_attention"] == 2
+
+
+def test_flash_attention_kernel_layout_bidirectional(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(1, 2, 48, 64, device=cuda, generator=gen)
+    k, v = (torch.randn(1, 2, 80, 64, device=cuda, generator=gen)
+            for _ in range(2))
+    got = fa.flash_attention_kernel_layout(q, k, v, causal=False)
+    cpu = fa.flash_attention_kernel_layout(q.cpu(), k.cpu(), v.cpu(),
+                                           causal=False)
+    np.testing.assert_allclose(got.cpu().numpy(), cpu.numpy(), atol=2e-5,
+                               rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decoder_through_kernels_matches_plain(cuda, dtype):
+    """yi-9b's smoke config (2 layers): prefill and decode logits through
+    the kernels against the plain path, with 2*L+1 RMSNorm and L attention
+    launches per forward pass."""
+    cfg = get_config("yi-9b", smoke=True).replace(param_dtype=dtype,
+                                                  activation_dtype=dtype)
+    kern = get_model(cfg, device=cuda, kernel_backend="cuda")
+    plain = get_model(cfg, device=cuda, kernel_backend="torch")
+    params = kern.init(seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    rn.reset_launch_counts()
+    fa.reset_launch_counts()
+    got, caches = kern.prefill(params, tokens, max_len=48)
+    assert rn.LAUNCHES["rmsnorm"] == 2 * cfg.n_layers + 1
+    assert fa.LAUNCHES["flash_attention"] == cfg.n_layers
+    want, pcaches = plain.prefill(params, tokens, max_len=48)
+    tol = 2e-5 if dtype == "float32" else 5e-2
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol * scale
+    for step in range(4):
+        tok = torch.argmax(want, -1)[:, None]
+        got, caches = kern.decode_step(params, tok, caches)
+        want, pcaches = plain.decode_step(params, tok, pcaches)
+        assert float((got - want).abs().max()) <= tol * scale, step
+    assert rn.LAUNCHES["rmsnorm"] == 5 * (2 * cfg.n_layers + 1)
+    assert fa.LAUNCHES["flash_attention"] == 5 * cfg.n_layers
