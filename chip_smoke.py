@@ -9,9 +9,9 @@ Phases, each printing JSON lines; any failure raises and the exit code is
 nonzero:
 
 1. ``env``: the card (``nvidia-smi``), torch and CUDA versions.
-2. ``build``: nvcc builds the three kernel libraries from ``src/``
-   (segment reduce, RMSNorm, flash attention), one nvcc each, all started
-   together, with each kernel's registers and spills.
+2. ``build``: nvcc builds the four kernel libraries from ``src/``
+   (segment reduce, RMSNorm, flash attention, grouped matmul), one nvcc
+   each, all started together, with each kernel's registers and spills.
 3. ``kernel``: the segment kernels against their plain PyTorch versions
    on the card, at edge-case sizes and at the sim path's shapes
    (mphx-4p-86x9 uniform: the incidence's edge and flow columns), twice
@@ -31,7 +31,10 @@ nonzero:
    ring cache with empty and wrapped slots, float32 and bfloat16), at
    the serve path's shapes (float32 at 2e-5; bfloat16, and for
    attention each output row within 2e-2 of its max), twice for bitwise
-   repeatability, with the same times and bounds as phase 3.
+   repeatability, with the same times and bounds as phase 3; then the
+   grouped matmul at mixtral-8x22b's expert shapes (prefill's 1,280-row
+   capacity buffers, decode's 2 rows, the window wave's 1,300), float32
+   at 2e-5 and bfloat16 per output row within 2e-2 of its max.
 7. ``serve``: yi-9b at full width and depth (random bf16 weights drawn
    on the card from a seed) serves 8 requests of 1,024 prompt tokens and
    32 new tokens each in waves of 4 through the kernels, with the launch
@@ -40,7 +43,22 @@ nonzero:
    Prefill and teacher-forced decode logits of the two paths must agree,
    and a float32 2-layer yi-9b must agree at 2e-5; a decode wave is
    profiled for the device's idle share.
-8. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
+8. ``moe_serve``: mixtral-8x22b at full width and 12 of its 56 layers
+   (60.9 GB of random bf16 weights drawn on the card after yi-9b's are
+   freed) serves the same traffic through the kernels, with the launch
+   counts read around that run alone (25 RMSNorm, 12 attention and 36
+   grouped-matmul launches per forward pass), then on the plain path.
+   The ragged grouped matmul is held to its plain version on the routed
+   rows of the first layer of a prefill wave, as routed and with groups
+   padded to 128 rows.  Teacher-forced logits must agree within 5e-2 of
+   max |logit| with the plain path's expert choice replayed on the kernel
+   path (the router is discontinuous: a near-tie flipped by bf16 rounding
+   moves a token's FFN output by O(1)); the free-routing gap and the count
+   of routings that differ are printed beside it.  A 4,160-token request
+   runs through mixtral's 4,096-token window, a decode wave is profiled,
+   and a float32 2-layer mixtral must agree at 2e-5 with no routing
+   flipped.
+9. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
@@ -91,6 +109,12 @@ MODEL_KERNELS = {
     "flash_attention": (
         "src/repro/kernels/flash_attention/kernel.py:97",
         "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"),
+    "grouped_matmul": (
+        "src/repro/kernels/grouped_matmul/kernel.py:42",
+        "src/repro_torch/kernels/grouped_matmul/csrc/grouped_matmul.cu"),
+    "ragged_grouped_matmul": (
+        "src/repro/kernels/grouped_matmul/kernel.py:94",
+        "src/repro_torch/kernels/grouped_matmul/csrc/grouped_matmul.cu"),
 }
 # the serve path: yi-9b, 8 requests of 1,024 tokens, 32 new, waves of 4
 SERVE_ARCH = "yi-9b"
@@ -107,6 +131,17 @@ SERVE_TOL = {"bfloat16": 5e-2, "float32": 2e-5}
 # differ by one bf16 ulp of the row's max (2^-7 of it on an NVIDIA H100
 # 80GB HBM3 at 700 W), and 2e-2 leaves 2.5 times that.
 ATTN_ROW_TOL_BF16 = 2e-2
+# the MoE serve path: mixtral-8x22b at full width, 12 of its 56 layers
+# (60.9 GB of bf16 weights; 14 would leave too little of the card's 80 GB
+# for the plain path's float32 copy of one expert matrix, 3.2 GB, and the
+# prefill buffers), the same traffic as yi-9b
+MOE_ARCH, MOE_LAYERS = "mixtral-8x22b", 12
+# one request past mixtral's 4,096-token window, decoded 8 steps
+WINDOW_PROMPT, WINDOW_NEW = 4160, 8
+# the grouped matmul in bf16, per output row: both versions sum exact bf16
+# products in fp32 (in another order) and round once, so a row differs by
+# at most one bf16 ulp of its max (2^-8 of it); 2e-2 as attention's rule
+GMM_ROW_TOL_BF16 = 2e-2
 
 
 def emit(phase: str, **fields) -> None:
@@ -456,10 +491,11 @@ def phase_golden() -> None:
 
 
 def phase_build() -> None:
-    """nvcc for the three libraries at once (one process each)."""
+    """nvcc for the four libraries at once (one process each)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.flash_attention.ops import LIBRARY as attn_lib
+    from repro_torch.kernels.grouped_matmul.ops import LIBRARY as gmm_lib
     from repro_torch.kernels.rmsnorm.ops import LIBRARY as norm_lib
     from repro_torch.kernels.segment_fairshare.ops import LIBRARY as seg_lib
 
@@ -469,8 +505,8 @@ def phase_build() -> None:
         return lib, path, log, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
-        built = list(pool.map(build, (seg_lib, norm_lib, attn_lib)))
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        built = list(pool.map(build, (seg_lib, norm_lib, attn_lib, gmm_lib)))
     wall = time.perf_counter() - t0
     for lib, path, log, seconds in built:
         lib.load()
@@ -564,6 +600,86 @@ def rmsnorm_cost(x, scale) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def gmm_cost(n_ops: int, n_bytes: int, dtype) -> dict:
+    """Least time for a grouped matmul: ``n_bytes`` moved once, or
+    ``n_ops`` operations on the bf16 tensor cores (float32 outside
+    them)."""
+    peak = PEAK_BF16_PER_S if dtype == torch.bfloat16 else PEAK_FP32_PER_S
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / peak
+    return {"bytes": n_bytes, "flops": n_ops,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def expert_inputs(gen, E, M, K, N, dtype):
+    """x (E, M, K) standard normal, w (E, K, N) scaled by 1/sqrt(K) as the
+    model's init."""
+    dev = torch.device("cuda")
+    x = torch.randn(E, M, K, device=dev, generator=gen).to(dtype)
+    w = torch.randn(E, K, N, device=dev, generator=gen)
+    return x, w.mul_(1.0 / math.sqrt(K)).to(dtype)
+
+
+def check_grouped_matmul() -> dict:
+    """The grouped matmul at mixtral-8x22b's expert shapes: float32 at
+    2e-5, then bf16 (timed) per output row."""
+    from repro_torch.kernels import grouped_matmul as gm
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    E, d, f = 8, 6144, 16384
+    # (case, rows per expert, K, N): the prefill wave's capacity C = 1,280,
+    # a decode step's C = 2, the window wave's C = 1,300
+    shapes = [("prefill gate/up", 1280, d, f), ("prefill down", 1280, f, d),
+              ("decode gate/up", 2, d, f), ("decode down", 2, f, d),
+              ("window gate/up", 1300, d, f)]
+    results = {}
+    for case, M, K, N in shapes:
+        x, w = expert_inputs(gen, E, M, K, N, torch.float32)
+        err32 = check_close("grouped_matmul", gm.grouped_matmul(x, w),
+                            gm.grouped_matmul(x, w),
+                            gm.grouped_matmul_ref(x, w), 2e-5,
+                            f"{case} float32")
+        del x, w
+        x, w = expert_inputs(gen, E, M, K, N, torch.bfloat16)
+        got, want = gm.grouped_matmul(x, w), gm.grouped_matmul_ref(x, w)
+        err = check_close("grouped_matmul", got, gm.grouped_matmul(x, w),
+                          want, 5e-2, case)
+        row_err = row_rel_err(got, want)
+        if row_err > GMM_ROW_TOL_BF16:
+            raise AssertionError(f"grouped_matmul {case}: a row differs by "
+                                 f"{row_err} of its max > "
+                                 f"{GMM_ROW_TOL_BF16}")
+        del got, want
+
+        def call():
+            gm.grouped_matmul(x, w)
+
+        def lib_call():
+            torch.bmm(x, w)
+
+        heavy = M > 2
+        n_bytes = 2 * (x.numel() + w.numel() + E * M * N)
+        row = {"max_abs_err": err,
+               "ms": time_ms(call, reps=3 if heavy else 20),
+               "plain_ms": time_ms(lambda: gm.grouped_matmul_ref(x, w),
+                                   reps=2 if heavy else 5, samples=3),
+               "library_ms": time_ms(lib_call, reps=3 if heavy else 20),
+               **gmm_cost(2 * E * M * K * N, n_bytes, x.dtype)}
+        results.setdefault("grouped_matmul", row)
+        emit("model_kernel", kernel="grouped_matmul", case=case,
+             x=list(x.shape), w=list(w.shape), dtype="bfloat16", **row,
+             max_row_rel_err=row_err, row_tolerance=GMM_ROW_TOL_BF16,
+             float32_max_abs_err=err32, float32_tolerance=2e-5,
+             library="torch.bmm (bf16)",
+             kernel_device_ms=device_ms(call, "gmm_bf16_kernel", reps=3),
+             library_device_ms=device_ms(lib_call, "", reps=3),
+             achieved_TFLOPs=row["flops"] / (row["ms"] * 1e-3) / 1e12,
+             achieved_GBps=n_bytes / (row["ms"] * 1e-3) / 1e9, ok=True)
+        del x, w
+        torch.cuda.empty_cache()
+    return results
+
+
 def phase_model_kernels() -> dict:
     import torch.nn.functional as F
 
@@ -628,112 +744,152 @@ def phase_model_kernels() -> dict:
                  dtype=str(dt), q=list(q.shape), kv=list(k.shape),
                  window=window, max_abs_err=err, ok=True)
 
+    from repro_torch.models.registry import get_config
+
+    moe = get_config(MOE_ARCH)
     results = {}
-    # the serve path's RMSNorm shapes: prefill rows B*S, decode rows B;
-    # float32 at its tolerance, then bf16 (timed)
-    for rows in (SERVE_BATCH * SERVE_PROMPT, SERVE_BATCH):
+    # the serve paths' RMSNorm shapes, yi-9b's and mixtral-8x22b's width:
+    # prefill rows B*S, decode rows B; float32 at its tolerance, then bf16
+    # (timed), held per row
+    for arch, d, rows in [(SERVE_ARCH, 4096, SERVE_BATCH * SERVE_PROMPT),
+                          (SERVE_ARCH, 4096, SERVE_BATCH),
+                          (MOE_ARCH, moe.d_model, SERVE_BATCH * SERVE_PROMPT),
+                          (MOE_ARCH, moe.d_model, SERVE_BATCH)]:
         errs = {}
         for dt in (torch.float32, torch.bfloat16):
-            x = torch.randn(rows, 4096, device=dev, generator=gen).to(dt)
-            s = torch.randn(4096, device=dev, generator=gen).to(dt)
-            errs[dt] = check_close("rmsnorm", rn.rmsnorm(x, s, 1e-6),
-                                   rn.rmsnorm(x, s, 1e-6),
-                                   rn.rmsnorm_ref(x, s, 1e-6), tol[dt],
-                                   f"path ({rows}, 4096) {dt}")
-        # x and s are now the bf16 inputs: timed below
+            x = torch.randn(rows, d, device=dev, generator=gen).to(dt)
+            s = torch.randn(d, device=dev, generator=gen).to(dt)
+            got, want = rn.rmsnorm(x, s, 1e-6), rn.rmsnorm_ref(x, s, 1e-6)
+            errs[dt] = check_close("rmsnorm", got, rn.rmsnorm(x, s, 1e-6),
+                                   want, tol[dt],
+                                   f"{arch} path ({rows}, {d}) {dt}")
+        # x and s are now the bf16 inputs: held per row, then timed
+        row_err = row_rel_err(got, want)
+        if row_err > ATTN_ROW_TOL_BF16:
+            raise AssertionError(f"rmsnorm {arch} path ({rows}, {d}): a row "
+                                 f"differs by {row_err} of its max > "
+                                 f"{ATTN_ROW_TOL_BF16}")
+        del got, want
 
         def call():
             rn.rmsnorm(x, s, 1e-6)
 
         def lib_call():
-            F.rms_norm(x, (4096,), weight=s, eps=1e-6)
+            F.rms_norm(x, (d,), weight=s, eps=1e-6)
 
         row = {"max_abs_err": errs[torch.bfloat16], "ms": time_ms(call),
                "plain_ms": time_ms(lambda: rn.rmsnorm_ref(x, s, 1e-6)),
                "library_ms": time_ms(lib_call), **rmsnorm_cost(x, s)}
         results.setdefault("rmsnorm", row)
-        emit("model_kernel", kernel="rmsnorm",
+        emit("model_kernel", kernel="rmsnorm", arch=arch,
              case="prefill" if rows > SERVE_BATCH else "decode",
-             shape=[rows, 4096], dtype="bfloat16", **row,
+             shape=[rows, d], dtype="bfloat16", **row,
+             max_row_rel_err=row_err, row_tolerance=ATTN_ROW_TOL_BF16,
              float32_max_abs_err=errs[torch.float32],
+             float32_tolerance=tol[torch.float32],
              library="torch.nn.functional.rms_norm",
              kernel_device_ms=device_ms(call, "rmsnorm_kernel"),
              library_device_ms=device_ms(lib_call, ""),
              achieved_GBps=row["bytes"] / (row["ms"] * 1e-3) / 1e9, ok=True)
 
-    # the serve path's attention: prefill over the prompt's own keys (as
-    # the reference's prefill), the same queries over a 1,057-slot cache
-    # holding the prompt, and a decode step over 1,040 filled slots
-    B, K, G, Dh = SERVE_BATCH, 4, 8, 128
-    S, cap = SERVE_PROMPT, SERVE_MAX_LEN
-    cache_pos = ring_kv_pos(cap, S, dev)
-    path = [("prefill", S, S, None, None),
-            ("prefill-over-cache", S, cap, None, cache_pos),
-            ("decode", 1, cap, [1039], ring_kv_pos(cap, 1040, dev))]
-    for name, Sq, Skv, qp, kv_pos in path:
-        if kv_pos is None:
-            q_pos, kv_pos = fa.right_aligned_positions(Sq, Skv, dev)
-        else:
-            q_pos = torch.arange(Sq, dtype=torch.int32, device=dev) \
-                if qp is None else torch.tensor(qp, dtype=torch.int32,
-                                                device=dev)
+    # the serve paths' attention.  yi-9b (4 KV heads of 8 queries):
+    # prefill over the prompt's own keys (as the reference's prefill), the
+    # same queries over a 1,057-slot cache holding the prompt, and a decode
+    # step over 1,040 filled slots.  mixtral-8x22b (8 KV heads of 6, so a
+    # 64-row tile straddles query positions; its window on every call):
+    # prefill, decode over the 1,057-slot ring, the window wave's 4,160-token
+    # prefill with the window binding, and its last decode step over the
+    # wrapped ring of `window` slots.
+    def arange(n):
+        return torch.arange(n, dtype=torch.int32, device=dev)
+
+    def at(p):
+        return torch.tensor([p], dtype=torch.int32, device=dev)
+
+    S, cap, win = SERVE_PROMPT, SERVE_MAX_LEN, moe.sliding_window
+    last = WINDOW_PROMPT + WINDOW_NEW - 1
+    mk, mg = moe.n_kv_heads, moe.n_heads // moe.n_kv_heads
+    path = [  # (arch, case, B, K, G, Sq, q_pos, kv_pos, window)
+        (SERVE_ARCH, "prefill", SERVE_BATCH, 4, 8, S, arange(S), arange(S),
+         None),
+        (SERVE_ARCH, "prefill-over-cache", SERVE_BATCH, 4, 8, S, arange(S),
+         ring_kv_pos(cap, S, dev), None),
+        (SERVE_ARCH, "decode", SERVE_BATCH, 4, 8, 1, at(1039),
+         ring_kv_pos(cap, 1040, dev), None),
+        (MOE_ARCH, "prefill", SERVE_BATCH, mk, mg, S, arange(S), arange(S),
+         win),
+        (MOE_ARCH, "decode", SERVE_BATCH, mk, mg, 1, at(1039),
+         ring_kv_pos(cap, 1040, dev), win),
+        (MOE_ARCH, "window prefill", 1, mk, mg, WINDOW_PROMPT,
+         arange(WINDOW_PROMPT), arange(WINDOW_PROMPT), win),
+        (MOE_ARCH, "window decode", 1, mk, mg, 1, at(last),
+         ring_kv_pos(win, last + 1, dev), win)]
+    Dh = 128
+    for arch, name, B, K, G, Sq, q_pos, kv_pos, window in path:
+        Skv = kv_pos.numel()
+        kw = dict(causal=True, window=window)
         # float32 at its tolerance first: no bf16 rounding hides a
         # dropped tile or a wrong mask; then bf16 (timed), held per row
         q, k, v = attention_inputs(gen, B, Sq, K, G, Skv, Dh, torch.float32)
         args = (q, k, v, q_pos, kv_pos)
-        err32 = check_close("flash_attention", fa.flash_attention(*args),
-                            fa.flash_attention(*args),
-                            fa.attention_ref(*args), tol[q.dtype],
-                            f"path {name} float32")
+        err32 = check_close("flash_attention", fa.flash_attention(*args, **kw),
+                            fa.flash_attention(*args, **kw),
+                            fa.attention_ref(*args, **kw), tol[q.dtype],
+                            f"{arch} path {name} float32")
         q, k, v = attention_inputs(gen, B, Sq, K, G, Skv, Dh,
                                    torch.bfloat16)
         args = (q, k, v, q_pos, kv_pos)
-        got, want = fa.flash_attention(*args), fa.attention_ref(*args)
-        err = check_close("flash_attention", got, fa.flash_attention(*args),
-                          want, tol[q.dtype], f"path {name}")
+        got, want = fa.flash_attention(*args, **kw), \
+            fa.attention_ref(*args, **kw)
+        err = check_close("flash_attention", got,
+                          fa.flash_attention(*args, **kw), want, tol[q.dtype],
+                          f"{arch} path {name}")
         row_err = row_rel_err(got, want)
         if row_err > ATTN_ROW_TOL_BF16:
-            raise AssertionError(f"flash_attention path {name}: a row "
+            raise AssertionError(f"flash_attention {arch} path {name}: a row "
                                  f"differs by {row_err} of its max |o| > "
                                  f"{ATTN_ROW_TOL_BF16}")
         del got, want
         # the yardstick: SDPA on (B, H, S, Dh) copies made beforehand
         qs = q.reshape(B, Sq, K * G, Dh).transpose(1, 2).contiguous()
         ks, vs = (t.transpose(1, 2).contiguous() for t in (k, v))
-        mask = fa.attention_mask(q_pos, kv_pos, True, None)
-        sdpa_kw = dict(is_causal=True) if name == "prefill" else \
-            dict(attn_mask=mask)
+        causal_only = name == "prefill" and window is None
+        sdpa_kw = dict(is_causal=True) if causal_only else \
+            dict(attn_mask=fa.attention_mask(q_pos, kv_pos, True, window))
 
         def call():
-            fa.flash_attention(*args)
+            fa.flash_attention(*args, **kw)
 
         def lib_call():
             return F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True,
                                                   **sdpa_kw)
 
         lib_err = float((lib_call().transpose(1, 2).reshape(q.shape).float()
-                         - fa.attention_ref(*args).float()).abs().max())
+                         - fa.attention_ref(*args, **kw).float()).abs().max())
         heavy = Sq > 1
         row = {"max_abs_err": err,
                "ms": time_ms(call, reps=5 if heavy else 20),
-               "plain_ms": time_ms(lambda: fa.attention_ref(*args),
+               "plain_ms": time_ms(lambda: fa.attention_ref(*args, **kw),
                                    reps=3 if heavy else 20, samples=3),
                "library_ms": time_ms(lib_call, reps=5 if heavy else 20),
-               **attention_cost(q, k, q_pos, kv_pos, True, None)}
+               **attention_cost(q, k, q_pos, kv_pos, True, window)}
         results.setdefault("flash_attention", row)
-        emit("model_kernel", kernel="flash_attention", case=name,
-             q=list(q.shape), kv=list(k.shape), dtype="bfloat16", **row,
+        emit("model_kernel", kernel="flash_attention", arch=arch, case=name,
+             q=list(q.shape), kv=list(k.shape), window=window,
+             dtype="bfloat16", **row,
              max_row_rel_err=row_err, row_tolerance=ATTN_ROW_TOL_BF16,
              float32_max_abs_err=err32, float32_tolerance=tol[torch.float32],
              library="scaled_dot_product_attention(enable_gqa=True, "
-                     + ("is_causal=True)" if name == "prefill"
-                        else "attn_mask)"),
+                     + ("is_causal=True)" if causal_only else "attn_mask)"),
              library_max_abs_err_vs_plain=lib_err,
              kernel_device_ms=device_ms(call, "flash_attention_kernel",
                                         reps=5),
              library_device_ms=device_ms(lib_call, "", reps=5),
              achieved_TFLOPs=row["flops"] / (row["ms"] * 1e-3) / 1e12,
              ok=True)
+        del q, k, v, args, qs, ks, vs
+        torch.cuda.empty_cache()
+    results.update(check_grouped_matmul())
     return results
 
 
@@ -889,6 +1045,341 @@ def phase_serve(card: str) -> dict:
     return launches
 
 
+class RouteLog:
+    """Wraps ``repro_torch.models.moe._route`` for one path's run of a
+    comparison, and restores it afterwards.  Every call's own top-k
+    experts are recorded; with ``replay`` (the other path's records, call
+    by call) the layer takes the replayed experts instead, with weights
+    renormalised from this path's own router probabilities, and the
+    routings that differ from this path's own choice are counted.  With
+    ``keep_first``, the first call's input rows are kept."""
+
+    def __init__(self, replay=None, keep_first: bool = False):
+        self.replay = replay
+        self.keep_first = keep_first
+        self.top_i = []
+        self.first_input = None
+        self.flips = 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._moe, self._route = moe, moe._route
+        moe._route = self.route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._route = self._route
+
+    def route(self, router_w, x_flat, cfg):
+        top_w, top_i, aux = self._route(router_w, x_flat, cfg)
+        if self.keep_first and self.first_input is None:
+            self.first_input = x_flat.clone()
+        if self.replay is not None:
+            want = self.replay[len(self.top_i)]
+            self.flips += differing_routings(top_i, want)
+            probs = torch.softmax(x_flat.float() @ router_w, dim=-1)
+            top_w = probs.gather(1, want)
+            top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+            self.top_i.append(top_i)
+            return top_w, want, aux
+        self.top_i.append(top_i)
+        return top_w, top_i, aux
+
+
+def differing_routings(a, b) -> int:
+    """Tokens whose sets of chosen experts differ."""
+    return int((a.sort(dim=1).values != b.sort(dim=1).values)
+               .any(dim=1).sum())
+
+
+def moe_teacher_forced(kern, plain, params, prompts, steps: int,
+                       max_len: int, tol: "float | None", replay: bool,
+                       where: str, keep_first: bool = False) -> dict:
+    """Prefill and ``steps`` decode steps of the plain path, each fed its
+    own greedy token, then of the kernel path fed the same tokens; with
+    ``replay`` the kernel path takes the plain path's experts.  Logits
+    within ``tol * max |logit|`` of each pass (no gate when ``tol`` is
+    None).  Also counts the (token, layer) routings that differ."""
+    with RouteLog() as plain_log:
+        lp, cp = plain.prefill(params, prompts, max_len=max_len)
+        want, feed = [lp], []
+        for _ in range(steps):
+            feed.append(torch.argmax(lp, dim=-1)[:, None])
+            lp, cp = plain.decode_step(params, feed[-1], cp)
+            want.append(lp)
+    del cp
+    with RouteLog(plain_log.top_i if replay else None,
+                  keep_first=keep_first) as kern_log:
+        lk, ck = kern.prefill(params, prompts, max_len=max_len)
+        if lk.shape != (prompts.shape[0], kern.cfg.vocab_size) \
+                or lk.dtype != torch.float32:
+            raise AssertionError(f"{where}: logits {tuple(lk.shape)} "
+                                 f"{lk.dtype}")
+        got = [lk]
+        for tok in feed:
+            lk, ck = kern.decode_step(params, tok, ck)
+            got.append(lk)
+    del ck
+    rel = []
+    for g, w in zip(got, want):
+        gap, top = logits_gap(g, w)
+        rel.append(gap / top)
+    flips = kern_log.flips if replay else sum(
+        differing_routings(a, b)
+        for a, b in zip(kern_log.top_i, plain_log.top_i))
+    out = {"decode_steps": steps, "max_rel_diff": max(rel),
+           "prefill_rel_diff": rel[0],
+           "decode_max_rel_diff": max(rel[1:]) if steps else None,
+           "routing_replayed": replay, "differing_routings": flips,
+           "routings": sum(t.shape[0] for t in plain_log.top_i),
+           "tolerance": tol}
+    if tol is not None and max(rel) > tol:
+        raise AssertionError(f"{where}: logits differ by {max(rel)} of "
+                             f"max |logit| > {tol}")
+    return out, kern_log
+
+
+def check_ragged(params, x_flat, top_i) -> dict:
+    """The ragged grouped matmul on one MoE layer's routed rows: the
+    (token, slot) records sorted by expert (stable), the layer's w_gate,
+    ownership blocks of 128 rows; as routed, then with every group padded
+    to a multiple of 128 rows.  Every row is compared: the masked rows
+    must be 0, the others within the bf16 row rule."""
+    from repro_torch.kernels import grouped_matmul as gm
+
+    w = params["layers"][0]["moe"]["experts"]["w_gate"]
+    E, K, N = w.shape
+    k = top_i.shape[1]
+    eid = top_i.reshape(-1)
+    order = torch.sort(eid, stable=True).indices
+    x = x_flat[order // k].contiguous()
+    sizes = torch.bincount(eid, minlength=E)
+    padded = (sizes + 127) // 128 * 128
+    x_pad = torch.zeros((int(padded.sum()), K), dtype=x.dtype,
+                        device=x.device)
+    dst = torch.cat([torch.arange(int(s), device=x.device) + int(o)
+                     for s, o in zip(sizes.tolist(),
+                                     (torch.cumsum(padded, 0) - padded)
+                                     .tolist())])
+    x_pad[dst] = x
+    row = {}
+    for case, xs, gs in (("routed", x, sizes), ("padded to 128", x_pad,
+                                                 padded)):
+        got = gm.ragged_grouped_matmul(xs, w, gs)
+        want = gm.ragged_grouped_matmul_masked_ref(xs, w, gs)
+        check_close("ragged_grouped_matmul", got,
+                    gm.ragged_grouped_matmul(xs, w, gs), want, 5e-2, case)
+        owner, inside = gm.block_owners(gs, xs.shape[0], 128)
+        if bool((got[~inside] != 0).any()):
+            raise AssertionError(f"ragged_grouped_matmul {case}: a masked "
+                                 "row is not 0")
+        row_err = row_rel_err(got[inside], want[inside])
+        if row_err > GMM_ROW_TOL_BF16:
+            raise AssertionError(f"ragged_grouped_matmul {case}: a row "
+                                 f"differs by {row_err} of its max")
+        exact_rows = None
+        if case != "routed":
+            exact = gm.ragged_grouped_matmul_ref(xs, w, gs)
+            if not bool(inside.all()) or row_rel_err(got, exact) \
+                    > GMM_ROW_TOL_BF16:
+                raise AssertionError("ragged_grouped_matmul: padded groups "
+                                     "differ from the exact oracle")
+            exact_rows = xs.shape[0]
+            del exact
+        err = float((got.float() - want.float()).abs().max())
+        del got, want
+        offs = torch.cumsum(gs, 0).to(torch.int32)
+
+        def call():
+            gm.ragged_grouped_matmul(xs, w, gs)
+
+        def lib_call():
+            torch._grouped_mm(xs, w, offs=offs)
+
+        kept = int(inside.sum())
+        owners = int(torch.unique(owner[inside]).numel())
+        n_bytes = 2 * (xs.numel() + owners * K * N + xs.shape[0] * N)
+        timed = {"max_abs_err": err, "ms": time_ms(call, reps=3),
+                 "plain_ms": time_ms(
+                     lambda: gm.ragged_grouped_matmul_masked_ref(xs, w, gs),
+                     reps=2, samples=3),
+                 **gmm_cost(2 * kept * K * N, n_bytes, xs.dtype)}
+        # the yardstick last: the kernel's own numbers do not wait on it
+        try:
+            timed["library_ms"] = time_ms(lib_call, reps=3)
+            lib_note = "torch._grouped_mm(offs=cumsum(group_sizes))"
+        except (AttributeError, RuntimeError) as e:
+            timed["library_ms"] = None
+            lib_note = f"torch._grouped_mm unavailable: {e}"
+        row.setdefault("ragged_grouped_matmul", timed)
+        emit("moe_serve", kernel="ragged_grouped_matmul", case=case,
+             x=list(xs.shape), w=list(w.shape), block_m=128,
+             group_sizes=gs.tolist(), rows_kept=kept,
+             rows_masked=xs.shape[0] - kept,
+             rows_equal_to_exact_oracle=exact_rows, dtype="bfloat16",
+             **timed, max_row_rel_err=row_err,
+             row_tolerance=GMM_ROW_TOL_BF16, library=lib_note,
+             achieved_TFLOPs=timed["flops"] / (timed["ms"] * 1e-3) / 1e12,
+             ok=True)
+    return row
+
+
+def phase_moe_serve(card: str) -> "tuple[dict, dict]":
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.serve.engine import ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    cfg = get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS)
+    kern = get_model(cfg, kernel_backend="cuda")
+    plain = get_model(cfg, kernel_backend="torch")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = kern.init(SERVE_SEED)
+    torch.cuda.synchronize()
+    emit("moe_serve", card=card, arch=MOE_ARCH, layers=cfg.n_layers,
+         layers_of_the_config=get_config(MOE_ARCH).n_layers,
+         params=kern.param_count(), active_params=kern.active_param_count(),
+         param_dtype=cfg.param_dtype, weight_fill_s=time.perf_counter() - t0,
+         weights_GB=torch.cuda.memory_allocated() / 1e9)
+
+    def serve(model, requests: int, prompt: int, new: int):
+        reqs = make_requests(cfg, requests, prompt, new, SERVE_SEED)
+        eng = ServeEngine(model, params, max_batch=SERVE_BATCH,
+                          max_len=prompt + new + 1, seed=SERVE_SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        return eng.stats, reqs, time.perf_counter() - t0, \
+            torch.cuda.max_memory_allocated()
+
+    # a short run of each path first: neither timed run pays first use
+    serve(kern, 1, 64, 2)
+    serve(plain, 1, 64, 2)
+    rn.reset_launch_counts()
+    fa.reset_launch_counts()
+    gm.reset_launch_counts()
+    runs = {"cuda": serve(kern, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW)}
+    launches = {"rmsnorm": rn.LAUNCHES["rmsnorm"],
+                "flash_attention": fa.LAUNCHES["flash_attention"],
+                **gm.LAUNCHES}
+    runs["torch"] = serve(plain, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW)
+    for backend, (stats, reqs, wall, peak) in runs.items():
+        if stats.tokens_out != SERVE_REQUESTS * SERVE_NEW or any(
+                len(r.output) != SERVE_NEW or not r.done for r in reqs):
+            raise AssertionError(f"{backend}: {stats.tokens_out} tokens out")
+        emit("moe_serve", card=card, kernel_backend=backend,
+             requests=SERVE_REQUESTS, prompt_tokens=SERVE_PROMPT,
+             new_tokens=SERVE_NEW, max_batch=SERVE_BATCH, waves=stats.waves,
+             wall_s=wall, prefill_s=stats.prefill_s,
+             decode_s=stats.decode_s,
+             decode_tok_per_s=stats.decode_tok_per_s,
+             prefill_tok_per_s=SERVE_REQUESTS * SERVE_PROMPT
+             / stats.prefill_s, peak_memory_GB=peak / 1e9)
+    passes = runs["cuda"][0].waves * (1 + SERVE_NEW)
+    L = cfg.n_layers
+    want = {"rmsnorm": passes * (2 * L + 1), "flash_attention": passes * L,
+            "grouped_matmul": passes * 3 * L, "ragged_grouped_matmul": 0}
+    if launches != want:
+        raise AssertionError(f"moe_serve launches {launches} != {want} "
+                             f"({passes} forward passes)")
+    same = sum(a == b for r, p in zip(runs["cuda"][1], runs["torch"][1])
+               for a, b in zip(r.output, p.output))
+    emit("moe_serve", launches=launches, forward_passes=passes,
+         launches_per_pass={k: v / passes for k, v in launches.items()},
+         tokens_equal_to_plain_path=same,
+         tokens_total=SERVE_REQUESTS * SERVE_NEW)
+
+    prompts = torch.as_tensor(np.stack(
+        [r.prompt for r in runs["cuda"][1][:SERVE_BATCH]]), device="cuda")
+    max_len = SERVE_PROMPT + SERVE_NEW + 1
+    gate, log = moe_teacher_forced(kern, plain, params, prompts, SERVE_NEW,
+                                   max_len, SERVE_TOL["bfloat16"], True,
+                                   "mixtral bf16 (routing replayed)",
+                                   keep_first=True)
+    emit("moe_serve", check="teacher-forced logits, kernels vs plain, the "
+         "plain path's experts replayed", dtype="bfloat16", **gate, ok=True)
+    # kernel #5 on the first layer's routed rows of this prefill wave
+    ragged = check_ragged(params, log.first_input, log.replay[0])
+    del log
+    free, _ = moe_teacher_forced(kern, plain, params, prompts, SERVE_NEW,
+                                 max_len, None, False,
+                                 "mixtral bf16 (free routing)")
+    emit("moe_serve", check="teacher-forced logits, kernels vs plain, "
+         "free routing (not gated)", dtype="bfloat16", **free)
+
+    # one request through the 4,096-token window: the ring holds the last
+    # 4,096 prompt positions and wraps in decode; capacity 1,300 rows
+    window = torch.as_tensor(make_requests(cfg, 1, WINDOW_PROMPT, WINDOW_NEW,
+                                           SERVE_SEED + 1)[0].prompt,
+                             device="cuda")[None]
+    torch.cuda.reset_peak_memory_stats()
+    win, _ = moe_teacher_forced(kern, plain, params, window, WINDOW_NEW,
+                                WINDOW_PROMPT + WINDOW_NEW + 1,
+                                SERVE_TOL["bfloat16"], True,
+                                "mixtral window wave (routing replayed)")
+    emit("moe_serve", check="window wave: teacher-forced logits, the plain "
+         "path's experts replayed", prompt_tokens=WINDOW_PROMPT,
+         window=cfg.sliding_window,
+         cache_capacity=kern.cache_capacity(WINDOW_PROMPT + WINDOW_NEW + 1),
+         dtype="bfloat16", **win,
+         peak_memory_GB=torch.cuda.max_memory_allocated() / 1e9, ok=True)
+
+    # where the time goes in one decode wave (sampling and the host read
+    # of the tokens included, as in the engine)
+    _, caches = kern.prefill(params, prompts, max_len=max_len)
+    tok = prompts[:, -1:]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(SERVE_NEW):
+            logits, caches = kern.decode_step(params, tok, caches)
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            tok.cpu()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = device_events(prof)
+    busy_ms = sum(e[2] for e in events) / 1e3
+    emit("moe_serve", card=card, profiled="decode wave", steps=SERVE_NEW,
+         wall_s=wall, device_busy_ms=busy_ms,
+         device_idle_share=1.0 - busy_ms / (wall * 1e3),
+         top_device_ops=[{"name": n[:80], "count": c, "ms": t / 1e3}
+                         for n, c, t in events[:10]])
+    del caches, params
+    torch.cuda.empty_cache()
+
+    # float32, 2 layers at full width, free routing: the kernels without
+    # bf16 rounding must not flip a single routing
+    cfg32 = cfg.replace(n_layers=2, param_dtype="float32",
+                        activation_dtype="float32")
+    kern32 = get_model(cfg32, kernel_backend="cuda")
+    params32 = kern32.init(SERVE_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    f32, _ = moe_teacher_forced(kern32, get_model(cfg32,
+                                                  kernel_backend="torch"),
+                                params32, prompts, 8, max_len,
+                                SERVE_TOL["float32"], False,
+                                "mixtral 2-layer float32")
+    if f32["differing_routings"]:
+        raise AssertionError(f"mixtral 2-layer float32: "
+                             f"{f32['differing_routings']} routings differ")
+    emit("moe_serve", check="teacher-forced logits, kernels vs plain, free "
+         "routing", dtype="float32", layers=2, **f32,
+         peak_memory_GB=torch.cuda.max_memory_allocated() / 1e9, ok=True)
+    del params32
+    torch.cuda.empty_cache()
+    return launches, ragged
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -905,17 +1396,26 @@ def main() -> int:
          device_name=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count())
 
+    t0 = time.perf_counter()
     phase_build()
     kernel_results = phase_kernels()
-    launches = phase_main_path()
+    # each path's launch counts, read around that path's own run
+    by_path = {"sim mphx-4p-86x9": phase_main_path()}
     phase_golden()
     kernel_results.update(phase_model_kernels())
-    launches.update(phase_serve(card))
+    by_path[f"{SERVE_ARCH} serve"] = phase_serve(card)
+    by_path[f"{MOE_ARCH} serve"], ragged = phase_moe_serve(card)
+    kernel_results.update(ragged)
+    emit("done", script_s=time.perf_counter() - t0)
 
     sources = {name: (replaces, SOURCE) for name, replaces in KERNELS.items()}
     sources.update(MODEL_KERNELS)
+    launches = {name: {path: counts[name] for path, counts in by_path.items()
+                       if counts.get(name)} for name in sources}
     kernels = [{"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces,
+                "launches": sum(launches[name].values()),
+                "launches_by_path": launches[name],
                 "max_abs_err": kernel_results[name]["max_abs_err"],
                 "ms": kernel_results[name]["ms"],
                 "plain_ms": kernel_results[name]["plain_ms"],

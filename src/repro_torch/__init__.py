@@ -1,4 +1,4 @@
-"""repro_torch — the MPHX flow simulator and the dense decoder LM on
+"""repro_torch — the MPHX flow simulator and the dense and MoE decoder LMs on
 PyTorch and CUDA.
 
 A port of the JAX package ``repro`` (the reference, which stays as it

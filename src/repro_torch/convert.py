@@ -18,7 +18,8 @@ from ._device import resolve_device
 from .configs.base import ModelConfig
 from .core.routing_vec import DemandArrays
 from .models.layers import torch_dtype
-from .models.registry import NOT_PORTED
+from .models.registry import NOT_PORTED, PORTED_FAMILIES
+from .models.transformer import GROUPS
 from .sim.fairshare import FlowIncidence
 
 
@@ -57,31 +58,42 @@ def _tensor(a, dtype, device) -> torch.Tensor:
 
 def _tree(tree, dtype, device):
     if isinstance(tree, dict):
-        return {k: _tree(v, dtype, device) for k, v in tree.items()}
+        # the MoE router stays float32 whatever the parameters' dtype, as
+        # the reference's moe_init makes it
+        return {k: _tree(v, torch.float32 if k == "router" else dtype,
+                         device) for k, v in tree.items()}
     return _tensor(tree, dtype, device)
 
 
 def decoder_params_from_numpy(tree: dict, cfg: ModelConfig,
                               device=None) -> dict:
     """The reference ``DecoderLM``'s parameter tree (nested dicts of numpy
-    arrays, layer leaves stacked on a leading ``(L, ...)`` axis) as the
-    port's parameters: the same dicts with a list of per-layer dicts under
-    ``"layers"``, in ``cfg.param_dtype`` on ``device`` (default
-    ``cuda``)."""
-    if "dense_layers" in tree or cfg.family != "dense":
+    arrays, layer leaves stacked on a leading ``(L, ...)`` axis, the
+    experts' on ``(L, E, ...)``) as the port's parameters: the same dicts
+    with a list of per-layer dicts under each layer group (``"layers"``,
+    and ``"dense_layers"`` for an MoE config with leading dense layers),
+    in ``cfg.param_dtype`` (the MoE router in float32) on ``device``
+    (default ``cuda``)."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"the parameters of family {cfg.family!r} "
                                   f"{NOT_PORTED}")
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
-    out = {k: _tree(v, dtype, dev) for k, v in tree.items() if k != "layers"}
-    stacked = _tree(tree["layers"], dtype, dev)
+    out = {k: _tree(v, dtype, dev) for k, v in tree.items()
+           if k not in GROUPS}
 
     def layer(i, t):
         return {k: layer(i, v) for k, v in t.items()} \
             if isinstance(t, dict) else t[i].contiguous()
 
-    n = len(tree["layers"]["attn_norm"]["scale"])
+    n = 0
+    for group in GROUPS:
+        if group not in tree:
+            continue
+        stacked = _tree(tree[group], dtype, dev)
+        size = len(tree[group]["attn_norm"]["scale"])
+        out[group] = [layer(i, stacked) for i in range(size)]
+        n += size
     if n != cfg.n_layers:
         raise ValueError(f"tree has {n} layers, config {cfg.n_layers}")
-    out["layers"] = [layer(i, stacked) for i in range(n)]
     return out

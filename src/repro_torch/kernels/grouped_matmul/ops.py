@@ -1,0 +1,137 @@
+"""Checked wrappers of the CUDA grouped matmuls, and their launch counts.
+
+``grouped_matmul(x, w)`` keeps the meaning of the Pallas kernel it
+replaces (``repro/kernels/grouped_matmul/kernel.py::grouped_matmul``):
+x (E, M, K) times w (E, K, N) per expert, fp32 accumulation, the result in
+x's dtype.  ``ragged_grouped_matmul(x, w, group_sizes, block_m)`` keeps
+that of ``ragged_grouped_matmul``: rows sorted by group, blocks of
+``block_m`` rows owned by the group of their first row, foreign rows 0
+(:func:`.ref.ragged_grouped_matmul_masked_ref`).  ``expert_ffn_matmul``
+and ``megablocks_matmul`` are the reference's names for the two
+(``repro/kernels/grouped_matmul/ops.py``).
+
+For tensors on the CPU the wrappers return the plain PyTorch versions.
+For CUDA tensors they launch the kernel or raise; there is no fallback.
+The bfloat16 kernel takes K and N that are multiples of 8 and 16-byte
+aligned operands (every MoE width is); float32 takes any shape.
+``LAUNCHES`` counts kernel launches: one is added where a kernel is
+launched, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from .._build import CudaLibrary
+from .ref import grouped_matmul_ref, ragged_grouped_matmul_masked_ref
+
+LAUNCHES = {"grouped_matmul": 0, "ragged_grouped_matmul": 0}
+
+LIBRARY = CudaLibrary(
+    "grouped_matmul",
+    Path(__file__).resolve().parent / "csrc" / "grouped_matmul.cu",
+    {"grouped_matmul_forward": [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_void_p]})
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check(name: str, x, w, x_dim: int) -> None:
+    if x.dim() != x_dim or w.dim() != 3 or x.shape[-1] != w.shape[1] or (
+            x_dim == 3 and x.shape[0] != w.shape[0]):
+        want = "(E, M, K)" if x_dim == 3 else "(T, K)"
+        raise ValueError(f"{name}: x must be {want} and w (E, K, N), got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
+        raise TypeError(f"{name}: x and w must share one dtype, float32 or "
+                        f"bfloat16, got {x.dtype} and {w.dtype}")
+    if w.device != x.device:
+        raise ValueError(f"{name}: x and w lie on different devices")
+
+
+def _launch(name: str, x, w, out, group_sizes, dims) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {x.device}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError(f"{name}: x and w must be contiguous, got strides "
+                         f"{x.stride()} and {w.stride()}")
+    K, N = dims[3], dims[4]
+    if x.dtype == torch.bfloat16 and (
+            K % 8 or N % 8 or x.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError(f"{name}: the bfloat16 kernel needs K and N "
+                         f"multiples of 8 and x and w 16-byte aligned, got "
+                         f"K={K}, N={N}")
+    with torch.cuda.device(x.device):
+        LIBRARY.call(name, "grouped_matmul_forward", x.data_ptr(),
+                     w.data_ptr(), out.data_ptr(),
+                     None if group_sizes is None else group_sizes.data_ptr(),
+                     (ctypes.c_int64 * 6)(*dims), _DTYPE_CODES[x.dtype],
+                     torch.cuda.current_stream().cuda_stream)
+    LAUNCHES[name] += 1
+
+
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (E, M, K), w (E, K, N), contiguous -> (E, M, N) in x's dtype."""
+    _check("grouped_matmul", x, w, 3)
+    if x.device.type == "cpu":
+        return grouped_matmul_ref(x, w)
+    E, M, K = x.shape
+    N = w.shape[2]
+    out = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    _launch("grouped_matmul", x, w, out, None, (0, E, M, K, N, 0))
+    return out
+
+
+def ragged_grouped_matmul(x: torch.Tensor, w: torch.Tensor,
+                          group_sizes: torch.Tensor,
+                          block_m: int = 128) -> torch.Tensor:
+    """x (T, K) rows sorted by group, w (E, K, N), group_sizes (E,)
+    integer on x's device -> (T, N) in x's dtype.  ``block_m`` is the
+    ownership granularity (the Pallas kernel's block rows)."""
+    _check("ragged_grouped_matmul", x, w, 2)
+    E = w.shape[0]
+    if group_sizes.shape != (E,) or group_sizes.dtype.is_floating_point:
+        raise ValueError(f"ragged_grouped_matmul: group_sizes must be ({E},) "
+                         f"integers, got {tuple(group_sizes.shape)} "
+                         f"{group_sizes.dtype}")
+    if group_sizes.device != x.device:
+        raise ValueError("ragged_grouped_matmul: group_sizes lies on another "
+                         "device than x")
+    if block_m < 1:
+        raise ValueError(f"ragged_grouped_matmul: block_m must be >= 1, got "
+                         f"{block_m}")
+    if x.device.type == "cpu":
+        return ragged_grouped_matmul_masked_ref(x, w, group_sizes, block_m)
+    T, K = x.shape
+    N = w.shape[2]
+    out = torch.empty((T, N), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    sizes = group_sizes.to(torch.int32).contiguous()
+    _launch("ragged_grouped_matmul", x, w, out, sizes,
+            (1, E, T, K, N, min(block_m, T)))
+    return out
+
+
+def expert_ffn_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(E, C, d) x (E, d, f) -> (E, C, f): the products of
+    ``repro_torch.models.moe._expert_ffn``."""
+    return grouped_matmul(x, w)
+
+
+def megablocks_matmul(x: torch.Tensor, w: torch.Tensor,
+                      group_sizes: torch.Tensor) -> torch.Tensor:
+    """Ragged (T, K) x per-group (E, K, N) -> (T, N), ownership blocks of
+    128 rows."""
+    return ragged_grouped_matmul(x, w, group_sizes)

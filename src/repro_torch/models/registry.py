@@ -20,11 +20,14 @@ ARCH_IDS = [
     "recurrentgemma-2b",
 ]
 
-# configs copied from repro/configs so far: the dense decoders
-PORTED_ARCH_IDS = ["phi3-medium-14b", "qwen3-32b", "yi-9b", "qwen1.5-32b"]
+# configs copied from repro/configs so far: the dense and MoE decoders
+PORTED_ARCH_IDS = ["kimi-k2-1t-a32b", "mixtral-8x22b", "phi3-medium-14b",
+                   "qwen3-32b", "yi-9b", "qwen1.5-32b"]
+# the families DecoderLM serves
+PORTED_FAMILIES = ("dense", "moe")
 # where ROADMAP.md says when the rest comes
-NOT_PORTED = ("is not ported yet (ROADMAP.md queue 1: 'MoE serve slice', "
-              "'Hybrid slice' and the families after it)")
+NOT_PORTED = ("is not ported yet (ROADMAP.md queue 1: 'Hybrid slice' and "
+              "the families after it)")
 
 
 def _module_name(arch_id: str) -> str:
@@ -47,7 +50,7 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
 def get_model(cfg: ModelConfig, *, device=None,
               kernel_backend: "str | None" = None):
     """The model of ``cfg``'s family on ``device`` (default ``cuda``)."""
-    if cfg.family == "dense":
+    if cfg.family in PORTED_FAMILIES:
         from .transformer import DecoderLM
         return DecoderLM(cfg, device=device, kernel_backend=kernel_backend)
     raise NotImplementedError(f"the model of family {cfg.family!r} "

@@ -1,19 +1,22 @@
-"""Decoder-only transformer LM of the dense family: a PyTorch copy of
-``repro/models/transformer.py``'s ``DecoderLM`` as the serving path runs
-it.
+"""Decoder-only transformer LM of the dense and MoE families: a PyTorch
+copy of ``repro/models/transformer.py``'s ``DecoderLM`` as the serving
+path runs it on one device.
 
 Supports GQA (+qk-norm, +QKV bias), RoPE, SwiGLU FFN, sliding-window
-attention and ring-buffer KV caches.  The layers are a list of per-layer
-parameter dicts walked by a Python loop (the reference stacks them for
-``lax.scan``).  RMSNorm and attention go through the hand-written CUDA
+attention, ring-buffer KV caches, and the MoE FFN (capacity dispatch,
+:mod:`.moe`) with leading dense layers (``first_k_dense``).  Each layer
+group (``dense_layers`` then ``layers`` for the MoE family, ``layers``
+alone for the dense one) is a list of per-layer parameter dicts walked by
+a Python loop (the reference stacks them for ``lax.scan``).  RMSNorm,
+attention and the experts' matmuls go through the hand-written CUDA
 kernels (``kernel_backend="cuda"``) or their plain PyTorch versions
 (``"torch"``).
 
-Not ported yet (ROADMAP.md queue 1): the MoE FFN (``_ffn_apply``'s MoE
-branch, with its expert-parallel and TP-f paths: "MoE serve slice"), the
-VLM prefix, sharding constraints and meshes, remat and the training loss
-("Training"); a config of the moe or vlm family raises
-``NotImplementedError``.
+Not ported yet (ROADMAP.md queue 1): the expert-parallel and TP-f MoE
+paths (they need a mesh: one device always takes the dispatch path, as the
+reference does without a mesh), the VLM prefix, sharding constraints,
+remat and the training loss ("Training"); a config of another family
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,7 +26,11 @@ import torch
 from .._device import resolve_device, resolve_kernel_backend
 from ..configs.base import ModelConfig
 from . import layers as L
-from .registry import NOT_PORTED
+from . import moe as M
+from .registry import NOT_PORTED, PORTED_FAMILIES
+
+# the layer groups of a parameter tree and of a cache, in forward order
+GROUPS = ("dense_layers", "layers")
 
 
 class DecoderLM:
@@ -36,7 +43,7 @@ class DecoderLM:
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  kernel_backend: "str | None" = None):
-        if cfg.family != "dense":
+        if cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"DecoderLM for family {cfg.family!r} {NOT_PORTED}")
         self.cfg = cfg
@@ -44,6 +51,18 @@ class DecoderLM:
         self.backend = resolve_kernel_backend(kernel_backend)
         self.dtype = L.torch_dtype(cfg.param_dtype)
         self.adtype = L.torch_dtype(cfg.activation_dtype)
+
+    @property
+    def _n_moe_layers(self) -> int:
+        if self.cfg.moe is None:
+            return 0
+        return self.cfg.n_layers - self.cfg.moe.first_k_dense
+
+    @property
+    def _n_dense_layers(self) -> int:
+        if self.cfg.moe is None:
+            return self.cfg.n_layers
+        return self.cfg.moe.first_k_dense
 
     # ---------------------------------------------------------------- init
 
@@ -55,6 +74,15 @@ class DecoderLM:
             "ffn_norm": L.rmsnorm_init(cfg.d_model, dt, device),
             "ffn": L.swiglu_init(generator, cfg.d_model, cfg.d_ff, dt,
                                  device),
+        }
+
+    def _moe_block_init(self, generator, device):
+        cfg, dt = self.cfg, self.dtype
+        return {
+            "attn_norm": L.rmsnorm_init(cfg.d_model, dt, device),
+            "attn": L.mha_init(generator, cfg, dt, device),
+            "ffn_norm": L.rmsnorm_init(cfg.d_model, dt, device),
+            "moe": M.moe_init(generator, cfg, dt, device),
         }
 
     def init(self, seed: int = 0, *, device=None):
@@ -72,18 +100,44 @@ class DecoderLM:
         if not cfg.tie_embeddings:
             params["unembed"] = L.dense_init(
                 gen, (cfg.d_model, cfg.vocab_size), dt, dev)
-        params["layers"] = [self._dense_block_init(gen, dev)
-                            for _ in range(cfg.n_layers)]
+        if cfg.moe is None:
+            params["layers"] = [self._dense_block_init(gen, dev)
+                                for _ in range(cfg.n_layers)]
+            return params
+        if self._n_dense_layers:
+            params["dense_layers"] = [self._dense_block_init(gen, dev)
+                                      for _ in range(self._n_dense_layers)]
+        params["layers"] = [self._moe_block_init(gen, dev)
+                            for _ in range(self._n_moe_layers)]
         return params
 
     def param_count(self) -> int:
         """Total parameters N (from shapes on the meta device)."""
         return sum(t.numel() for t in _leaves(self.init(device="meta")))
 
+    def active_param_count(self) -> int:
+        """Parameters one token reads: the experts count top_k / E."""
+        params = self.init(device="meta")
+        total = sum(t.numel() for t in _leaves(params))
+        if self.cfg.moe is None:
+            return total
+        expert = sum(t.numel() for layer in params["layers"]
+                     for t in _leaves(layer["moe"]["experts"]))
+        m = self.cfg.moe
+        return total - expert + int(expert * m.top_k / m.n_experts)
+
     # ------------------------------------------------------------- blocks
 
     def _norm(self, p, x):
         return L.rmsnorm(p, x, self.cfg.norm_eps, backend=self.backend)
+
+    def _ffn_apply(self, p, x):
+        """Returns (y, aux_loss).  One device: the MoE layer always takes
+        the capacity dispatch."""
+        if "ffn" in p:
+            return L.swiglu(p["ffn"], x), torch.zeros((), device=x.device)
+        return M.moe_ffn_dispatch(p["moe"], x, self.cfg,
+                                  backend=self.backend)
 
     def _block(self, p, x, positions, *, window):
         h = self._norm(p["attn_norm"], x)
@@ -91,7 +145,8 @@ class DecoderLM:
                              window=window, backend=self.backend)
         x = x + h
         h = self._norm(p["ffn_norm"], x)
-        return x + L.swiglu(p["ffn"], h)
+        h, aux = self._ffn_apply(p, h)
+        return x + h, aux
 
     def _block_decode(self, p, x, cache, pos, *, window):
         h = self._norm(p["attn_norm"], x)
@@ -100,7 +155,8 @@ class DecoderLM:
                                            backend=self.backend)
         x = x + h
         h = self._norm(p["ffn_norm"], x)
-        return x + L.swiglu(p["ffn"], h), cache
+        h, _ = self._ffn_apply(p, h)
+        return x + h, cache
 
     # ------------------------------------------------------------ forward
 
@@ -113,14 +169,17 @@ class DecoderLM:
     @torch.no_grad()
     def forward(self, params, tokens):
         """Training/prefill forward over the full sequence -> (logits
-        (B,S,V), aux); aux is 0 for the dense family."""
+        (B,S,V), aux); aux, the MoE load-balance loss summed over layers,
+        is 0 for the dense family."""
         cfg = self.cfg
         x = self._embed_tokens(params, tokens)
         positions = self._positions(x.shape[1])
-        for p in params["layers"]:
-            x = self._block(p, x, positions, window=cfg.sliding_window)
+        aux = torch.zeros((), device=x.device)
+        for _, _, p in _walk(params):
+            x, a = self._block(p, x, positions, window=cfg.sliding_window)
+            aux = aux + a
         x = self._norm(params["final_norm"], x)
-        return self._unembed(params, x), torch.zeros((), device=x.device)
+        return self._unembed(params, x), aux
 
     def _unembed(self, params, x):
         w = params["embed"].T if self.cfg.tie_embeddings \
@@ -135,13 +194,18 @@ class DecoderLM:
         return max_len
 
     def init_cache(self, batch: int, max_len: int):
-        """Zeroed ring caches of every layer, and the next position
+        """Zeroed ring caches of every layer group, and the next position
         (``pos``, a Python int: the host drives the decode loop)."""
         cap = self.cache_capacity(max_len)
-        return {"layers": L.make_kv_cache(self.cfg, batch, cap, self.adtype,
-                                          self.device,
-                                          n_layers=self.cfg.n_layers),
-                "pos": 0}
+        sizes = {"layers": self.cfg.n_layers if self.cfg.moe is None
+                 else self._n_moe_layers}
+        if self.cfg.moe is not None and self._n_dense_layers:
+            sizes["dense_layers"] = self._n_dense_layers
+        caches = {group: L.make_kv_cache(self.cfg, batch, cap, self.adtype,
+                                         self.device, n_layers=n)
+                  for group, n in sizes.items()}
+        caches["pos"] = 0
+        return caches
 
     @torch.no_grad()
     def prefill(self, params, tokens, max_len: int | None = None):
@@ -152,7 +216,7 @@ class DecoderLM:
         B, S, _ = x.shape
         caches = self.init_cache(B, max_len or S)
         positions = self._positions(S)
-        for i, p in enumerate(params["layers"]):
+        for group, i, p in _walk(params):
             h = self._norm(p["attn_norm"], x)
             q, k, v = L.mha_project_qkv(p["attn"], h, cfg, positions,
                                         backend=self.backend)
@@ -160,8 +224,9 @@ class DecoderLM:
                             window=cfg.sliding_window, backend=self.backend)
             x = x + L.mha_out(p["attn"], o, B, S)
             h = self._norm(p["ffn_norm"], x)
-            x = x + L.swiglu(p["ffn"], h)
-            L.cache_write_prefill(L.layer_cache(caches["layers"], i), k, v)
+            h, _ = self._ffn_apply(p, h)
+            x = x + h
+            L.cache_write_prefill(L.layer_cache(caches[group], i), k, v)
         caches["pos"] = S
         # the final norm is per position: only the last one is read
         x = self._norm(params["final_norm"], x[:, -1:])
@@ -173,13 +238,19 @@ class DecoderLM:
         in place and returned."""
         x = self._embed_tokens(params, token)
         pos = caches["pos"]
-        for i, p in enumerate(params["layers"]):
-            x, _ = self._block_decode(p, x,
-                                      L.layer_cache(caches["layers"], i),
+        for group, i, p in _walk(params):
+            x, _ = self._block_decode(p, x, L.layer_cache(caches[group], i),
                                       pos, window=self.cfg.sliding_window)
         caches["pos"] = pos + 1
         x = self._norm(params["final_norm"], x)
         return self._unembed(params, x)[:, 0], caches
+
+
+def _walk(params):
+    """(group, index in the group, layer params) in forward order."""
+    for group in GROUPS:
+        for i, p in enumerate(params.get(group, ())):
+            yield group, i, p
 
 
 def _leaves(tree):

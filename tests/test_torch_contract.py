@@ -3,8 +3,8 @@
 * No module under ``src/repro_torch/``, and not ``chip_smoke.py``, imports
   ``jax`` or anything of the JAX package ``repro`` (an AST scan).
 * With ``jax`` and ``repro`` blocked, every module imports and the CPU
-  slices run: the sim CLI, the serve CLI and a yi-9b smoke forward pass
-  (a subprocess).
+  slices run: the sim CLI, the serve CLI and a yi-9b and a mixtral-8x22b
+  smoke forward pass (a subprocess).
 * With no CUDA device, entry points called without ``device="cpu"`` raise
   instead of running on the CPU; unknown backends raise; a wrapper handed
   a tensor that is neither on the CPU nor on a GPU raises.
@@ -32,6 +32,8 @@ from repro_torch.core.routing_vec import (  # noqa: E402
 from repro_torch.experiments.run import main as cli_main  # noqa: E402
 from repro_torch.experiments.simsuite import run_sim_suite  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa
+from repro_torch.kernels.grouped_matmul import (  # noqa: E402
+    grouped_matmul, ragged_grouped_matmul)
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
 from repro_torch.kernels.segment_fairshare import segment_sum  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
@@ -94,6 +96,11 @@ def test_package_runs_with_jax_blocked(tmp_path):
                                   torch.zeros((2, 5), dtype=torch.int64))
         assert logits.shape == (2, 5, 512)
         assert bool(torch.isfinite(logits).all())
+        model = get_model(get_config("mixtral-8x22b", smoke=True),
+                          device="cpu")
+        logits, aux = model.forward(model.init(0),
+                                    torch.zeros((2, 5), dtype=torch.int64))
+        assert logits.shape == (2, 5, 512) and float(aux) > 0
         assert "jax" not in sys.modules or sys.modules["jax"] is None
         sys.exit(rc)
     """)
@@ -126,6 +133,7 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(no_cuda, tmp_path):
         lambda: cli_main(["--out", str(tmp_path)]),
         lambda: DecoderLM(get_config("yi-9b", smoke=True)),
         lambda: get_model(get_config("yi-9b", smoke=True)),
+        lambda: get_model(get_config("mixtral-8x22b", smoke=True)),
         lambda: decoder_params_from_numpy({}, get_config("yi-9b",
                                                           smoke=True)),
         lambda: serve_main(["--smoke"]),
@@ -179,6 +187,16 @@ def test_model_kernel_wrappers_have_no_fallback_off_the_cpu():
     kv_pos = torch.zeros(3, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         flash_attention(q, k, k, pos, kv_pos)
+
+
+def test_grouped_matmul_wrappers_have_no_fallback_off_the_cpu():
+    x = torch.zeros(2, 3, 16, device="meta")
+    w = torch.zeros(2, 16, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        grouped_matmul(x, w)
+    sizes = torch.tensor([2, 1], device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ragged_grouped_matmul(torch.zeros(3, 16, device="meta"), w, sizes)
 
 
 def test_convert_checks_flow_order():

@@ -14,6 +14,10 @@ another order), min exact, two kernel runs bitwise equal; suite rows at
 float32 and 5e-2 for bfloat16 (``tests/test_kernels.py``'s tolerances;
 the attention kernel keeps its softmax weights in fp32 where the plain
 version rounds them to v's dtype), two kernel runs bitwise equal.
+Grouped matmuls: float32 at 2e-5; bfloat16 per output row within 2e-2 of
+the row's max |out| (the kernel and the plain version both sum bf16
+products in fp32, in another order, and round once), rows the ragged
+kernel masks exactly 0, two kernel runs bitwise equal.
 """
 
 import dataclasses
@@ -31,6 +35,7 @@ from repro_torch.core.routing_vec import (  # noqa: E402
     neighbor_shift_demands, uniform_demands)
 from repro_torch.experiments.simsuite import run_sim_suite  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import grouped_matmul as gm  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels.segment_fairshare import (  # noqa: E402
     LAUNCHES, make_plan, reset_launch_counts, segment_min, segment_min_ref,
@@ -266,3 +271,135 @@ def test_decoder_through_kernels_matches_plain(cuda, dtype):
         assert float((got - want).abs().max()) <= tol * scale, step
     assert rn.LAUNCHES["rmsnorm"] == 5 * (2 * cfg.n_layers + 1)
     assert fa.LAUNCHES["flash_attention"] == 5 * cfg.n_layers
+
+
+def row_close(got, want, tol):
+    """Each row of ``got`` within ``tol`` of its max |want| (rows of
+    ``want`` that are all 0 must be 0 in ``got`` too)."""
+    g, w = got.float(), want.float()
+    gap = (g - w).abs().amax(dim=-1)
+    top = w.abs().amax(dim=-1)
+    assert bool((gap <= tol * top).all()), float((gap / top.clamp_min(
+        1e-30)).max())
+
+
+def grouped_inputs(gen, x_shape, w_shape, dtype, device):
+    """x standard normal, w scaled by 1/sqrt(K) as the model's init."""
+    x = torch.randn(*x_shape, device=device, generator=gen)
+    w = torch.randn(*w_shape, device=device, generator=gen) \
+        / np.sqrt(w_shape[1])
+    return x.to(dtype), w.to(dtype)
+
+
+# E, M, K, N: decode rows, a single row, the prefill tile's edges, the
+# window wave's 1,300 rows, and an N that is not a multiple of 8 (float32
+# only: the bfloat16 kernel refuses it)
+GMM_CASES = {"decode-m2": (8, 2, 256, 384), "one-row": (2, 1, 64, 64),
+             "tile-edges": (3, 300, 136, 200), "rows-1300": (2, 1300, 64, 128),
+             "small-m-tiles": (2, 33, 64, 72), "unaligned": (4, 50, 40, 30)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(GMM_CASES))
+def test_grouped_matmul_kernel_matches_plain(cuda, dtype, name):
+    E, M, K, N = GMM_CASES[name]
+    gen = torch.Generator(device=cuda).manual_seed(len(name))
+    x, w = grouped_inputs(gen, (E, M, K), (E, K, N), dtype, cuda)
+    gm.reset_launch_counts()
+    if dtype == torch.bfloat16 and N % 8:
+        with pytest.raises(ValueError, match="multiples of 8"):
+            gm.grouped_matmul(x, w)
+        assert gm.LAUNCHES == {"grouped_matmul": 0,
+                               "ragged_grouped_matmul": 0}
+        return
+    got, again = gm.grouped_matmul(x, w), gm.grouped_matmul(x, w)
+    want = gm.grouped_matmul_ref(x, w)
+    torch.cuda.synchronize()
+    assert gm.LAUNCHES == {"grouped_matmul": 2, "ragged_grouped_matmul": 0}
+    assert torch.equal(got, again)
+    assert got.dtype == dtype and got.shape == (E, M, N)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=2e-5, rtol=2e-5)
+    else:
+        row_close(got, want, 2e-2)
+
+
+def test_bf16_grouped_matmul_refuses_misaligned_operands(cuda):
+    """A contiguous x that starts 2 bytes past a 16-byte boundary."""
+    E, M, K, N = 2, 16, 64, 64
+    flat = torch.zeros(E * M * K + 1, dtype=torch.bfloat16, device=cuda)
+    x = flat[1:].view(E, M, K)
+    w = torch.zeros(E, K, N, dtype=torch.bfloat16, device=cuda)
+    gm.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gm.grouped_matmul(x, w)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gm.ragged_grouped_matmul(x.reshape(E * M, K), w,
+                                 torch.tensor([M, M], device=cuda))
+    assert gm.LAUNCHES == {"grouped_matmul": 0, "ragged_grouped_matmul": 0}
+
+
+# group sizes, ownership block rows, K, N: the reference's four cases
+# (tests/test_kernels.py), routed sizes that straddle 128-row blocks, and
+# 16-row blocks (the decode tile)
+RAGGED_CASES = {"even": ([64, 64, 64, 64], 32, 32, 16),
+                "empty-group": ([128, 0, 64, 64], 32, 32, 16),
+                "one-group": ([256, 0, 0, 0], 32, 32, 16),
+                "boundaries": ([32, 96, 64, 64], 32, 32, 16),
+                "routed": ([300, 17, 0, 211], 128, 64, 96),
+                "routed-16": ([45, 3, 80, 0, 22], 16, 72, 128)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(RAGGED_CASES))
+def test_ragged_grouped_matmul_kernel_matches_plain(cuda, dtype, name):
+    sizes, block_m, K, N = RAGGED_CASES[name]
+    gen = torch.Generator(device=cuda).manual_seed(len(name))
+    x, w = grouped_inputs(gen, (sum(sizes), K), (len(sizes), K, N), dtype,
+                          cuda)
+    gs = torch.tensor(sizes, device=cuda)
+    gm.reset_launch_counts()
+    got = gm.ragged_grouped_matmul(x, w, gs, block_m)
+    again = gm.ragged_grouped_matmul(x, w, gs, block_m)
+    want = gm.ragged_grouped_matmul_masked_ref(x, w, gs, block_m)
+    torch.cuda.synchronize()
+    assert gm.LAUNCHES == {"grouped_matmul": 0, "ragged_grouped_matmul": 2}
+    assert torch.equal(got, again)
+    _, inside = gm.block_owners(gs, x.shape[0], block_m)
+    assert bool((got[~inside] == 0).all())
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=2e-5, rtol=2e-5)
+    else:
+        row_close(got[inside], want[inside], 2e-2)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "kimi-k2-1t-a32b"])
+def test_moe_decoder_through_kernels_matches_plain(cuda, arch):
+    """An MoE smoke config in float32: prefill and decode logits through
+    the kernels against the plain path at 2e-5 of max |logit|, with three
+    grouped-matmul launches per MoE layer and forward pass.  kimi's smoke
+    heads are 8 wide, below the attention kernel's narrowest (16): the
+    test widens them to 16."""
+    cfg = get_config(arch, smoke=True)
+    if cfg.resolved_head_dim not in fa.ops.HEAD_DIMS:
+        cfg = cfg.replace(head_dim=16)
+    kern = get_model(cfg, device=cuda, kernel_backend="cuda")
+    plain = get_model(cfg, device=cuda, kernel_backend="torch")
+    params = kern.init(seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    n_moe = len(params["layers"])
+    gm.reset_launch_counts()
+    got, caches = kern.prefill(params, tokens, max_len=48)
+    want, pcaches = plain.prefill(params, tokens, max_len=48)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 2e-5 * scale
+    for step in range(4):
+        tok = torch.argmax(want, -1)[:, None]
+        got, caches = kern.decode_step(params, tok, caches)
+        want, pcaches = plain.decode_step(params, tok, pcaches)
+        assert float((got - want).abs().max()) <= 2e-5 * scale, step
+    assert gm.LAUNCHES["grouped_matmul"] == 5 * 3 * n_moe

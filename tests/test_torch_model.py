@@ -5,12 +5,17 @@ tree carried across with ``repro_torch.convert.decoder_params_from_numpy``;
 both get the same tokens (numpy, from a seed).  ``forward``, ``prefill``
 and a few ``decode_step`` logits must agree at 2e-3 absolute, the
 tolerance ``tests/test_models_smoke.py`` gives prefill/decode against
-forward (fp32 smoke configs).  Covered: the four dense smoke configs
-(qwen3 has qk-norm, qwen1.5 QKV bias) and yi-9b's with an 8-token sliding
-window, decoded past the window so the ring cache wraps.  The port runs
+forward (fp32 smoke configs), and the MoE load-balance loss at 1e-6.
+Covered: the four dense smoke configs (qwen3 has qk-norm, qwen1.5 QKV
+bias), yi-9b's with an 8-token sliding window, decoded past the window so
+the ring cache wraps, and the two MoE smoke configs (mixtral: top-2 of 4
+experts with an 8-token window; kimi: a leading dense layer and a shared
+expert).  The port runs
 with ``kernel_backend="cuda"``: on CPU tensors the kernel wrappers take
 their plain versions.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -61,10 +66,12 @@ def test_forward_prefill_decode_match_reference(case):
     tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
     max_len = S + steps + 1
 
-    want, _ = ref.forward(ref_params, jnp.asarray(tokens))
+    want, want_aux = ref.forward(ref_params, jnp.asarray(tokens))
     got, aux = model.forward(params, torch.as_tensor(tokens))
     close(got, want, f"{case} forward")
-    assert float(aux) == 0.0
+    assert abs(float(aux) - float(want_aux)) <= 1e-6
+    if cfg.moe is None:
+        assert float(aux) == 0.0
 
     want_last, ref_caches = ref.prefill(ref_params, jnp.asarray(tokens),
                                         max_len=max_len)
@@ -98,6 +105,17 @@ def test_param_count_matches_reference():
             assert get_config(arch, smoke=smoke).param_count() == want
     # yi-9b at full size: 48 x 173,023,232 + 2 x 64000 x 4096 + 4096
     assert get_config("yi-9b").param_count() == 8_829_407_232
+    # mixtral-8x22b: 56 x 2,504,060,928 + 2 x 32768 x 6144 + 6144
+    assert get_config("mixtral-8x22b").param_count() == 140_630_071_296
+
+
+def test_active_param_count_matches_reference():
+    for arch in ("mixtral-8x22b", "kimi-k2-1t-a32b", "yi-9b"):
+        for smoke in (False, True):
+            want = RefDecoderLM(ref_get_config(arch, smoke=smoke)) \
+                .active_param_count()
+            model = get_model(get_config(arch, smoke=smoke), device="cpu")
+            assert model.active_param_count() == want, (arch, smoke)
 
 
 def test_configs_are_the_reference_configs():
@@ -105,7 +123,9 @@ def test_configs_are_the_reference_configs():
         for smoke in (False, True):
             ref = ref_get_config(arch, smoke=smoke)
             got = get_config(arch, smoke=smoke)
-            assert got.__dict__ == ref.__dict__, arch
+            # nested configs (MoEConfig) are classes of each package:
+            # compare their fields
+            assert dataclasses.asdict(got) == dataclasses.asdict(ref), arch
 
 
 def test_unported_archs_and_families_raise():
@@ -172,3 +192,35 @@ def test_convert_carries_bf16_parameters_exactly():
     with pytest.raises(ValueError, match="layers"):
         decoder_params_from_numpy(tree, cfg.replace(n_layers=3),
                                   device="cpu")
+
+
+def test_convert_carries_moe_layer_groups_and_a_float32_router():
+    """kimi's smoke tree in bf16: a dense_layers group of one layer, the
+    experts' (L, E, ...) leaves unstacked per layer, the router kept in
+    float32 as the reference keeps it."""
+    arch = "kimi-k2-1t-a32b"
+    cfg = get_config(arch, smoke=True).replace(param_dtype="bfloat16")
+    ref = RefDecoderLM(ref_get_config(arch, smoke=True)
+                       .replace(param_dtype="bfloat16"))
+    tree = jax.tree.map(np.asarray, ref.init(jax.random.PRNGKey(0)))
+    params = decoder_params_from_numpy(tree, cfg, device="cpu")
+    assert len(params["dense_layers"]) == 1 and len(params["layers"]) == 2
+    for i, layer in enumerate(params["layers"]):
+        router = layer["moe"]["router"]
+        assert router.dtype == torch.float32
+        np.testing.assert_array_equal(router.numpy(),
+                                      tree["layers"]["moe"]["router"][i])
+        for name, got in layer["moe"]["experts"].items():
+            want = tree["layers"]["moe"]["experts"][name][i]
+            assert got.dtype == torch.bfloat16 and got.is_contiguous()
+            assert got.shape == want.shape
+            np.testing.assert_array_equal(got.float().numpy(),
+                                          want.astype(np.float32))
+        assert layer["moe"]["shared"]["w_up"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        params["dense_layers"][0]["ffn"]["w_down"].float().numpy(),
+        tree["dense_layers"]["ffn"]["w_down"][0].astype(np.float32))
+    model = get_model(cfg, device="cpu")
+    caches = model.init_cache(2, 16)
+    assert caches["dense_layers"]["k"].shape[0] == 1
+    assert caches["layers"]["k"].shape[0] == 2

@@ -1,11 +1,11 @@
 """The port's ``ServeEngine`` and serve CLI against the JAX package's.
 
 Mirrors ``tests/test_trainer_serve.py``'s serving tests: the reference's
-tiny dense config, its parameters carried across with
-``repro_torch.convert``, the same prompts (numpy, from a seed).  Greedy
-outputs must equal the JAX engine's token for token (fp32, where the two
-models' logits agree to ~1e-6), EOS must stop a request early, and the
-CLI must run on the CPU when asked to.
+tiny dense config and the MoE smoke configs, their parameters carried
+across with ``repro_torch.convert``, the same prompts (numpy, from a
+seed).  Greedy outputs must equal the JAX engine's token for token (fp32,
+where the two models' logits agree to ~1e-6), EOS must stop a request
+early, and the CLI must run on the CPU when asked to.
 """
 
 import numpy as np
@@ -16,12 +16,14 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.base import ModelConfig as RefModelConfig  # noqa: E402
+from repro.models.registry import get_config as ref_get_config  # noqa: E402
 from repro.models.transformer import DecoderLM as RefDecoderLM  # noqa: E402
 from repro.serve.engine import Request as RefRequest  # noqa: E402
 from repro.serve.engine import ServeEngine as RefServeEngine  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.convert import decoder_params_from_numpy  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
+from repro_torch.models.registry import get_config  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 
@@ -61,6 +63,28 @@ def test_greedy_outputs_equal_the_reference_engine():
         outs.append(int(nxt[0, 0]))
         last, caches = model.decode_step(params, nxt, caches)
     assert outs == reqs[0].output
+
+
+@pytest.mark.parametrize("arch", ["kimi-k2-1t-a32b", "mixtral-8x22b"])
+def test_moe_greedy_outputs_equal_the_reference_engine(arch):
+    """Two waves of an MoE smoke model; mixtral's 8-token window wraps
+    its ring cache during decode."""
+    ref = RefDecoderLM(ref_get_config(arch, smoke=True))
+    ref_params = ref.init(jax.random.PRNGKey(0))
+    cfg = get_config(arch, smoke=True)
+    params = decoder_params_from_numpy(jax.tree.map(np.asarray, ref_params),
+                                       cfg, device="cpu")
+    prompts = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (3, 10)).astype(np.int32)
+    ref_eng = RefServeEngine(ref, ref_params, max_batch=2, max_len=24)
+    ref_reqs = [RefRequest(prompt=p, max_new_tokens=6) for p in prompts]
+    ref_eng.run(ref_reqs)
+    eng = ServeEngine(DecoderLM(cfg, device="cpu"), params, max_batch=2,
+                      max_len=24)
+    reqs = [Request(prompt=p, max_new_tokens=6) for p in prompts]
+    eng.run(reqs)
+    assert [r.output for r in reqs] == [r.output for r in ref_reqs]
+    assert eng.stats.tokens_out == 18 and eng.stats.waves == 2
 
 
 def test_eos_stops_early():
@@ -111,3 +135,14 @@ def test_cli_runs_on_the_cpu(backend, capsys):
     assert stats.tokens_out == 12 and stats.waves == 2
     out = capsys.readouterr().out
     assert "params=135,488" in out and f"kernels={backend}" in out
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_moe_cli_runs_on_the_cpu(backend, capsys):
+    stats = serve_main(["--arch", "mixtral-8x22b", "--smoke", "--device",
+                        "cpu", "--requests", "3", "--prompt-len", "12",
+                        "--max-new", "4", "--max-batch", "2",
+                        "--kernel-backend", backend])
+    assert stats.tokens_out == 12 and stats.waves == 2
+    out = capsys.readouterr().out
+    assert "params=287,552" in out and f"kernels={backend}" in out
