@@ -9,9 +9,10 @@ Phases, each printing JSON lines; any failure raises and the exit code is
 nonzero:
 
 1. ``env``: the card (``nvidia-smi``), torch and CUDA versions.
-2. ``build``: nvcc builds the four kernel libraries from ``src/``
-   (segment reduce, RMSNorm, flash attention, grouped matmul), one nvcc
-   each, all started together, with each kernel's registers and spills.
+2. ``build``: nvcc builds the five kernel libraries from ``src/``
+   (segment reduce, RMSNorm, flash attention, grouped matmul, RG-LRU
+   scan), one nvcc each, all started together, with each kernel's
+   registers and spills.
 3. ``kernel``: the segment kernels against their plain PyTorch versions
    on the card, at edge-case sizes and at the sim path's shapes
    (mphx-4p-86x9 uniform: the incidence's edge and flow columns), twice
@@ -58,7 +59,20 @@ nonzero:
    runs through mixtral's 4,096-token window, a decode wave is profiled,
    and a float32 2-layer mixtral must agree at 2e-5 with no routing
    flipped.
-9. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
+9. ``hybrid_serve``: the RG-LRU scan against its plain version at
+   ``tests/test_kernels.py``'s edge shapes and recurrentgemma-2b
+   prefill's (4, 1024, 2560) within 1e-5, RMSNorm at d_model 2,560 and
+   attention at head dim 256 at the path's shapes (as phase 6); then
+   recurrentgemma-2b uncut (26 layers, 6.26 GB of random bf16 weights,
+   the gates and conv taps float32) serves the same traffic through the
+   kernels, with the launch counts read around that run alone (53
+   RMSNorm and 8 attention launches per forward pass, 18 scans per
+   prefill and none in decode), then on the plain path.  Teacher-forced
+   logits must agree within 5e-2 of max |logit|, also for a 2,304-token
+   request through the 2,048-token local window; a decode wave is
+   profiled, and a float32 model at full width and 5 of its 26 layers
+   must agree at 2e-5.
+10. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
@@ -115,6 +129,8 @@ MODEL_KERNELS = {
     "ragged_grouped_matmul": (
         "src/repro/kernels/grouped_matmul/kernel.py:94",
         "src/repro_torch/kernels/grouped_matmul/csrc/grouped_matmul.cu"),
+    "lru_scan": ("src/repro/kernels/rg_lru/kernel.py:40",
+                 "src/repro_torch/kernels/rg_lru/csrc/lru_scan.cu"),
 }
 # the serve path: yi-9b, 8 requests of 1,024 tokens, 32 new, waves of 4
 SERVE_ARCH = "yi-9b"
@@ -142,6 +158,14 @@ WINDOW_PROMPT, WINDOW_NEW = 4160, 8
 # products in fp32 (in another order) and round once, so a row differs by
 # at most one bf16 ulp of its max (2^-8 of it); 2e-2 as attention's rule
 GMM_ROW_TOL_BF16 = 2e-2
+# the hybrid serve path: recurrentgemma-2b uncut (6.26 GB of weights), the
+# traffic of yi-9b; its float32 check at full width runs one unit of
+# (rec, rec, attn) and the 2 tail rec blocks
+HYBRID_ARCH, HYBRID_F32_LAYERS = "recurrentgemma-2b", 5
+# one request past the 2,048-token local window, decoded WINDOW_NEW steps
+HYBRID_WINDOW_PROMPT = 2304
+# the RG-LRU scan against its plain version: tests/test_kernels.py's 1e-5
+LRU_TOL = 1e-5
 
 
 def emit(phase: str, **fields) -> None:
@@ -491,11 +515,12 @@ def phase_golden() -> None:
 
 
 def phase_build() -> None:
-    """nvcc for the four libraries at once (one process each)."""
+    """nvcc for the five libraries at once (one process each)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.flash_attention.ops import LIBRARY as attn_lib
     from repro_torch.kernels.grouped_matmul.ops import LIBRARY as gmm_lib
+    from repro_torch.kernels.rg_lru.ops import LIBRARY as lru_lib
     from repro_torch.kernels.rmsnorm.ops import LIBRARY as norm_lib
     from repro_torch.kernels.segment_fairshare.ops import LIBRARY as seg_lib
 
@@ -505,8 +530,9 @@ def phase_build() -> None:
         return lib, path, log, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        built = list(pool.map(build, (seg_lib, norm_lib, attn_lib, gmm_lib)))
+    libs = (seg_lib, norm_lib, attn_lib, gmm_lib, lru_lib)
+    with ThreadPoolExecutor(max_workers=len(libs)) as pool:
+        built = list(pool.map(build, libs))
     wall = time.perf_counter() - t0
     for lib, path, log, seconds in built:
         lib.load()
@@ -680,9 +706,143 @@ def check_grouped_matmul() -> dict:
     return results
 
 
-def phase_model_kernels() -> dict:
+def check_rmsnorm_path(phase: str, entries, gen) -> dict:
+    """RMSNorm at a serve path's shapes, ``entries`` of (arch, d_model,
+    rows): float32 at its tolerance, then bf16 (timed), held per row.
+    Returns the first entry's row of the kernels line."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import rmsnorm as rn
+
+    dev = torch.device("cuda")
+    tol = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+    results = {}
+    for arch, d, rows in entries:
+        errs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(rows, d, device=dev, generator=gen).to(dt)
+            s = torch.randn(d, device=dev, generator=gen).to(dt)
+            got, want = rn.rmsnorm(x, s, 1e-6), rn.rmsnorm_ref(x, s, 1e-6)
+            errs[dt] = check_close("rmsnorm", got, rn.rmsnorm(x, s, 1e-6),
+                                   want, tol[dt],
+                                   f"{arch} path ({rows}, {d}) {dt}")
+        # x and s are now the bf16 inputs: held per row, then timed
+        row_err = row_rel_err(got, want)
+        if row_err > ATTN_ROW_TOL_BF16:
+            raise AssertionError(f"rmsnorm {arch} path ({rows}, {d}): a row "
+                                 f"differs by {row_err} of its max > "
+                                 f"{ATTN_ROW_TOL_BF16}")
+        del got, want
+
+        def call():
+            rn.rmsnorm(x, s, 1e-6)
+
+        def lib_call():
+            F.rms_norm(x, (d,), weight=s, eps=1e-6)
+
+        row = {"max_abs_err": errs[torch.bfloat16], "ms": time_ms(call),
+               "plain_ms": time_ms(lambda: rn.rmsnorm_ref(x, s, 1e-6)),
+               "library_ms": time_ms(lib_call), **rmsnorm_cost(x, s)}
+        results.setdefault("rmsnorm", row)
+        emit(phase, kernel="rmsnorm", arch=arch,
+             case="prefill" if rows > SERVE_BATCH else "decode",
+             shape=[rows, d], dtype="bfloat16", **row,
+             max_row_rel_err=row_err, row_tolerance=ATTN_ROW_TOL_BF16,
+             float32_max_abs_err=errs[torch.float32],
+             float32_tolerance=tol[torch.float32],
+             library="torch.nn.functional.rms_norm",
+             kernel_device_ms=device_ms(call, "rmsnorm_kernel"),
+             library_device_ms=device_ms(lib_call, ""),
+             achieved_GBps=row["bytes"] / (row["ms"] * 1e-3) / 1e9, ok=True)
+    return results
+
+
+def positions_range(n: int) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.int32, device="cuda")
+
+
+def position_at(p: int) -> torch.Tensor:
+    return torch.tensor([p], dtype=torch.int32, device="cuda")
+
+
+def check_attention_path(phase: str, path, gen) -> dict:
+    """Attention at a serve path's shapes, ``path`` of (arch, case, B, K,
+    G, Sq, q_pos, kv_pos, window, Dh): float32 at 2e-5 first (no bf16
+    rounding hides a dropped tile or a wrong mask), then bf16 (timed),
+    held per row, beside SDPA as the yardstick.  Returns the first
+    entry's row of the kernels line."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    tol = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
+    results = {}
+    for arch, name, B, K, G, Sq, q_pos, kv_pos, window, Dh in path:
+        Skv = kv_pos.numel()
+        kw = dict(causal=True, window=window)
+        q, k, v = attention_inputs(gen, B, Sq, K, G, Skv, Dh, torch.float32)
+        args = (q, k, v, q_pos, kv_pos)
+        err32 = check_close("flash_attention", fa.flash_attention(*args, **kw),
+                            fa.flash_attention(*args, **kw),
+                            fa.attention_ref(*args, **kw), tol[q.dtype],
+                            f"{arch} path {name} float32")
+        q, k, v = attention_inputs(gen, B, Sq, K, G, Skv, Dh,
+                                   torch.bfloat16)
+        args = (q, k, v, q_pos, kv_pos)
+        got, want = fa.flash_attention(*args, **kw), \
+            fa.attention_ref(*args, **kw)
+        err = check_close("flash_attention", got,
+                          fa.flash_attention(*args, **kw), want, tol[q.dtype],
+                          f"{arch} path {name}")
+        row_err = row_rel_err(got, want)
+        if row_err > ATTN_ROW_TOL_BF16:
+            raise AssertionError(f"flash_attention {arch} path {name}: a row "
+                                 f"differs by {row_err} of its max |o| > "
+                                 f"{ATTN_ROW_TOL_BF16}")
+        del got, want
+        # the yardstick: SDPA on (B, H, S, Dh) copies made beforehand
+        qs = q.reshape(B, Sq, K * G, Dh).transpose(1, 2).contiguous()
+        ks, vs = (t.transpose(1, 2).contiguous() for t in (k, v))
+        causal_only = name == "prefill" and window is None
+        sdpa_kw = dict(is_causal=True) if causal_only else \
+            dict(attn_mask=fa.attention_mask(q_pos, kv_pos, True, window))
+
+        def call():
+            fa.flash_attention(*args, **kw)
+
+        def lib_call():
+            return F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True,
+                                                  **sdpa_kw)
+
+        lib_err = float((lib_call().transpose(1, 2).reshape(q.shape).float()
+                         - fa.attention_ref(*args, **kw).float()).abs().max())
+        heavy = Sq > 1
+        row = {"max_abs_err": err,
+               "ms": time_ms(call, reps=5 if heavy else 20),
+               "plain_ms": time_ms(lambda: fa.attention_ref(*args, **kw),
+                                   reps=3 if heavy else 20, samples=3),
+               "library_ms": time_ms(lib_call, reps=5 if heavy else 20),
+               **attention_cost(q, k, q_pos, kv_pos, True, window)}
+        results.setdefault("flash_attention", row)
+        emit(phase, kernel="flash_attention", arch=arch, case=name,
+             q=list(q.shape), kv=list(k.shape), window=window,
+             dtype="bfloat16", **row,
+             max_row_rel_err=row_err, row_tolerance=ATTN_ROW_TOL_BF16,
+             float32_max_abs_err=err32, float32_tolerance=tol[torch.float32],
+             library="scaled_dot_product_attention(enable_gqa=True, "
+                     + ("is_causal=True)" if causal_only else "attn_mask)"),
+             library_max_abs_err_vs_plain=lib_err,
+             kernel_device_ms=device_ms(call, "flash_attention_kernel",
+                                        reps=5),
+             library_device_ms=device_ms(lib_call, "", reps=5),
+             achieved_TFLOPs=row["flops"] / (row["ms"] * 1e-3) / 1e12,
+             ok=True)
+        del q, k, v, args, qs, ks, vs
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_model_kernels() -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
 
@@ -747,50 +907,13 @@ def phase_model_kernels() -> dict:
     from repro_torch.models.registry import get_config
 
     moe = get_config(MOE_ARCH)
-    results = {}
     # the serve paths' RMSNorm shapes, yi-9b's and mixtral-8x22b's width:
-    # prefill rows B*S, decode rows B; float32 at its tolerance, then bf16
-    # (timed), held per row
-    for arch, d, rows in [(SERVE_ARCH, 4096, SERVE_BATCH * SERVE_PROMPT),
-                          (SERVE_ARCH, 4096, SERVE_BATCH),
-                          (MOE_ARCH, moe.d_model, SERVE_BATCH * SERVE_PROMPT),
-                          (MOE_ARCH, moe.d_model, SERVE_BATCH)]:
-        errs = {}
-        for dt in (torch.float32, torch.bfloat16):
-            x = torch.randn(rows, d, device=dev, generator=gen).to(dt)
-            s = torch.randn(d, device=dev, generator=gen).to(dt)
-            got, want = rn.rmsnorm(x, s, 1e-6), rn.rmsnorm_ref(x, s, 1e-6)
-            errs[dt] = check_close("rmsnorm", got, rn.rmsnorm(x, s, 1e-6),
-                                   want, tol[dt],
-                                   f"{arch} path ({rows}, {d}) {dt}")
-        # x and s are now the bf16 inputs: held per row, then timed
-        row_err = row_rel_err(got, want)
-        if row_err > ATTN_ROW_TOL_BF16:
-            raise AssertionError(f"rmsnorm {arch} path ({rows}, {d}): a row "
-                                 f"differs by {row_err} of its max > "
-                                 f"{ATTN_ROW_TOL_BF16}")
-        del got, want
-
-        def call():
-            rn.rmsnorm(x, s, 1e-6)
-
-        def lib_call():
-            F.rms_norm(x, (d,), weight=s, eps=1e-6)
-
-        row = {"max_abs_err": errs[torch.bfloat16], "ms": time_ms(call),
-               "plain_ms": time_ms(lambda: rn.rmsnorm_ref(x, s, 1e-6)),
-               "library_ms": time_ms(lib_call), **rmsnorm_cost(x, s)}
-        results.setdefault("rmsnorm", row)
-        emit("model_kernel", kernel="rmsnorm", arch=arch,
-             case="prefill" if rows > SERVE_BATCH else "decode",
-             shape=[rows, d], dtype="bfloat16", **row,
-             max_row_rel_err=row_err, row_tolerance=ATTN_ROW_TOL_BF16,
-             float32_max_abs_err=errs[torch.float32],
-             float32_tolerance=tol[torch.float32],
-             library="torch.nn.functional.rms_norm",
-             kernel_device_ms=device_ms(call, "rmsnorm_kernel"),
-             library_device_ms=device_ms(lib_call, ""),
-             achieved_GBps=row["bytes"] / (row["ms"] * 1e-3) / 1e9, ok=True)
+    # prefill rows B*S, decode rows B
+    results = check_rmsnorm_path("model_kernel", [
+        (SERVE_ARCH, 4096, SERVE_BATCH * SERVE_PROMPT),
+        (SERVE_ARCH, 4096, SERVE_BATCH),
+        (MOE_ARCH, moe.d_model, SERVE_BATCH * SERVE_PROMPT),
+        (MOE_ARCH, moe.d_model, SERVE_BATCH)], gen)
 
     # the serve paths' attention.  yi-9b (4 KV heads of 8 queries):
     # prefill over the prompt's own keys (as the reference's prefill), the
@@ -800,95 +923,26 @@ def phase_model_kernels() -> dict:
     # prefill, decode over the 1,057-slot ring, the window wave's 4,160-token
     # prefill with the window binding, and its last decode step over the
     # wrapped ring of `window` slots.
-    def arange(n):
-        return torch.arange(n, dtype=torch.int32, device=dev)
-
-    def at(p):
-        return torch.tensor([p], dtype=torch.int32, device=dev)
-
+    arange, at = positions_range, position_at
     S, cap, win = SERVE_PROMPT, SERVE_MAX_LEN, moe.sliding_window
     last = WINDOW_PROMPT + WINDOW_NEW - 1
     mk, mg = moe.n_kv_heads, moe.n_heads // moe.n_kv_heads
-    path = [  # (arch, case, B, K, G, Sq, q_pos, kv_pos, window)
+    path = [  # (arch, case, B, K, G, Sq, q_pos, kv_pos, window, Dh)
         (SERVE_ARCH, "prefill", SERVE_BATCH, 4, 8, S, arange(S), arange(S),
-         None),
+         None, 128),
         (SERVE_ARCH, "prefill-over-cache", SERVE_BATCH, 4, 8, S, arange(S),
-         ring_kv_pos(cap, S, dev), None),
+         ring_kv_pos(cap, S, dev), None, 128),
         (SERVE_ARCH, "decode", SERVE_BATCH, 4, 8, 1, at(1039),
-         ring_kv_pos(cap, 1040, dev), None),
+         ring_kv_pos(cap, 1040, dev), None, 128),
         (MOE_ARCH, "prefill", SERVE_BATCH, mk, mg, S, arange(S), arange(S),
-         win),
+         win, 128),
         (MOE_ARCH, "decode", SERVE_BATCH, mk, mg, 1, at(1039),
-         ring_kv_pos(cap, 1040, dev), win),
+         ring_kv_pos(cap, 1040, dev), win, 128),
         (MOE_ARCH, "window prefill", 1, mk, mg, WINDOW_PROMPT,
-         arange(WINDOW_PROMPT), arange(WINDOW_PROMPT), win),
+         arange(WINDOW_PROMPT), arange(WINDOW_PROMPT), win, 128),
         (MOE_ARCH, "window decode", 1, mk, mg, 1, at(last),
-         ring_kv_pos(win, last + 1, dev), win)]
-    Dh = 128
-    for arch, name, B, K, G, Sq, q_pos, kv_pos, window in path:
-        Skv = kv_pos.numel()
-        kw = dict(causal=True, window=window)
-        # float32 at its tolerance first: no bf16 rounding hides a
-        # dropped tile or a wrong mask; then bf16 (timed), held per row
-        q, k, v = attention_inputs(gen, B, Sq, K, G, Skv, Dh, torch.float32)
-        args = (q, k, v, q_pos, kv_pos)
-        err32 = check_close("flash_attention", fa.flash_attention(*args, **kw),
-                            fa.flash_attention(*args, **kw),
-                            fa.attention_ref(*args, **kw), tol[q.dtype],
-                            f"{arch} path {name} float32")
-        q, k, v = attention_inputs(gen, B, Sq, K, G, Skv, Dh,
-                                   torch.bfloat16)
-        args = (q, k, v, q_pos, kv_pos)
-        got, want = fa.flash_attention(*args, **kw), \
-            fa.attention_ref(*args, **kw)
-        err = check_close("flash_attention", got,
-                          fa.flash_attention(*args, **kw), want, tol[q.dtype],
-                          f"{arch} path {name}")
-        row_err = row_rel_err(got, want)
-        if row_err > ATTN_ROW_TOL_BF16:
-            raise AssertionError(f"flash_attention {arch} path {name}: a row "
-                                 f"differs by {row_err} of its max |o| > "
-                                 f"{ATTN_ROW_TOL_BF16}")
-        del got, want
-        # the yardstick: SDPA on (B, H, S, Dh) copies made beforehand
-        qs = q.reshape(B, Sq, K * G, Dh).transpose(1, 2).contiguous()
-        ks, vs = (t.transpose(1, 2).contiguous() for t in (k, v))
-        causal_only = name == "prefill" and window is None
-        sdpa_kw = dict(is_causal=True) if causal_only else \
-            dict(attn_mask=fa.attention_mask(q_pos, kv_pos, True, window))
-
-        def call():
-            fa.flash_attention(*args, **kw)
-
-        def lib_call():
-            return F.scaled_dot_product_attention(qs, ks, vs, enable_gqa=True,
-                                                  **sdpa_kw)
-
-        lib_err = float((lib_call().transpose(1, 2).reshape(q.shape).float()
-                         - fa.attention_ref(*args, **kw).float()).abs().max())
-        heavy = Sq > 1
-        row = {"max_abs_err": err,
-               "ms": time_ms(call, reps=5 if heavy else 20),
-               "plain_ms": time_ms(lambda: fa.attention_ref(*args, **kw),
-                                   reps=3 if heavy else 20, samples=3),
-               "library_ms": time_ms(lib_call, reps=5 if heavy else 20),
-               **attention_cost(q, k, q_pos, kv_pos, True, window)}
-        results.setdefault("flash_attention", row)
-        emit("model_kernel", kernel="flash_attention", arch=arch, case=name,
-             q=list(q.shape), kv=list(k.shape), window=window,
-             dtype="bfloat16", **row,
-             max_row_rel_err=row_err, row_tolerance=ATTN_ROW_TOL_BF16,
-             float32_max_abs_err=err32, float32_tolerance=tol[torch.float32],
-             library="scaled_dot_product_attention(enable_gqa=True, "
-                     + ("is_causal=True)" if causal_only else "attn_mask)"),
-             library_max_abs_err_vs_plain=lib_err,
-             kernel_device_ms=device_ms(call, "flash_attention_kernel",
-                                        reps=5),
-             library_device_ms=device_ms(lib_call, "", reps=5),
-             achieved_TFLOPs=row["flops"] / (row["ms"] * 1e-3) / 1e12,
-             ok=True)
-        del q, k, v, args, qs, ks, vs
-        torch.cuda.empty_cache()
+         ring_kv_pos(win, last + 1, dev), win, 128)]
+    results.update(check_attention_path("model_kernel", path, gen))
     results.update(check_grouped_matmul())
     return results
 
@@ -901,12 +955,12 @@ def logits_gap(got, want) -> "tuple[float, float]":
 
 
 def teacher_forced(kern, plain, params, prompts, steps: int, tol: float,
-                   where: str) -> dict:
+                   where: str, max_len: int = SERVE_MAX_LEN) -> dict:
     """Prefill and ``steps`` decode steps on both paths, each fed the
     plain path's greedy token, so one near-tie cannot decide the
     comparison.  Every logit within ``tol * max |logit|``."""
-    lk, ck = kern.prefill(params, prompts, max_len=SERVE_MAX_LEN)
-    lp, cp = plain.prefill(params, prompts, max_len=SERVE_MAX_LEN)
+    lk, ck = kern.prefill(params, prompts, max_len=max_len)
+    lp, cp = plain.prefill(params, prompts, max_len=max_len)
     if lk.shape != (prompts.shape[0], kern.cfg.vocab_size) \
             or lk.dtype != torch.float32:
         raise AssertionError(f"{where}: logits {tuple(lk.shape)} {lk.dtype}")
@@ -928,12 +982,77 @@ def teacher_forced(kern, plain, params, prompts, steps: int, tol: float,
     return worst
 
 
+def serve_run(cfg, model, params, requests: int = SERVE_REQUESTS,
+              prompt: int = SERVE_PROMPT, new: int = SERVE_NEW):
+    """``requests`` random prompts (numpy, from SERVE_SEED) through
+    ``ServeEngine`` in waves of SERVE_BATCH, greedy.  Returns (stats,
+    requests, wall s, peak device bytes)."""
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.serve.engine import ServeEngine
+
+    reqs = make_requests(cfg, requests, prompt, new, SERVE_SEED)
+    eng = ServeEngine(model, params, max_batch=SERVE_BATCH,
+                      max_len=prompt + new + 1, seed=SERVE_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    return eng.stats, reqs, time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated()
+
+
+def emit_serve_runs(phase: str, card: str, runs: dict) -> None:
+    """One line per path of the timed serve runs; every request must
+    have its SERVE_NEW tokens."""
+    for backend, (stats, reqs, wall, peak) in runs.items():
+        if stats.tokens_out != SERVE_REQUESTS * SERVE_NEW or any(
+                len(r.output) != SERVE_NEW or not r.done for r in reqs):
+            raise AssertionError(f"{backend}: {stats.tokens_out} tokens out")
+        emit(phase, card=card, kernel_backend=backend,
+             requests=SERVE_REQUESTS, prompt_tokens=SERVE_PROMPT,
+             new_tokens=SERVE_NEW, max_batch=SERVE_BATCH, waves=stats.waves,
+             wall_s=wall, prefill_s=stats.prefill_s,
+             decode_s=stats.decode_s,
+             decode_tok_per_s=stats.decode_tok_per_s,
+             prefill_tok_per_s=SERVE_REQUESTS * SERVE_PROMPT
+             / stats.prefill_s, peak_memory_GB=peak / 1e9)
+
+
+def tokens_equal(runs: dict) -> int:
+    """Greedy tokens of the kernel path equal to the plain path's."""
+    return sum(a == b for r, p in zip(runs["cuda"][1], runs["torch"][1])
+               for a, b in zip(r.output, p.output))
+
+
+def profile_decode_wave(model, params, prompts, max_len: int) -> dict:
+    """Where the time goes in one decode wave of SERVE_NEW steps (sampling
+    and the host read of the tokens included, as in the engine)."""
+    _, caches = model.prefill(params, prompts, max_len=max_len)
+    tok = prompts[:, -1:]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(SERVE_NEW):
+            logits, caches = model.decode_step(params, tok, caches)
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            tok.cpu()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = device_events(prof)
+    busy_ms = sum(e[2] for e in events) / 1e3
+    return {"profiled": "decode wave", "steps": SERVE_NEW, "wall_s": wall,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
+            "top_device_ops": [{"name": n[:80], "count": c, "ms": t / 1e3}
+                               for n, c, t in events[:10]]}
+
+
 def phase_serve(card: str) -> dict:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
-    from repro_torch.launch.serve import make_requests
     from repro_torch.models.registry import get_config, get_model
-    from repro_torch.serve.engine import ServeEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -951,39 +1070,16 @@ def phase_serve(card: str) -> dict:
          weight_fill_s=fill_s,
          weights_GB=torch.cuda.memory_allocated() / 1e9)
 
-    def serve(model, requests: int, prompt: int, new: int):
-        reqs = make_requests(cfg, requests, prompt, new, SERVE_SEED)
-        eng = ServeEngine(model, params, max_batch=SERVE_BATCH,
-                          max_len=prompt + new + 1, seed=SERVE_SEED)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        eng.run(reqs)
-        torch.cuda.synchronize()
-        return eng.stats, reqs, time.perf_counter() - t0, \
-            torch.cuda.max_memory_allocated()
-
     # a short run of each path first: neither timed run pays first use
-    serve(kern, 1, 64, 2)
-    serve(plain, 1, 64, 2)
+    serve_run(cfg, kern, params, 1, 64, 2)
+    serve_run(cfg, plain, params, 1, 64, 2)
     rn.reset_launch_counts()
     fa.reset_launch_counts()
-    runs = {"cuda": serve(kern, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW)}
+    runs = {"cuda": serve_run(cfg, kern, params)}
     launches = {"rmsnorm": rn.LAUNCHES["rmsnorm"],
                 "flash_attention": fa.LAUNCHES["flash_attention"]}
-    runs["torch"] = serve(plain, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW)
-    for backend, (stats, reqs, wall, peak) in runs.items():
-        if stats.tokens_out != SERVE_REQUESTS * SERVE_NEW or any(
-                len(r.output) != SERVE_NEW or not r.done for r in reqs):
-            raise AssertionError(f"{backend}: {stats.tokens_out} tokens out")
-        emit("serve", card=card, kernel_backend=backend,
-             requests=SERVE_REQUESTS,
-             prompt_tokens=SERVE_PROMPT, new_tokens=SERVE_NEW,
-             max_batch=SERVE_BATCH, waves=stats.waves, wall_s=wall,
-             prefill_s=stats.prefill_s, decode_s=stats.decode_s,
-             decode_tok_per_s=stats.decode_tok_per_s,
-             prefill_tok_per_s=SERVE_REQUESTS * SERVE_PROMPT
-             / stats.prefill_s, peak_memory_GB=peak / 1e9)
+    runs["torch"] = serve_run(cfg, plain, params)
+    emit_serve_runs("serve", card, runs)
     # each wave: one prefill, then one decode step per new token (the
     # last step's logits are not sampled, as in the reference's engine)
     passes = runs["cuda"][0].waves * (1 + SERVE_NEW)
@@ -992,11 +1088,9 @@ def phase_serve(card: str) -> dict:
     if launches != want:
         raise AssertionError(f"serve launches {launches} != {want} "
                              f"({passes} forward passes)")
-    same = sum(a == b for r, p in zip(runs["cuda"][1], runs["torch"][1])
-               for a, b in zip(r.output, p.output))
     emit("serve", launches=launches, forward_passes=passes,
          launches_per_pass={k: v / passes for k, v in launches.items()},
-         tokens_equal_to_plain_path=same,
+         tokens_equal_to_plain_path=tokens_equal(runs),
          tokens_total=SERVE_REQUESTS * SERVE_NEW)
 
     prompts = torch.as_tensor(np.stack(
@@ -1006,28 +1100,9 @@ def phase_serve(card: str) -> dict:
     emit("serve", check="teacher-forced logits, kernels vs plain",
          dtype="bfloat16", **bf16, ok=True)
 
-    # where the time goes in one decode wave (sampling and the host read
-    # of the tokens included, as in the engine)
-    _, caches = kern.prefill(params, prompts, max_len=SERVE_MAX_LEN)
-    tok = prompts[:, -1:]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(SERVE_NEW):
-            logits, caches = kern.decode_step(params, tok, caches)
-            tok = torch.argmax(logits, dim=-1)[:, None]
-            tok.cpu()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = device_events(prof)
-    busy_ms = sum(e[2] for e in events) / 1e3
-    emit("serve", card=card, profiled="decode wave", steps=SERVE_NEW,
-         wall_s=wall, device_busy_ms=busy_ms,
-         device_idle_share=1.0 - busy_ms / (wall * 1e3),
-         top_device_ops=[{"name": n[:80], "count": c, "ms": t / 1e3}
-                         for n, c, t in events[:10]])
-    del caches, params
+    emit("serve", card=card,
+         **profile_decode_wave(kern, params, prompts, SERVE_MAX_LEN))
+    del params
     torch.cuda.empty_cache()
 
     # float32, 2 layers at full width: the kernels without bf16 rounding
@@ -1231,7 +1306,6 @@ def phase_moe_serve(card: str) -> "tuple[dict, dict]":
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.launch.serve import make_requests
     from repro_torch.models.registry import get_config, get_model
-    from repro_torch.serve.engine import ServeEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1249,41 +1323,18 @@ def phase_moe_serve(card: str) -> "tuple[dict, dict]":
          param_dtype=cfg.param_dtype, weight_fill_s=time.perf_counter() - t0,
          weights_GB=torch.cuda.memory_allocated() / 1e9)
 
-    def serve(model, requests: int, prompt: int, new: int):
-        reqs = make_requests(cfg, requests, prompt, new, SERVE_SEED)
-        eng = ServeEngine(model, params, max_batch=SERVE_BATCH,
-                          max_len=prompt + new + 1, seed=SERVE_SEED)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        eng.run(reqs)
-        torch.cuda.synchronize()
-        return eng.stats, reqs, time.perf_counter() - t0, \
-            torch.cuda.max_memory_allocated()
-
     # a short run of each path first: neither timed run pays first use
-    serve(kern, 1, 64, 2)
-    serve(plain, 1, 64, 2)
+    serve_run(cfg, kern, params, 1, 64, 2)
+    serve_run(cfg, plain, params, 1, 64, 2)
     rn.reset_launch_counts()
     fa.reset_launch_counts()
     gm.reset_launch_counts()
-    runs = {"cuda": serve(kern, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW)}
+    runs = {"cuda": serve_run(cfg, kern, params)}
     launches = {"rmsnorm": rn.LAUNCHES["rmsnorm"],
                 "flash_attention": fa.LAUNCHES["flash_attention"],
                 **gm.LAUNCHES}
-    runs["torch"] = serve(plain, SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW)
-    for backend, (stats, reqs, wall, peak) in runs.items():
-        if stats.tokens_out != SERVE_REQUESTS * SERVE_NEW or any(
-                len(r.output) != SERVE_NEW or not r.done for r in reqs):
-            raise AssertionError(f"{backend}: {stats.tokens_out} tokens out")
-        emit("moe_serve", card=card, kernel_backend=backend,
-             requests=SERVE_REQUESTS, prompt_tokens=SERVE_PROMPT,
-             new_tokens=SERVE_NEW, max_batch=SERVE_BATCH, waves=stats.waves,
-             wall_s=wall, prefill_s=stats.prefill_s,
-             decode_s=stats.decode_s,
-             decode_tok_per_s=stats.decode_tok_per_s,
-             prefill_tok_per_s=SERVE_REQUESTS * SERVE_PROMPT
-             / stats.prefill_s, peak_memory_GB=peak / 1e9)
+    runs["torch"] = serve_run(cfg, plain, params)
+    emit_serve_runs("moe_serve", card, runs)
     passes = runs["cuda"][0].waves * (1 + SERVE_NEW)
     L = cfg.n_layers
     want = {"rmsnorm": passes * (2 * L + 1), "flash_attention": passes * L,
@@ -1291,11 +1342,9 @@ def phase_moe_serve(card: str) -> "tuple[dict, dict]":
     if launches != want:
         raise AssertionError(f"moe_serve launches {launches} != {want} "
                              f"({passes} forward passes)")
-    same = sum(a == b for r, p in zip(runs["cuda"][1], runs["torch"][1])
-               for a, b in zip(r.output, p.output))
     emit("moe_serve", launches=launches, forward_passes=passes,
          launches_per_pass={k: v / passes for k, v in launches.items()},
-         tokens_equal_to_plain_path=same,
+         tokens_equal_to_plain_path=tokens_equal(runs),
          tokens_total=SERVE_REQUESTS * SERVE_NEW)
 
     prompts = torch.as_tensor(np.stack(
@@ -1333,28 +1382,9 @@ def phase_moe_serve(card: str) -> "tuple[dict, dict]":
          dtype="bfloat16", **win,
          peak_memory_GB=torch.cuda.max_memory_allocated() / 1e9, ok=True)
 
-    # where the time goes in one decode wave (sampling and the host read
-    # of the tokens included, as in the engine)
-    _, caches = kern.prefill(params, prompts, max_len=max_len)
-    tok = prompts[:, -1:]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(SERVE_NEW):
-            logits, caches = kern.decode_step(params, tok, caches)
-            tok = torch.argmax(logits, dim=-1)[:, None]
-            tok.cpu()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = device_events(prof)
-    busy_ms = sum(e[2] for e in events) / 1e3
-    emit("moe_serve", card=card, profiled="decode wave", steps=SERVE_NEW,
-         wall_s=wall, device_busy_ms=busy_ms,
-         device_idle_share=1.0 - busy_ms / (wall * 1e3),
-         top_device_ops=[{"name": n[:80], "count": c, "ms": t / 1e3}
-                         for n, c, t in events[:10]])
-    del caches, params
+    emit("moe_serve", card=card,
+         **profile_decode_wave(kern, params, prompts, max_len))
+    del params
     torch.cuda.empty_cache()
 
     # float32, 2 layers at full width, free routing: the kernels without
@@ -1378,6 +1408,195 @@ def phase_moe_serve(card: str) -> "tuple[dict, dict]":
     del params32
     torch.cuda.empty_cache()
     return launches, ragged
+
+
+def lru_scan_cost(a) -> dict:
+    """Least time for one scan: a and b read once, y written once, h0
+    read and h_last written once (float32), or one multiply and one add
+    per element at the float32 rate outside the tensor cores."""
+    B, S, W = a.shape
+    n_bytes = 4 * (3 * B * S * W + 2 * B * W)
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_ops = 2 * B * S * W / PEAK_FP32_PER_S
+    return {"bytes": n_bytes, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def check_lru_scan(gen) -> dict:
+    """The RG-LRU scan against its plain version, y and h_last within
+    LRU_TOL absolute and relative, two kernel runs the same bits: at
+    tests/test_kernels.py's edge shapes, then (timed) at recurrentgemma-2b
+    prefill's (4, 1024, 2560), all with a random h0."""
+    from repro_torch.kernels import rg_lru
+
+    dev = torch.device("cuda")
+    shapes = [("edge", 1, 16, 32), ("edge", 2, 75, 96), ("edge", 3, 128, 64),
+              ("edge", 1, 200, 48),
+              ("prefill", SERVE_BATCH, SERVE_PROMPT, 2560)]
+    results = {}
+    for case, B, S, W in shapes:
+        a = torch.empty(B, S, W, device=dev).uniform_(0.4, 0.999,
+                                                      generator=gen)
+        b = torch.randn(B, S, W, device=dev, generator=gen)
+        h0 = torch.randn(B, W, device=dev, generator=gen)
+        y, h = rg_lru.lru_scan(a, b, h0)
+        y2, h2 = rg_lru.lru_scan(a, b, h0)
+        wy, wh = rg_lru.lru_scan_ref(a, b, h0)
+        err = max(check_close("lru_scan", y, y2, wy, LRU_TOL,
+                              f"y {(B, S, W)}"),
+                  check_close("lru_scan", h, h2, wh, LRU_TOL,
+                              f"h_last {(B, S, W)}"))
+        if not torch.equal(h, y[:, -1]):
+            raise AssertionError(f"lru_scan {(B, S, W)}: h_last != y[:, -1]")
+        line = {"kernel": "lru_scan", "case": case, "shape": [B, S, W],
+                "tolerance": LRU_TOL,
+                "bitwise_equal_to_plain": bool(torch.equal(y, wy)
+                                               and torch.equal(h, wh))}
+        if case == "edge":
+            emit("hybrid_serve", **line, max_abs_err=err, ok=True)
+            continue
+
+        def call():
+            rg_lru.lru_scan(a, b, h0)
+
+        row = {"max_abs_err": err, "ms": time_ms(call),
+               "plain_ms": time_ms(lambda: rg_lru.lru_scan_ref(a, b, h0),
+                                   reps=2, samples=3),
+               "library_ms": None, **lru_scan_cost(a)}
+        results["lru_scan"] = row
+        emit("hybrid_serve", **line, **row,
+             library="none: no PyTorch call computes a linear recurrence",
+             kernel_device_ms=device_ms(call, "lru_scan_kernel"),
+             achieved_GBps=row["bytes"] / (row["ms"] * 1e-3) / 1e9, ok=True)
+    return results
+
+
+def phase_hybrid_serve(card: str) -> "tuple[dict, dict]":
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rg_lru
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.registry import get_config, get_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    cfg = get_config(HYBRID_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    # the kernels at the path's shapes: the scan, then RMSNorm at
+    # d_model 2,560 and attention at head dim 256 (one KV head of 10
+    # queries, the 2,048-token local window on every call): prefill,
+    # decode over the 1,057-slot ring, the window wave's 2,304-token
+    # prefill with the window binding, and its last decode step over the
+    # wrapped ring of 2,048 slots
+    results = check_lru_scan(gen)
+    rows = SERVE_BATCH * SERVE_PROMPT
+    results.update(check_rmsnorm_path("hybrid_serve", [
+        (HYBRID_ARCH, cfg.d_model, rows),
+        (HYBRID_ARCH, cfg.d_model, SERVE_BATCH)], gen))
+    arange, at = positions_range, position_at
+    S, win = SERVE_PROMPT, cfg.local_window
+    K, G, Dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    last = HYBRID_WINDOW_PROMPT + WINDOW_NEW - 1
+    results.update(check_attention_path("hybrid_serve", [
+        (HYBRID_ARCH, "prefill", SERVE_BATCH, K, G, S, arange(S), arange(S),
+         win, Dh),
+        (HYBRID_ARCH, "decode", SERVE_BATCH, K, G, 1, at(1039),
+         ring_kv_pos(min(SERVE_MAX_LEN, win), 1040, "cuda"), win, Dh),
+        (HYBRID_ARCH, "window prefill", 1, K, G, HYBRID_WINDOW_PROMPT,
+         arange(HYBRID_WINDOW_PROMPT), arange(HYBRID_WINDOW_PROMPT), win,
+         Dh),
+        (HYBRID_ARCH, "window decode", 1, K, G, 1, at(last),
+         ring_kv_pos(win, last + 1, "cuda"), win, Dh)], gen))
+
+    kern = get_model(cfg, kernel_backend="cuda")
+    plain = get_model(cfg, kernel_backend="torch")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = kern.init(SERVE_SEED)
+    torch.cuda.synchronize()
+    emit("hybrid_serve", card=card, arch=HYBRID_ARCH, layers=cfg.n_layers,
+         blocks=kern.n_blocks, params=kern.param_count(),
+         param_dtype=cfg.param_dtype, weight_fill_s=time.perf_counter() - t0,
+         weights_GB=torch.cuda.memory_allocated() / 1e9)
+
+    # a short run of each path first: neither timed run pays first use
+    serve_run(cfg, kern, params, 1, 64, 2)
+    serve_run(cfg, plain, params, 1, 64, 2)
+    for mod in (rn, fa, rg_lru):
+        mod.reset_launch_counts()
+    runs = {"cuda": serve_run(cfg, kern, params)}
+    launches = {"rmsnorm": rn.LAUNCHES["rmsnorm"],
+                "flash_attention": fa.LAUNCHES["flash_attention"],
+                "lru_scan": rg_lru.LAUNCHES["lru_scan"]}
+    runs["torch"] = serve_run(cfg, plain, params)
+    emit_serve_runs("hybrid_serve", card, runs)
+    # each wave: one prefill, then one decode step per new token; every
+    # block has 2 RMSNorms, every attention block 1 attention, and every
+    # rec block 1 scan in prefill and none in decode (one rg_lru_step)
+    waves = runs["cuda"][0].waves
+    passes = waves * (1 + SERVE_NEW)
+    want = {"rmsnorm": passes * (2 * cfg.n_layers + 1),
+            "flash_attention": passes * kern.n_blocks["attn"],
+            "lru_scan": waves * kern.n_blocks["rec"]}
+    if launches != want:
+        raise AssertionError(f"hybrid_serve launches {launches} != {want} "
+                             f"({passes} forward passes, {waves} prefills)")
+    emit("hybrid_serve", launches=launches, forward_passes=passes,
+         prefill_passes=waves,
+         launches_per_pass={k: v / passes for k, v in launches.items()},
+         lru_scan_per_prefill=launches["lru_scan"] / waves,
+         tokens_equal_to_plain_path=tokens_equal(runs),
+         tokens_total=SERVE_REQUESTS * SERVE_NEW)
+
+    prompts = torch.as_tensor(np.stack(
+        [r.prompt for r in runs["cuda"][1][:SERVE_BATCH]]), device="cuda")
+    bf16 = teacher_forced(kern, plain, params, prompts, SERVE_NEW,
+                          SERVE_TOL["bfloat16"], f"{HYBRID_ARCH} bf16")
+    emit("hybrid_serve", check="teacher-forced logits, kernels vs plain",
+         dtype="bfloat16", **bf16, ok=True)
+
+    # one request through the 2,048-token window: prefill attention with
+    # the window binding, the ring holding the last 2,048 positions and
+    # wrapping in decode
+    window = torch.as_tensor(make_requests(cfg, 1, HYBRID_WINDOW_PROMPT,
+                                           WINDOW_NEW, SERVE_SEED + 1)[0]
+                             .prompt, device="cuda")[None]
+    max_len = HYBRID_WINDOW_PROMPT + WINDOW_NEW + 1
+    torch.cuda.reset_peak_memory_stats()
+    win_gate = teacher_forced(kern, plain, params, window, WINDOW_NEW,
+                              SERVE_TOL["bfloat16"],
+                              f"{HYBRID_ARCH} window wave", max_len=max_len)
+    emit("hybrid_serve", check="window wave: teacher-forced logits, "
+         "kernels vs plain", prompt_tokens=HYBRID_WINDOW_PROMPT,
+         window=cfg.local_window, cache_capacity=kern.cache_capacity(max_len),
+         dtype="bfloat16", **win_gate,
+         peak_memory_GB=torch.cuda.max_memory_allocated() / 1e9, ok=True)
+
+    emit("hybrid_serve", card=card,
+         **profile_decode_wave(kern, params, prompts, SERVE_MAX_LEN))
+    del params
+    torch.cuda.empty_cache()
+
+    # float32 at full width, reduced to 5 of the 26 layers: the kernels
+    # without bf16 rounding
+    cfg32 = cfg.replace(n_layers=HYBRID_F32_LAYERS, param_dtype="float32",
+                        activation_dtype="float32")
+    kern32 = get_model(cfg32, kernel_backend="cuda")
+    params32 = kern32.init(SERVE_SEED)
+    f32 = teacher_forced(kern32, get_model(cfg32, kernel_backend="torch"),
+                         params32, prompts, 8, SERVE_TOL["float32"],
+                         f"{HYBRID_ARCH} {HYBRID_F32_LAYERS}-layer float32")
+    emit("hybrid_serve", check="teacher-forced logits, kernels vs plain",
+         dtype="float32", layers=HYBRID_F32_LAYERS,
+         reduced=f"depth: {HYBRID_F32_LAYERS} of {cfg.n_layers} layers "
+                 "(1 unit of (rec, rec, attn) and the 2 tail rec blocks)",
+         blocks=kern32.n_blocks, **f32, ok=True)
+    del params32
+    torch.cuda.empty_cache()
+    return launches, results
 
 
 def main() -> int:
@@ -1406,6 +1625,8 @@ def main() -> int:
     by_path[f"{SERVE_ARCH} serve"] = phase_serve(card)
     by_path[f"{MOE_ARCH} serve"], ragged = phase_moe_serve(card)
     kernel_results.update(ragged)
+    by_path[f"{HYBRID_ARCH} serve"], hybrid = phase_hybrid_serve(card)
+    kernel_results["lru_scan"] = hybrid["lru_scan"]
     emit("done", script_s=time.perf_counter() - t0)
 
     sources = {name: (replaces, SOURCE) for name, replaces in KERNELS.items()}

@@ -1,5 +1,5 @@
-"""repro_torch — the MPHX flow simulator and the dense and MoE decoder LMs on
-PyTorch and CUDA.
+"""repro_torch — the MPHX flow simulator, the dense and MoE decoder LMs and
+the RG-LRU hybrid LM on PyTorch and CUDA.
 
 A port of the JAX package ``repro`` (the reference, which stays as it
 is) to PyTorch on an NVIDIA Hopper GPU.  Module names mirror the

@@ -4,9 +4,10 @@ objects out.
 The simulator's state is the routed flow set (the incidence COO and the
 edge capacities) and the demand matrix: an incidence's ``flow``,
 ``edge``, ``frac``, ``n_flows`` and ``capacity``, a demand set's
-``src``, ``dst`` and ``gbps``.  The decoder LM's state is its parameter
-tree.  The functions take plain numpy arrays (nested dicts of them for a
-parameter tree), so nothing of the reference package is imported.
+``src``, ``dst`` and ``gbps``.  A model's state (the decoder LM's, the
+hybrid's) is its parameter tree.  The functions take plain numpy arrays
+(nested dicts of them for a parameter tree), so nothing of the reference
+package is imported.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from ._device import resolve_device
 from .configs.base import ModelConfig
 from .core.routing_vec import DemandArrays
 from .models.layers import torch_dtype
-from .models.registry import NOT_PORTED, PORTED_FAMILIES
+from .models.registry import DECODER_FAMILIES
 from .models.transformer import GROUPS
 from .sim.fairshare import FlowIncidence
 
@@ -56,13 +57,24 @@ def _tensor(a, dtype, device) -> torch.Tensor:
     return torch.tensor(a, device=device).to(dtype)
 
 
+# subtrees that stay float32 whatever the parameters' dtype, as the
+# reference's init makes them: the MoE router, the RG-LRU's gates and
+# ``lam``, and the recurrent block's conv taps
+FLOAT32_SUBTREES = ("router", "lru", "conv")
+
+
 def _tree(tree, dtype, device):
     if isinstance(tree, dict):
-        # the MoE router stays float32 whatever the parameters' dtype, as
-        # the reference's moe_init makes it
-        return {k: _tree(v, torch.float32 if k == "router" else dtype,
-                         device) for k, v in tree.items()}
+        return {k: _tree(v, torch.float32 if k in FLOAT32_SUBTREES
+                         else dtype, device) for k, v in tree.items()}
     return _tensor(tree, dtype, device)
+
+
+def _layer(i, tree):
+    """Layer ``i`` of a tree stacked on a leading axis."""
+    if isinstance(tree, dict):
+        return {k: _layer(i, v) for k, v in tree.items()}
+    return tree[i].contiguous()
 
 
 def decoder_params_from_numpy(tree: dict, cfg: ModelConfig,
@@ -74,26 +86,49 @@ def decoder_params_from_numpy(tree: dict, cfg: ModelConfig,
     and ``"dense_layers"`` for an MoE config with leading dense layers),
     in ``cfg.param_dtype`` (the MoE router in float32) on ``device``
     (default ``cuda``)."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(f"the parameters of family {cfg.family!r} "
-                                  f"{NOT_PORTED}")
+    if cfg.family not in DECODER_FAMILIES:
+        raise NotImplementedError("decoder parameters are of the families "
+                                  f"{DECODER_FAMILIES}, not {cfg.family!r}")
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
     out = {k: _tree(v, dtype, dev) for k, v in tree.items()
            if k not in GROUPS}
-
-    def layer(i, t):
-        return {k: layer(i, v) for k, v in t.items()} \
-            if isinstance(t, dict) else t[i].contiguous()
-
     n = 0
     for group in GROUPS:
         if group not in tree:
             continue
         stacked = _tree(tree[group], dtype, dev)
         size = len(tree[group]["attn_norm"]["scale"])
-        out[group] = [layer(i, stacked) for i in range(size)]
+        out[group] = [_layer(i, stacked) for i in range(size)]
         n += size
+    if n != cfg.n_layers:
+        raise ValueError(f"tree has {n} layers, config {cfg.n_layers}")
+    return out
+
+
+def hybrid_params_from_numpy(tree: dict, cfg: ModelConfig,
+                             device=None) -> dict:
+    """The reference ``RGLRUModel``'s parameter tree (``embed``,
+    ``final_norm``, ``units`` with the blocks of one unit, ``rec_0``,
+    ``rec_1``, ``attn_2``, stacked on a leading ``(n_units, ...)`` axis,
+    and a ``tail`` list of blocks) as the port's parameters: the same
+    dicts with ``units`` a list of per-unit dicts, in ``cfg.param_dtype``
+    (everything under ``lru`` and ``conv`` in float32) on ``device``
+    (default ``cuda``)."""
+    if cfg.family != "hybrid":
+        raise NotImplementedError("hybrid parameters are of the family "
+                                  f"'hybrid', not {cfg.family!r}")
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg.param_dtype)
+    out = {k: _tree(v, dtype, dev) for k, v in tree.items()
+           if k not in ("units", "tail")}
+    units = _tree(tree.get("units", {}), dtype, dev)
+    n_units = len(next(iter(units.values()))["norm"]["scale"]) \
+        if units else 0
+    out["units"] = [_layer(i, units) for i in range(n_units)]
+    if "tail" in tree:
+        out["tail"] = [_tree(block, dtype, dev) for block in tree["tail"]]
+    n = n_units * len(units) + len(out.get("tail", ()))
     if n != cfg.n_layers:
         raise ValueError(f"tree has {n} layers, config {cfg.n_layers}")
     return out

@@ -16,7 +16,8 @@
 // with one kv head; no repeated K/V is materialised).  So every query head
 // of a group shares each K/V tile the block stages, and a decode step
 // (Sq = 1) still fills a block with its G query heads.  BR = 64 for long
-// query runs, 16 for short ones (decode).
+// query runs (32 at Dh = 256, where 64 rows would hold a (64, 256) fp32
+// accumulator of 128 registers a thread), 16 for short ones (decode).
 //
 // Per kv tile of BK = 64 keys, 128 threads:
 //   0. the tile's kv positions are read; if no row of the block can attend
@@ -48,7 +49,7 @@
 // next steps.
 //
 // Types: bf16 or float32 in, fp32 inside, output in q's dtype; Dh in
-// {16, 32, 64, 128}.  Launches on the caller's stream, allocates nothing,
+// {16, 32, 64, 128, 256}.  Launches on the caller's stream, allocates nothing,
 // never synchronizes; the entry point returns cudaGetLastError() of its
 // launch.
 
@@ -356,8 +357,9 @@ int launch_tile(const Params& p, int batch, int kv_heads,
 
 template <typename T, int DH>
 int launch_dh(const Params& p, int batch, int kv_heads, cudaStream_t stream) {
+  constexpr int kLongRows = DH >= 256 ? 32 : 64;
   if (p.sq * p.g >= 1024) {
-    return launch_tile<T, DH, 64>(p, batch, kv_heads, stream);
+    return launch_tile<T, DH, kLongRows>(p, batch, kv_heads, stream);
   }
   return launch_tile<T, DH, 16>(p, batch, kv_heads, stream);
 }
@@ -370,6 +372,7 @@ int launch(const Params& p, int batch, int kv_heads, int dh,
     case 32: return launch_dh<T, 32>(p, batch, kv_heads, stream);
     case 64: return launch_dh<T, 64>(p, batch, kv_heads, stream);
     case 128: return launch_dh<T, 128>(p, batch, kv_heads, stream);
+    case 256: return launch_dh<T, 256>(p, batch, kv_heads, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -29,7 +29,7 @@ from .._build import CudaLibrary
 from .ref import attention_ref
 
 LAUNCHES = {"flash_attention": 0}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 LIBRARY = CudaLibrary(
     "flash_attention",

@@ -1,5 +1,5 @@
-"""Layers of the dense decoder: a PyTorch copy of the parts of
-``repro/models/layers.py`` that the serving path of a dense LM runs.
+"""Layers of the decoder LMs and the hybrid: a PyTorch copy of the parts
+of ``repro/models/layers.py`` that their serving paths run.
 
 Conventions
 -----------
@@ -43,6 +43,18 @@ def torch_dtype(name: str) -> torch.dtype:
     if not isinstance(dt, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
     return dt
+
+
+def tree_leaves(tree):
+    """The tensors of a parameter tree (nested dicts and lists)."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from tree_leaves(v)
+    else:
+        yield tree
 
 
 # --------------------------------------------------------------------------

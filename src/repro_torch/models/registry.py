@@ -21,13 +21,14 @@ ARCH_IDS = [
 ]
 
 # configs copied from repro/configs so far: the dense and MoE decoders
+# and the hybrid
 PORTED_ARCH_IDS = ["kimi-k2-1t-a32b", "mixtral-8x22b", "phi3-medium-14b",
-                   "qwen3-32b", "yi-9b", "qwen1.5-32b"]
-# the families DecoderLM serves
-PORTED_FAMILIES = ("dense", "moe")
+                   "qwen3-32b", "yi-9b", "qwen1.5-32b", "recurrentgemma-2b"]
+# the families DecoderLM serves; get_model also serves "hybrid" (RGLRUModel)
+DECODER_FAMILIES = ("dense", "moe")
 # where ROADMAP.md says when the rest comes
-NOT_PORTED = ("is not ported yet (ROADMAP.md queue 1: 'Hybrid slice' and "
-              "the families after it)")
+NOT_PORTED = ("is not ported yet (ROADMAP.md queue 1: the families after "
+              "the hybrid slice)")
 
 
 def _module_name(arch_id: str) -> str:
@@ -50,8 +51,11 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
 def get_model(cfg: ModelConfig, *, device=None,
               kernel_backend: "str | None" = None):
     """The model of ``cfg``'s family on ``device`` (default ``cuda``)."""
-    if cfg.family in PORTED_FAMILIES:
+    if cfg.family in DECODER_FAMILIES:
         from .transformer import DecoderLM
         return DecoderLM(cfg, device=device, kernel_backend=kernel_backend)
+    if cfg.family == "hybrid":
+        from .rglru import RGLRUModel
+        return RGLRUModel(cfg, device=device, kernel_backend=kernel_backend)
     raise NotImplementedError(f"the model of family {cfg.family!r} "
                               f"{NOT_PORTED}")

@@ -16,7 +16,8 @@ Not ported yet (ROADMAP.md queue 1): the expert-parallel and TP-f MoE
 paths (they need a mesh: one device always takes the dispatch path, as the
 reference does without a mesh), the VLM prefix, sharding constraints,
 remat and the training loss ("Training"); a config of another family
-raises ``NotImplementedError``.
+raises ``NotImplementedError`` (the hybrid family is
+:class:`repro_torch.models.rglru.RGLRUModel`).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from .._device import resolve_device, resolve_kernel_backend
 from ..configs.base import ModelConfig
 from . import layers as L
 from . import moe as M
-from .registry import NOT_PORTED, PORTED_FAMILIES
+from .registry import DECODER_FAMILIES
 
 # the layer groups of a parameter tree and of a cache, in forward order
 GROUPS = ("dense_layers", "layers")
@@ -43,9 +44,11 @@ class DecoderLM:
 
     def __init__(self, cfg: ModelConfig, *, device=None,
                  kernel_backend: "str | None" = None):
-        if cfg.family not in PORTED_FAMILIES:
+        if cfg.family not in DECODER_FAMILIES:
             raise NotImplementedError(
-                f"DecoderLM for family {cfg.family!r} {NOT_PORTED}")
+                f"DecoderLM serves the families {DECODER_FAMILIES}, not "
+                f"{cfg.family!r} (registry.get_model picks a family's "
+                "model)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.backend = resolve_kernel_backend(kernel_backend)
@@ -113,16 +116,17 @@ class DecoderLM:
 
     def param_count(self) -> int:
         """Total parameters N (from shapes on the meta device)."""
-        return sum(t.numel() for t in _leaves(self.init(device="meta")))
+        return sum(t.numel()
+                   for t in L.tree_leaves(self.init(device="meta")))
 
     def active_param_count(self) -> int:
         """Parameters one token reads: the experts count top_k / E."""
         params = self.init(device="meta")
-        total = sum(t.numel() for t in _leaves(params))
+        total = sum(t.numel() for t in L.tree_leaves(params))
         if self.cfg.moe is None:
             return total
         expert = sum(t.numel() for layer in params["layers"]
-                     for t in _leaves(layer["moe"]["experts"]))
+                     for t in L.tree_leaves(layer["moe"]["experts"]))
         m = self.cfg.moe
         return total - expert + int(expert * m.top_k / m.n_experts)
 
@@ -252,13 +256,3 @@ def _walk(params):
         for i, p in enumerate(params.get(group, ())):
             yield group, i, p
 
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree

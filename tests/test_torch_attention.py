@@ -6,9 +6,10 @@ tensors) is held against ``repro.kernels.flash_attention``'s
 layout, queries right-aligned to the kv tail), and against
 ``repro.models.layers.attention_ref`` (the model layout, with positions
 and ``kv_valid``).  Covered: MHA, GQA, MQA, decode (Sq = 1), ragged
-lengths, sliding windows, a bidirectional case and a ring cache with
-empty and wrapped slots.  Tolerances are those of
-``tests/test_kernels.py``: 2e-5 for float32, 5e-2 for bfloat16.  The
+lengths, sliding windows, a bidirectional case, a ring cache with
+empty and wrapped slots, and recurrentgemma-2b's head dim 256.
+Tolerances are those of ``tests/test_kernels.py``: 2e-5 for float32,
+5e-2 for bfloat16.  The
 CUDA kernel runs only on a GPU (``tests/test_torch_gpu.py``).
 """
 
@@ -32,7 +33,7 @@ DTYPES = {"float32": (torch.float32, jnp.float32, 2e-5),
 # kernel layout: B, H, K, Sq, Skv, Dh (tests/test_kernels.py's sweep)
 KERNEL_CASES = [(1, 4, 4, 64, 64, 64), (2, 4, 2, 100, 100, 32),
                 (1, 8, 1, 128, 128, 64), (2, 4, 2, 1, 96, 64),
-                (1, 2, 2, 33, 77, 128)]
+                (1, 2, 2, 33, 77, 128), (1, 10, 1, 40, 40, 256)]
 
 
 def normal(rng, shape):
@@ -111,6 +112,12 @@ MODEL_CASES = {
                             ring_positions(8, 21), True, 8),
     "decode-mha": (3, 1, 4, 1, 33, 128, np.array([30]),
                    ring_positions(33, 31), True, None),
+    # recurrentgemma-2b's local attention: head dim 256, one KV head of
+    # 10 queries, the window binding in prefill and a wrapped ring
+    "prefill-dh256-window": (1, 20, 1, 10, 20, 256, np.arange(20),
+                             np.arange(20), True, 8),
+    "decode-dh256-ring-wrapped": (2, 1, 1, 10, 8, 256, np.array([20]),
+                                  ring_positions(8, 21), True, 8),
 }
 
 

@@ -3,8 +3,8 @@
 * No module under ``src/repro_torch/``, and not ``chip_smoke.py``, imports
   ``jax`` or anything of the JAX package ``repro`` (an AST scan).
 * With ``jax`` and ``repro`` blocked, every module imports and the CPU
-  slices run: the sim CLI, the serve CLI and a yi-9b and a mixtral-8x22b
-  smoke forward pass (a subprocess).
+  slices run: the sim CLI, the serve CLI (yi-9b and recurrentgemma-2b)
+  and a yi-9b and a mixtral-8x22b smoke forward pass (a subprocess).
 * With no CUDA device, entry points called without ``device="cpu"`` raise
   instead of running on the CPU; unknown backends raise; a wrapper handed
   a tensor that is neither on the CPU nor on a GPU raises.
@@ -24,7 +24,9 @@ torch = pytest.importorskip("torch")
 from repro_torch import (resolve_kernel_backend,  # noqa: E402
                          resolve_sim_backend)
 from repro_torch.convert import (decoder_params_from_numpy,  # noqa: E402
-                                 demands_from_arrays, incidence_from_arrays)
+                                 demands_from_arrays,
+                                 hybrid_params_from_numpy,
+                                 incidence_from_arrays)
 from repro_torch.core.hyperx import MPHX  # noqa: E402
 from repro_torch.core.netsim import make_router, resolve_engine  # noqa: E402
 from repro_torch.core.routing_vec import (  # noqa: E402
@@ -34,10 +36,12 @@ from repro_torch.experiments.simsuite import run_sim_suite  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa
 from repro_torch.kernels.grouped_matmul import (  # noqa: E402
     grouped_matmul, ragged_grouped_matmul)
+from repro_torch.kernels.rg_lru import lru_scan  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
 from repro_torch.kernels.segment_fairshare import segment_sum  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.models.registry import get_config, get_model  # noqa: E402
+from repro_torch.models.rglru import RGLRUModel  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
 from repro_torch.sim.events import simulate_incidence  # noqa: E402
 from repro_torch.sim.fairshare import max_min_rates  # noqa: E402
@@ -101,6 +105,10 @@ def test_package_runs_with_jax_blocked(tmp_path):
         logits, aux = model.forward(model.init(0),
                                     torch.zeros((2, 5), dtype=torch.int64))
         assert logits.shape == (2, 5, 512) and float(aux) > 0
+        stats = serve(["--arch", "recurrentgemma-2b", "--smoke", "--device",
+                       "cpu", "--requests", "2", "--prompt-len", "10",
+                       "--max-new", "3"])
+        assert stats.tokens_out == 6, stats
         assert "jax" not in sys.modules or sys.modules["jax"] is None
         sys.exit(rc)
     """)
@@ -136,6 +144,11 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(no_cuda, tmp_path):
         lambda: get_model(get_config("mixtral-8x22b", smoke=True)),
         lambda: decoder_params_from_numpy({}, get_config("yi-9b",
                                                           smoke=True)),
+        lambda: RGLRUModel(get_config("recurrentgemma-2b", smoke=True)),
+        lambda: get_model(get_config("recurrentgemma-2b", smoke=True)),
+        lambda: hybrid_params_from_numpy({}, get_config("recurrentgemma-2b",
+                                                        smoke=True)),
+        lambda: serve_main(["--arch", "recurrentgemma-2b", "--smoke"]),
         lambda: serve_main(["--smoke"]),
     ]
     for call in calls:
@@ -197,6 +210,14 @@ def test_grouped_matmul_wrappers_have_no_fallback_off_the_cpu():
     sizes = torch.tensor([2, 1], device="meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         ragged_grouped_matmul(torch.zeros(3, 16, device="meta"), w, sizes)
+
+
+def test_lru_scan_wrapper_has_no_fallback_off_the_cpu():
+    a = torch.zeros(2, 5, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        lru_scan(a, a)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        lru_scan(a, a, torch.zeros(2, 8, device="meta"))
 
 
 def test_convert_checks_flow_order():

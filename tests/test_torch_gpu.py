@@ -17,7 +17,8 @@ version rounds them to v's dtype), two kernel runs bitwise equal.
 Grouped matmuls: float32 at 2e-5; bfloat16 per output row within 2e-2 of
 the row's max |out| (the kernel and the plain version both sum bf16
 products in fp32, in another order, and round once), rows the ragged
-kernel masks exactly 0, two kernel runs bitwise equal.
+kernel masks exactly 0, two kernel runs bitwise equal.  The RG-LRU scan:
+1e-5 (``tests/test_kernels.py``'s), two kernel runs bitwise equal.
 """
 
 import dataclasses
@@ -36,6 +37,7 @@ from repro_torch.core.routing_vec import (  # noqa: E402
 from repro_torch.experiments.simsuite import run_sim_suite  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import grouped_matmul as gm  # noqa: E402
+from repro_torch.kernels import rg_lru  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels.segment_fairshare import (  # noqa: E402
     LAUNCHES, make_plan, reset_launch_counts, segment_min, segment_min_ref,
@@ -208,6 +210,13 @@ ATTN_CASES = {
     "cross-ragged": (1, 33, 2, 1, 77, 128, None, None, None),
     "decode-ring-empty": (4, 1, 4, 8, 70, 128, [40], (70, 41), None),
     "decode-ring-wrapped": (2, 1, 2, 4, 64, 64, [150], (64, 151), 16),
+    # recurrentgemma-2b's local attention: head dim 256 over one KV head
+    # of 10 queries; a prefill long enough for the long-run tile with the
+    # window binding, and decode over a wrapped ring
+    "dh256-prefill-window": (1, 200, 1, 10, 200, 256, None, None, 64),
+    "dh256-prefill-ragged": (2, 45, 1, 10, 45, 256, None, None, None),
+    "dh256-decode-ring-wrapped": (2, 1, 1, 10, 64, 256, [150], (64, 151),
+                                  64),
 }
 
 
@@ -403,3 +412,80 @@ def test_moe_decoder_through_kernels_matches_plain(cuda, arch):
         want, pcaches = plain.decode_step(params, tok, pcaches)
         assert float((got - want).abs().max()) <= 2e-5 * scale, step
     assert gm.LAUNCHES["grouped_matmul"] == 5 * 3 * n_moe
+
+
+# B, S, W: tests/test_kernels.py's lru_scan sweep, and recurrentgemma-2b
+# prefill's shape on the serve path
+LRU_CASES = {"1x16x32": (1, 16, 32), "2x75x96": (2, 75, 96),
+             "3x128x64": (3, 128, 64), "1x200x48": (1, 200, 48),
+             "prefill-4x1024x2560": (4, 1024, 2560)}
+
+
+@pytest.mark.parametrize("with_h0", [True, False], ids=["h0", "zero-state"])
+@pytest.mark.parametrize("name", sorted(LRU_CASES))
+def test_lru_scan_kernel_matches_plain(cuda, name, with_h0):
+    """y and h_last at 1e-5 (tests/test_kernels.py's tolerance); both do
+    a rounded multiply then a rounded add per step, so they agree bit for
+    bit in practice, which is not asserted.  Two runs bitwise equal."""
+    B, S, W = LRU_CASES[name]
+    gen = torch.Generator(device=cuda).manual_seed(S * W)
+    a = torch.empty(B, S, W, device=cuda).uniform_(0.4, 0.999,
+                                                    generator=gen)
+    b = torch.randn(B, S, W, device=cuda, generator=gen)
+    h0 = torch.randn(B, W, device=cuda, generator=gen) if with_h0 else None
+    rg_lru.reset_launch_counts()
+    y, h = rg_lru.lru_scan(a, b, h0)
+    y2, h2 = rg_lru.lru_scan(a, b, h0)
+    wy, wh = rg_lru.lru_scan_ref(a, b, h0)
+    torch.cuda.synchronize()
+    assert rg_lru.LAUNCHES["lru_scan"] == 2
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    for got, want in ((y, wy), (h, wh)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   atol=1e-5, rtol=1e-5)
+    assert torch.equal(h, y[:, -1])
+
+
+def test_lru_scan_kernel_refuses_strided_inputs(cuda):
+    a = torch.rand(2, 8, 32, device=cuda)
+    rg_lru.reset_launch_counts()
+    with pytest.raises(ValueError, match="contiguous"):
+        rg_lru.lru_scan(a[:, :, :16], a[:, :, :16])
+    assert rg_lru.LAUNCHES["lru_scan"] == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hybrid_through_kernels_matches_plain(cuda, dtype):
+    """recurrentgemma-2b's smoke config (1 unit of (rec, rec, attn) and 2
+    tail rec blocks, an 8-token local window): prefill of a 40-token
+    prompt and decode logits through the kernels against the plain path,
+    with one lru_scan launch per rec block in prefill and none in decode,
+    one attention launch per attention block, 2 RMSNorm launches per
+    block and the final one."""
+    cfg = get_config("recurrentgemma-2b", smoke=True).replace(
+        param_dtype=dtype, activation_dtype=dtype)
+    kern = get_model(cfg, device=cuda, kernel_backend="cuda")
+    plain = get_model(cfg, device=cuda, kernel_backend="torch")
+    params = kern.init(seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    n_rec, n_attn = kern.n_blocks["rec"], kern.n_blocks["attn"]
+    for mod in (rn, fa, rg_lru):
+        mod.reset_launch_counts()
+    got, caches = kern.prefill(params, tokens, max_len=48)
+    assert rg_lru.LAUNCHES["lru_scan"] == n_rec == 4
+    assert fa.LAUNCHES["flash_attention"] == n_attn == 1
+    assert rn.LAUNCHES["rmsnorm"] == 2 * cfg.n_layers + 1
+    want, pcaches = plain.prefill(params, tokens, max_len=48)
+    tol = 2e-5 if dtype == "float32" else 5e-2
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol * scale
+    for step in range(4):
+        tok = torch.argmax(want, -1)[:, None]
+        got, caches = kern.decode_step(params, tok, caches)
+        want, pcaches = plain.decode_step(params, tok, pcaches)
+        assert float((got - want).abs().max()) <= tol * scale, step
+    assert rg_lru.LAUNCHES["lru_scan"] == n_rec
+    assert fa.LAUNCHES["flash_attention"] == 5 * n_attn
+    assert rn.LAUNCHES["rmsnorm"] == 5 * (2 * cfg.n_layers + 1)

@@ -10,7 +10,9 @@ Covered: the four dense smoke configs (qwen3 has qk-norm, qwen1.5 QKV
 bias), yi-9b's with an 8-token sliding window, decoded past the window so
 the ring cache wraps, and the two MoE smoke configs (mixtral: top-2 of 4
 experts with an 8-token window; kimi: a leading dense layer and a shared
-expert).  The port runs
+expert).  The hybrid family's ``RGLRUModel`` is held in
+``tests/test_torch_rglru.py``; its configs and parameter count are held
+here with the others.  The port runs
 with ``kernel_backend="cuda"``: on CPU tensors the kernel wrappers take
 their plain versions.
 """
@@ -25,15 +27,19 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.models.registry import get_config as ref_get_config  # noqa: E402
+from repro.models.registry import get_model as ref_get_model  # noqa: E402
 from repro.models.transformer import DecoderLM as RefDecoderLM  # noqa: E402
 from repro_torch.convert import decoder_params_from_numpy  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
-from repro_torch.models.registry import (ARCH_IDS, PORTED_ARCH_IDS,  # noqa
-                                         get_config, get_model)
+from repro_torch.models.registry import (  # noqa: E402
+    ARCH_IDS, DECODER_FAMILIES, PORTED_ARCH_IDS, get_config, get_model)
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
 
 ATOL = 2e-3
-CASES = {arch: {} for arch in PORTED_ARCH_IDS}
+# the decoder architectures (the hybrid's model is tests/test_torch_rglru.py's)
+DECODER_ARCH_IDS = [arch for arch in PORTED_ARCH_IDS
+                    if get_config(arch).family in DECODER_FAMILIES]
+CASES = {arch: {} for arch in DECODER_ARCH_IDS}
 CASES["yi-9b-window8"] = {"sliding_window": 8}
 
 
@@ -100,7 +106,7 @@ def test_forward_prefill_decode_match_reference(case):
 def test_param_count_matches_reference():
     for arch in PORTED_ARCH_IDS:
         for smoke in (False, True):
-            want = RefDecoderLM(ref_get_config(arch, smoke=smoke)) \
+            want = ref_get_model(ref_get_config(arch, smoke=smoke)) \
                 .param_count()
             assert get_config(arch, smoke=smoke).param_count() == want
     # yi-9b at full size: 48 x 173,023,232 + 2 x 64000 x 4096 + 4096
@@ -137,6 +143,11 @@ def test_unported_archs_and_families_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(cfg.replace(family="audio", encdec=object()),
                   device="cpu")
+    hybrid = get_config("recurrentgemma-2b", smoke=True)
+    with pytest.raises(NotImplementedError, match="DecoderLM serves"):
+        DecoderLM(hybrid, device="cpu")
+    with pytest.raises(NotImplementedError, match="decoder parameters"):
+        decoder_params_from_numpy({}, hybrid, device="cpu")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

@@ -1,7 +1,8 @@
 """The port's ``ServeEngine`` and serve CLI against the JAX package's.
 
 Mirrors ``tests/test_trainer_serve.py``'s serving tests: the reference's
-tiny dense config and the MoE smoke configs, their parameters carried
+tiny dense config, the MoE smoke configs and the hybrid
+(recurrentgemma-2b) smoke config, their parameters carried
 across with ``repro_torch.convert``, the same prompts (numpy, from a
 seed).  Greedy outputs must equal the JAX engine's token for token (fp32,
 where the two models' logits agree to ~1e-6), EOS must stop a request
@@ -21,9 +22,11 @@ from repro.models.transformer import DecoderLM as RefDecoderLM  # noqa: E402
 from repro.serve.engine import Request as RefRequest  # noqa: E402
 from repro.serve.engine import ServeEngine as RefServeEngine  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
-from repro_torch.convert import decoder_params_from_numpy  # noqa: E402
+from repro.models.registry import get_model as ref_get_model  # noqa: E402
+from repro_torch.convert import (decoder_params_from_numpy,  # noqa: E402
+                                 hybrid_params_from_numpy)
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
-from repro_torch.models.registry import get_config  # noqa: E402
+from repro_torch.models.registry import get_config, get_model  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 
@@ -87,6 +90,30 @@ def test_moe_greedy_outputs_equal_the_reference_engine(arch):
     assert eng.stats.tokens_out == 18 and eng.stats.waves == 2
 
 
+def test_hybrid_greedy_outputs_equal_the_reference_engine():
+    """Two waves of the recurrentgemma-2b smoke model (1 unit of
+    (rec, rec, attn) and 2 tail rec blocks); 10 prompt tokens and 6 new
+    ones pass its 8-token local window, so the ring cache wraps."""
+    arch = "recurrentgemma-2b"
+    ref = ref_get_model(ref_get_config(arch, smoke=True))
+    ref_params = ref.init(jax.random.PRNGKey(0))
+    cfg = get_config(arch, smoke=True)
+    params = hybrid_params_from_numpy(jax.tree.map(np.asarray, ref_params),
+                                      cfg, device="cpu")
+    prompts = np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (3, 10)).astype(np.int32)
+    ref_eng = RefServeEngine(ref, ref_params, max_batch=2, max_len=24)
+    ref_reqs = [RefRequest(prompt=p, max_new_tokens=6) for p in prompts]
+    ref_eng.run(ref_reqs)
+    model = get_model(cfg, device="cpu")
+    eng = ServeEngine(model, params, max_batch=2, max_len=24)
+    reqs = [Request(prompt=p, max_new_tokens=6) for p in prompts]
+    eng.run(reqs)
+    assert [r.output for r in reqs] == [r.output for r in ref_reqs]
+    assert eng.stats.tokens_out == 18 and eng.stats.waves == 2
+    assert model.cache_capacity(24) == cfg.local_window == 8
+
+
 def test_eos_stops_early():
     _, _, model, params = both_models()
     prompt = np.zeros((4,), np.int32)
@@ -146,3 +173,14 @@ def test_moe_cli_runs_on_the_cpu(backend, capsys):
     assert stats.tokens_out == 12 and stats.waves == 2
     out = capsys.readouterr().out
     assert "params=287,552" in out and f"kernels={backend}" in out
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+def test_hybrid_cli_runs_on_the_cpu(backend, capsys):
+    stats = serve_main(["--arch", "recurrentgemma-2b", "--smoke", "--device",
+                        "cpu", "--requests", "3", "--prompt-len", "12",
+                        "--max-new", "4", "--max-batch", "2",
+                        "--kernel-backend", backend])
+    assert stats.tokens_out == 12 and stats.waves == 2
+    out = capsys.readouterr().out
+    assert "params=250,560" in out and f"kernels={backend}" in out
