@@ -32,7 +32,12 @@ nonzero:
    ring cache with empty and wrapped slots, float32 and bfloat16), at
    the serve path's shapes (float32 at 2e-5; bfloat16, and for
    attention each output row within 2e-2 of its max), twice for bitwise
-   repeatability, with the same times and bounds as phase 3; then the
+   repeatability, with the same times and bounds as phase 3.  Attention
+   has two kernels: float32 and bf16 decode take the CUDA-core one
+   (route ``simt``), bf16 with Sq > 1 the tensor-core one (``tc``), which
+   is also held to ``mask_probe``'s exact answer (within 2^-8 of each
+   value, empty ring slots holding NaN) at every prefill and window-wave
+   shape of the three serve paths.  Then the
    grouped matmul at mixtral-8x22b's expert shapes (prefill's 1,280-row
    capacity buffers, decode's 2 rows, the window wave's 1,300), float32
    at 2e-5 and bfloat16 per output row within 2e-2 of its max.
@@ -40,7 +45,8 @@ nonzero:
    on the card from a seed) serves 8 requests of 1,024 prompt tokens and
    32 new tokens each in waves of 4 through the kernels, with the launch
    counts read around that run alone (97 RMSNorm and 48 attention
-   launches per forward pass); then the same requests on the plain path.
+   launches per forward pass, the 96 of the two prefill passes on the
+   tensor-core kernel); then the same requests on the plain path.
    Prefill and teacher-forced decode logits of the two paths must agree,
    and a float32 2-layer yi-9b must agree at 2e-5; a decode wave is
    profiled for the device's idle share.
@@ -48,7 +54,8 @@ nonzero:
    (60.9 GB of random bf16 weights drawn on the card after yi-9b's are
    freed) serves the same traffic through the kernels, with the launch
    counts read around that run alone (25 RMSNorm, 12 attention and 36
-   grouped-matmul launches per forward pass), then on the plain path.
+   grouped-matmul launches per forward pass; 24 tensor-core attention
+   launches in the two prefills), then on the plain path.
    The ragged grouped matmul is held to its plain version on the routed
    rows of the first layer of a prefill wave, as routed and with groups
    padded to 128 rows.  Teacher-forced logits must agree within 5e-2 of
@@ -66,8 +73,9 @@ nonzero:
    recurrentgemma-2b uncut (26 layers, 6.26 GB of random bf16 weights,
    the gates and conv taps float32) serves the same traffic through the
    kernels, with the launch counts read around that run alone (53
-   RMSNorm and 8 attention launches per forward pass, 18 scans per
-   prefill and none in decode), then on the plain path.  Teacher-forced
+   RMSNorm and 8 attention launches per forward pass, 16 of them on the
+   tensor-core kernel in the two prefills, 18 scans per prefill and none
+   in decode), then on the plain path.  Teacher-forced
    logits must agree within 5e-2 of max |logit|, also for a 2,304-token
    request through the 2,048-token local window; a decode wave is
    profiled, and a float32 model at full width and 5 of its 26 layers
@@ -166,6 +174,9 @@ HYBRID_ARCH, HYBRID_F32_LAYERS = "recurrentgemma-2b", 5
 HYBRID_WINDOW_PROMPT = 2304
 # the RG-LRU scan against its plain version: tests/test_kernels.py's 1e-5
 LRU_TOL = 1e-5
+# mask_probe through the tensor-core attention: exact weights summed in
+# fp32 and acc / l rounded once to bf16, so within 2^-8 of each value
+PROBE_REL_TOL = 2.0 ** -8
 
 
 def emit(phase: str, **fields) -> None:
@@ -765,21 +776,56 @@ def position_at(p: int) -> torch.Tensor:
     return torch.tensor([p], dtype=torch.int32, device="cuda")
 
 
+def check_mask_probe(q_pos, kv_pos, B, K, G, Dh, window, where) -> float:
+    """``mask_probe``'s exact answer through the tensor-core kernel, with
+    NaN in the empty ring slots' k and v: every value within
+    PROBE_REL_TOL of its own size (0 exactly where the answer is 0), one
+    ``flash_attention_tc`` launch.  Returns the largest relative gap."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, want = fa.mask_probe(B, K, G, Dh, q_pos, kv_pos, causal=True,
+                                  window=window)
+    empty = kv_pos < 0
+    k[:, empty] = float("nan")
+    v[:, empty] = float("nan")
+    before = fa.LAUNCHES["flash_attention_tc"]
+    got = fa.flash_attention(q, k, v, q_pos, kv_pos, causal=True,
+                             window=window).double()
+    torch.cuda.synchronize()
+    if fa.LAUNCHES["flash_attention_tc"] != before + 1:
+        raise AssertionError(f"mask probe {where}: not on the tensor-core "
+                             "kernel")
+    want = want[None, :, None, None, :]
+    gap = (got - want).abs()
+    if not bool((gap <= PROBE_REL_TOL * want).all()):
+        raise AssertionError(f"mask probe {where}: max gap {float(gap.max())}"
+                             f" beyond {PROBE_REL_TOL} of the value")
+    return float((gap / want.clamp_min(1e-300)).max())
+
+
 def check_attention_path(phase: str, path, gen) -> dict:
     """Attention at a serve path's shapes, ``path`` of (arch, case, B, K,
-    G, Sq, q_pos, kv_pos, window, Dh): float32 at 2e-5 first (no bf16
-    rounding hides a dropped tile or a wrong mask), then bf16 (timed),
-    held per row, beside SDPA as the yardstick.  Returns the first
-    entry's row of the kernels line."""
+    G, Sq, q_pos, kv_pos, window, Dh): float32 at 2e-5 first (the
+    CUDA-core kernel, route ``simt``, at every Sq: no bf16 rounding hides
+    a dropped tile or a wrong mask there), then bf16 (timed), held per
+    row, on its own route (``tc`` for Sq > 1, which is also held to the
+    mask probe's exact answer), beside SDPA as the yardstick.  Returns
+    the first entry's row of the kernels line."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import _route
 
     tol = {torch.float32: 2e-5, torch.bfloat16: 5e-2}
     results = {}
     for arch, name, B, K, G, Sq, q_pos, kv_pos, window, Dh in path:
         Skv = kv_pos.numel()
         kw = dict(causal=True, window=window)
+        route = _route(torch.bfloat16, Sq)
+        probe = None
+        if route == "tc":
+            probe = check_mask_probe(q_pos, kv_pos, B, K, G, Dh, window,
+                                     f"{arch} path {name}")
         q, k, v = attention_inputs(gen, B, Sq, K, G, Skv, Dh, torch.float32)
         args = (q, k, v, q_pos, kv_pos)
         err32 = check_close("flash_attention", fa.flash_attention(*args, **kw),
@@ -822,13 +868,18 @@ def check_attention_path(phase: str, path, gen) -> dict:
                "plain_ms": time_ms(lambda: fa.attention_ref(*args, **kw),
                                    reps=3 if heavy else 20, samples=3),
                "library_ms": time_ms(lib_call, reps=5 if heavy else 20),
-               **attention_cost(q, k, q_pos, kv_pos, True, window)}
+               **attention_cost(q, k, q_pos, kv_pos, True, window),
+               "kernel_route": route}
         results.setdefault("flash_attention", row)
         emit(phase, kernel="flash_attention", arch=arch, case=name,
              q=list(q.shape), kv=list(k.shape), window=window,
              dtype="bfloat16", **row,
              max_row_rel_err=row_err, row_tolerance=ATTN_ROW_TOL_BF16,
-             float32_max_abs_err=err32, float32_tolerance=tol[torch.float32],
+             mask_probe_max_rel_gap=probe,
+             mask_probe_tolerance=PROBE_REL_TOL if probe is not None
+             else None,
+             float32_route="simt", float32_max_abs_err=err32,
+             float32_tolerance=tol[torch.float32],
              library="scaled_dot_product_attention(enable_gqa=True, "
                      + ("is_causal=True)" if causal_only else "attn_mask)"),
              library_max_abs_err_vs_plain=lib_err,
@@ -1076,15 +1127,17 @@ def phase_serve(card: str) -> dict:
     rn.reset_launch_counts()
     fa.reset_launch_counts()
     runs = {"cuda": serve_run(cfg, kern, params)}
-    launches = {"rmsnorm": rn.LAUNCHES["rmsnorm"],
-                "flash_attention": fa.LAUNCHES["flash_attention"]}
+    launches = {"rmsnorm": rn.LAUNCHES["rmsnorm"], **fa.LAUNCHES}
     runs["torch"] = serve_run(cfg, plain, params)
     emit_serve_runs("serve", card, runs)
     # each wave: one prefill, then one decode step per new token (the
-    # last step's logits are not sampled, as in the reference's engine)
-    passes = runs["cuda"][0].waves * (1 + SERVE_NEW)
+    # last step's logits are not sampled, as in the reference's engine);
+    # the prefills' attention runs on the tensor-core kernel
+    waves = runs["cuda"][0].waves
+    passes = waves * (1 + SERVE_NEW)
     want = {"rmsnorm": passes * (2 * cfg.n_layers + 1),
-            "flash_attention": passes * cfg.n_layers}
+            "flash_attention": passes * cfg.n_layers,
+            "flash_attention_tc": waves * cfg.n_layers}
     if launches != want:
         raise AssertionError(f"serve launches {launches} != {want} "
                              f"({passes} forward passes)")
@@ -1330,14 +1383,15 @@ def phase_moe_serve(card: str) -> "tuple[dict, dict]":
     fa.reset_launch_counts()
     gm.reset_launch_counts()
     runs = {"cuda": serve_run(cfg, kern, params)}
-    launches = {"rmsnorm": rn.LAUNCHES["rmsnorm"],
-                "flash_attention": fa.LAUNCHES["flash_attention"],
+    launches = {"rmsnorm": rn.LAUNCHES["rmsnorm"], **fa.LAUNCHES,
                 **gm.LAUNCHES}
     runs["torch"] = serve_run(cfg, plain, params)
     emit_serve_runs("moe_serve", card, runs)
-    passes = runs["cuda"][0].waves * (1 + SERVE_NEW)
+    waves = runs["cuda"][0].waves
+    passes = waves * (1 + SERVE_NEW)
     L = cfg.n_layers
     want = {"rmsnorm": passes * (2 * L + 1), "flash_attention": passes * L,
+            "flash_attention_tc": waves * L,
             "grouped_matmul": passes * 3 * L, "ragged_grouped_matmul": 0}
     if launches != want:
         raise AssertionError(f"moe_serve launches {launches} != {want} "
@@ -1528,18 +1582,19 @@ def phase_hybrid_serve(card: str) -> "tuple[dict, dict]":
     for mod in (rn, fa, rg_lru):
         mod.reset_launch_counts()
     runs = {"cuda": serve_run(cfg, kern, params)}
-    launches = {"rmsnorm": rn.LAUNCHES["rmsnorm"],
-                "flash_attention": fa.LAUNCHES["flash_attention"],
+    launches = {"rmsnorm": rn.LAUNCHES["rmsnorm"], **fa.LAUNCHES,
                 "lru_scan": rg_lru.LAUNCHES["lru_scan"]}
     runs["torch"] = serve_run(cfg, plain, params)
     emit_serve_runs("hybrid_serve", card, runs)
     # each wave: one prefill, then one decode step per new token; every
-    # block has 2 RMSNorms, every attention block 1 attention, and every
-    # rec block 1 scan in prefill and none in decode (one rg_lru_step)
+    # block has 2 RMSNorms, every attention block 1 attention (on the
+    # tensor-core kernel in prefill), and every rec block 1 scan in
+    # prefill and none in decode (one rg_lru_step)
     waves = runs["cuda"][0].waves
     passes = waves * (1 + SERVE_NEW)
     want = {"rmsnorm": passes * (2 * cfg.n_layers + 1),
             "flash_attention": passes * kern.n_blocks["attn"],
+            "flash_attention_tc": waves * kern.n_blocks["attn"],
             "lru_scan": waves * kern.n_blocks["rec"]}
     if launches != want:
         raise AssertionError(f"hybrid_serve launches {launches} != {want} "
@@ -1645,6 +1700,13 @@ def main() -> int:
                 "library_ms": kernel_results[name]["library_ms"],
                 "ok": True}
                for name, (replaces, source) in sources.items()]
+    # attention's row times the tensor-core kernel (yi-9b prefill); its
+    # launches count both kernels, the tensor-core ones beside them
+    attn = next(k for k in kernels if k["name"] == "flash_attention")
+    attn["kernel_route"] = kernel_results["flash_attention"]["kernel_route"]
+    attn["launches_tc_by_path"] = {
+        path: counts["flash_attention_tc"] for path, counts in by_path.items()
+        if counts.get("flash_attention_tc")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

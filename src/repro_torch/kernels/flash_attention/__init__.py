@@ -8,8 +8,8 @@ the launch count) and ``ref.py`` (the plain PyTorch version).
 
 from .ops import (LAUNCHES, flash_attention, flash_attention_kernel_layout,
                   reset_launch_counts, right_aligned_positions)
-from .ref import attention_mask, attention_ref
+from .ref import attention_mask, attention_ref, mask_probe
 
 __all__ = ["LAUNCHES", "attention_mask", "attention_ref", "flash_attention",
-           "flash_attention_kernel_layout", "reset_launch_counts",
-           "right_aligned_positions"]
+           "flash_attention_kernel_layout", "mask_probe",
+           "reset_launch_counts", "right_aligned_positions"]

@@ -1,29 +1,79 @@
 // Flash attention (blockwise online softmax) for sm_90a, with the model's
-// position mask.
+// position mask.  Two kernels behind one function:
+//
+//   flash_attention_kernel_tc   bf16 calls with more than one query
+//                               position (Sq > 1): every prefill and window
+//                               wave of the served models; tensor cores.
+//   flash_attention_kernel      float32 calls at any Sq, and bf16 decode
+//                               (Sq = 1); CUDA cores in fp32.
+//
+// The wrapper (ops.py, `_route`) chooses between the two entry points from
+// the dtype and Sq alone.
 //
 // Replaces the Pallas kernel of repro/kernels/flash_attention/kernel.py
 // (flash_attention -> _attn_kernel).  That kernel walks the kv blocks as
 // the innermost, sequential grid axis and keeps the running max,
 // denominator and accumulator in VMEM scratch between grid steps.  Blocks
-// of a CUDA grid run in no order, so here one block owns a tile of query
-// rows for its whole life and loops over the kv tiles itself, keeping the
-// fp32 running max and denominator in shared memory and the fp32
-// accumulator in registers.
+// of a CUDA grid run in no order, so neither kernel here copies that grid:
+// one block owns a tile of query rows for its whole life and loops over
+// the kv tiles itself, with the softmax state on chip.
 //
-// Work split.  A block serves one (batch b, kv head kh) and BR consecutive
-// rows of the flattened (query position s, group member g) index
-// r = s * G + g, where query head kh * G + g reads kv head kh (GQA, and MQA
-// with one kv head; no repeated K/V is materialised).  So every query head
-// of a group shares each K/V tile the block stages, and a decode step
-// (Sq = 1) still fills a block with its G query heads.  BR = 64 for long
+// Work split (both kernels).  A block serves one (batch b, kv head kh) and
+// BR consecutive rows of the flattened (query position s, group member g)
+// index r = s * G + g, where query head kh * G + g reads kv head kh (GQA,
+// and MQA with one kv head; no repeated K/V is materialised).  So every
+// query head of a group shares each K/V tile the block stages, and a
+// decode step (Sq = 1) still fills a block with its G query heads.
+//
+// Mask: attend key j from the query at position qp iff kv_pos[j] >= 0,
+// kv_pos[j] <= qp when causal, and qp - kv_pos[j] < window when a window is
+// set.  The Pallas kernel's right-aligned contiguous layout is the case
+// kv_pos = arange(Skv), q_pos = Skv - Sq + arange(Sq).  A tile of BK = 64
+// keys that no row of the block can attend is skipped whole.  A row that
+// attends no key at all (the model never builds one) gives zeros here,
+// where the reference's softmax over all -1e30 scores gives the mean of v.
+//
+// flash_attention_kernel_tc (bf16, Sq > 1).  Bound: operations, 4 * Dh
+// FLOPs per attended (query head, key) pair against the bf16 tensor cores
+// (989 TFLOP/s dense); prefill is far above the card's ~295 FLOP/byte
+// ridge.  The design (FlashAttention-2's forward on mma.sync):
+//   * 4 warps and BR = 64 rows per block, each warp a 16-row strip; the
+//     kv tiles of 64 keys come through a two-stage cp.async.cg ring in
+//     shared memory (the next live tile's copies are issued before the
+//     current tile's math).  Empty slots (kv_pos < 0) and the ragged end
+//     are zero-filled by the copy itself: a ring cache's empty slot may
+//     hold any bits, and 0 * NaN is NaN even under a -inf score.
+//   * S = Q K^T on mma.sync.m16n8k16 (bf16 in, fp32 sums): Q's A fragments
+//     by ldmatrix.x4 from the Q tile (loaded once, rows padded by 8
+//     elements so ldmatrix rows fall in distinct banks; read from shared
+//     memory at every k-step rather than held, which keeps head dim 256
+//     in registers), K's B fragments by ldmatrix (K is (key, d) row-major,
+//     that is, the column-major B).
+//   * Mask and online softmax in registers: a thread holds rows lane/4 and
+//     lane/4 + 8 of its strip; scale * log2(e) is folded into S, exp2f;
+//     the row max reduces over the quad; a tile that every row attends
+//     whole skips the per-element mask.
+//   * O += P V: P is rounded to bf16 in registers and used directly as the
+//     A operand (the C fragments of two adjacent n-tiles are one A
+//     fragment); V's B fragments by ldmatrix.trans; the fp32 accumulator
+//     (16 x Dh per warp: Dh / 2 registers a thread, 128 at Dh = 256) is
+//     rescaled by exp2(m_old - m_new) per row.  Output acc / l in bf16.
+//   * The kv-tile liveness (any row attends; every row attends) is read
+//     from kv_pos 2,048 keys at a time by each warp with warp votes, so
+//     the ring can prefetch the next live tile without a block barrier.
+//   * Causal calls launch the row tiles heaviest first.
+//   Shared memory: Q (64, Dh + 8) and the ring 2 x 2 x (64, Dh + 8) bf16,
+//   87.6 KB at Dh = 128 (two blocks per SM), 169.5 KB at Dh = 256 (one).
+//   Not yet: wgmma, TMA, warp specialisation.
+//
+// flash_attention_kernel (float32 at any Sq, bf16 decode).  Bound: for
+// decode, bytes (the cache's K and V read once); for float32 prefill,
+// operations against the 67 TFLOP/s of the CUDA cores.  BR = 64 for long
 // query runs (32 at Dh = 256, where 64 rows would hold a (64, 256) fp32
 // accumulator of 128 registers a thread), 16 for short ones (decode).
-//
 // Per kv tile of BK = 64 keys, 128 threads:
-//   0. the tile's kv positions are read; if no row of the block can attend
-//      any key of the tile (kv_pos < 0, after every query under the causal
-//      mask, or out of every query's window) the tile is skipped whole, its
-//      K/V never loaded;
+//   0. the tile's kv positions are read; a tile no row can attend is
+//      skipped, its K/V never loaded;
 //   1. K and V are staged in shared memory as fp32 (16-byte loads through
 //      the caller's strides, so the ring cache's (B, cap, K, Dh) layout is
 //      read in place); S = Q K^T * scale on CUDA cores, each thread a
@@ -32,26 +82,14 @@
 //      l = l * exp(m - m_new) + rowsum P;
 //   3. acc = acc * exp(m - m_new) + P V, each thread a (BR/16) x (Dh/8)
 //      micro-tile of the (BR, Dh) accumulator.
-// The output is acc / l in q's dtype.  A row that attends no key at all
-// (the model never builds one) gives zeros here, where the reference's
-// softmax over all -1e30 scores gives the mean of v.
-//
-// Mask: attend key j from the query at position qp iff kv_pos[j] >= 0,
-// kv_pos[j] <= qp when causal, and qp - kv_pos[j] < window when a window is
-// set.  The Pallas kernel's right-aligned contiguous layout is the case
-// kv_pos = arange(Skv), q_pos = Skv - Sq + arange(Sq).
-//
-// Bound: for prefill, operations (4 * B * H * Dh FLOPs per attended
-// (query, key) pair, about half of Sq * Skv under the causal mask) against
-// the card's tensor-core rate; for decode, bytes (the cache's K and V read
-// once).  This first version runs on CUDA cores in fp32 and reaches neither:
-// mma/wgmma tiles for prefill and a split over the keys for decode are the
-// next steps.
+// It is exact in float32 (no TF32); decode on it is one block per (batch,
+// kv head, 16 rows) and so far from its byte bound: a split over the keys
+// is the next step.
 //
 // Types: bf16 or float32 in, fp32 inside, output in q's dtype; Dh in
-// {16, 32, 64, 128, 256}.  Launches on the caller's stream, allocates nothing,
-// never synchronizes; the entry point returns cudaGetLastError() of its
-// launch.
+// {16, 32, 64, 128, 256}.  Both kernels launch on the caller's stream,
+// allocate nothing and never synchronize; each entry point returns
+// cudaGetLastError() of its launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -377,58 +415,472 @@ int launch(const Params& p, int batch, int kv_heads, int dh,
   }
 }
 
-}  // namespace
+// ---------------------------------------------------------------------------
+// flash_attention_kernel_tc: bf16, Sq > 1, on the tensor cores.
 
-extern "C" {
+using bf16 = __nv_bfloat16;
 
-// q (B, Sq, K*G, Dh) and o through their strides, k and v (B, Skv, K, Dh)
-// through theirs; q_pos (Sq,) and kv_pos (Skv,) int32 on the device.
-// dims (host memory, int64): B, Sq, Skv, K, G, Dh, then the (batch,
-// sequence, head) element strides of q, k, v and o, then causal (0/1) and
-// window (0 = none).  dtype code: 0 = float32, 1 = bfloat16 (q, k, v, o
-// alike).  Every stride and pointer must be 16-byte aligned.
-int flash_attention_forward(const void* q, const void* k, const void* v,
-                            void* o, const void* q_pos, const void* kv_pos,
-                            const int64_t* dims, float scale, int dtype,
-                            void* stream) {
+constexpr int kTcRows = 64;     // rows of the flattened (s, g) index a block
+constexpr int kTcChunk = 2048;  // keys whose tile flags one scan reads
+
+template <int DH>
+struct TcShape {
+  static constexpr int kStride = DH + 8;  // padded row, in elements
+  static constexpr int kTile = kBK * kStride;
+  // Q tile, then the ring's K and V tiles (2 stages each), then the
+  // ring's kv positions
+  static constexpr size_t kSmem =
+      sizeof(bf16) * (kTcRows * kStride + 4 * kTile) + sizeof(int) * 2 * kBK;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 bytes global -> shared, zero-filled when !ok (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* ptr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(ptr)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* ptr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(ptr)));
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats as one bf16 pair, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ bool attends(int kp, int qp, const Params& p) {
+  return kp >= 0 && (!p.causal || kp <= qp) &&
+         (p.window <= 0 || qp - kp < p.window);
+}
+
+// Flags of the 32 kv tiles of keys [c * kTcChunk, (c + 1) * kTcChunk),
+// bit t for tile 32c + t: `live` if some query in [q_lo, q_hi] attends one
+// of its keys, `full` if every such query attends all 64.  Computed by each
+// warp alone (coalesced reads of kv_pos, warp votes), so every warp of the
+// block holds the same flags with no barrier.
+__device__ __forceinline__ void scan_tiles(const Params& p, int c, int q_lo,
+                                           int q_hi, uint32_t& live,
+                                           uint32_t& full) {
+  const int lane = threadIdx.x % 32;
+  const int base = c * kTcChunk;
+  live = 0u;
+  full = ~0u;
+#pragma unroll 8
+  for (int i = 0; i < kTcChunk / 32; ++i) {
+    const int j = base + i * 32 + lane;
+    const int kp = j < p.skv ? __ldg(p.kv_pos + j) : -1;
+    const bool any = kp >= 0 && (!p.causal || kp <= q_hi) &&
+                     (p.window <= 0 || q_lo - kp < p.window);
+    const bool all = kp >= 0 && (!p.causal || kp <= q_lo) &&
+                     (p.window <= 0 || q_hi - kp < p.window);
+    const uint32_t bit = 1u << (i / 2);  // 64 keys = 2 steps of 32
+    if (__any_sync(0xffffffffu, any)) live |= bit;
+    if (!__all_sync(0xffffffffu, all)) full &= ~bit;
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads, DH >= 256 ? 1 : 2)
+flash_attention_kernel_tc(const Params p) {
+  using S = TcShape<DH>;
+  constexpr int RS = S::kStride;
+  constexpr int KSTEPS = DH / 16;  // k-steps of S = Q K^T
+  constexpr int NT = kBK / 8;      // n-tiles of S (8 keys each)
+  constexpr int DT = DH / 8;       // n-tiles of O (8 dims each)
+  static_assert(DH % 16 == 0, "head dim");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // (64, RS)
+  bf16* k_s = q_s + kTcRows * RS;                  // 2 x (64, RS)
+  bf16* v_s = k_s + 2 * S::kTile;                  // 2 x (64, RS)
+  int* kpos_s = reinterpret_cast<int*>(v_s + 2 * S::kTile);  // 2 x 64
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.z;
+  const int kh = blockIdx.y;
+  const int rows = p.sq * p.g;
+  // causal calls: the last row tiles attend the most keys; start them first
+  const int tile = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int row0 = tile * kTcRows;
+  const int live_rows = min(kTcRows, rows - row0);
+  const bf16* q = static_cast<const bf16*>(p.q);
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.k_sb + kh * p.k_sh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.v_sb + kh * p.v_sh;
+
+  // the Q tile, once (rows past the end as zeros)
+  for (int i = tid; i < kTcRows * (DH / 8); i += kThreads) {
+    const int r = i / (DH / 8), d = (i % (DH / 8)) * 8;
+    const bool ok = r < live_rows;
+    const int fr = row0 + (ok ? r : 0);
+    const int s = fr / p.g;
+    const int h = kh * p.g + fr % p.g;
+    cp_async16(q_s + r * RS + d,
+               q + b * p.q_sb + s * p.q_ss + h * p.q_sh + d, ok);
+  }
+
+  // the positions of this thread's two rows, and the block's range
+  const int r_lo = warp * 16 + lane / 4;
+  const int qp0 = p.q_pos[(row0 + min(r_lo, live_rows - 1)) / p.g];
+  const int qp1 = p.q_pos[(row0 + min(r_lo + 8, live_rows - 1)) / p.g];
+  int q_lo, q_hi;
+  {
+    const int a = p.q_pos[(row0 + min(lane, live_rows - 1)) / p.g];
+    const int c = p.q_pos[(row0 + min(lane + 32, live_rows - 1)) / p.g];
+    q_lo = min(a, c);
+    q_hi = max(a, c);
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2) {
+      q_lo = min(q_lo, __shfl_xor_sync(0xffffffffu, q_lo, off));
+      q_hi = max(q_hi, __shfl_xor_sync(0xffffffffu, q_hi, off));
+    }
+  }
+
+  // the next kv tile at or after t that some row attends (ntiles if none)
+  const int ntiles = (p.skv + kBK - 1) / kBK;
+  int chunk = -1;
+  uint32_t live = 0u, full = 0u;
+  auto next_live = [&](int t, bool& whole) {
+    while (t < ntiles) {
+      const int c = t / 32;
+      if (c != chunk) {
+        scan_tiles(p, c, q_lo, q_hi, live, full);
+        chunk = c;
+      }
+      const uint32_t rest = live >> (t % 32);
+      if (rest) {
+        t += __ffs(rest) - 1;
+        whole = (full >> (t % 32)) & 1u;
+        return t;
+      }
+      t = (c + 1) * 32;
+    }
+    return ntiles;
+  };
+
+  // K and V of tile t into ring slot `stage`, empty slots and the ragged
+  // end zero-filled by the copy
+  auto load_kv = [&](int stage, int t) {
+    const int j0 = t * kBK;
+    bf16* ks = k_s + stage * S::kTile;
+    bf16* vs = v_s + stage * S::kTile;
+    if (tid < kBK) {
+      kpos_s[stage * kBK + tid] =
+          j0 + tid < p.skv ? p.kv_pos[j0 + tid] : -1;
+    }
+    for (int i = tid; i < kBK * (DH / 8); i += kThreads) {
+      const int c = i / (DH / 8), d = (i % (DH / 8)) * 8;
+      const int64_t j = j0 + c;
+      const bool ok = j < p.skv && __ldg(p.kv_pos + j) >= 0;
+      cp_async16(ks + c * RS + d, ok ? k + j * p.k_ss + d : k, ok);
+      cp_async16(vs + c * RS + d, ok ? v + j * p.v_ss + d : v, ok);
+    }
+  };
+
+  float acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  }
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  const float scale_log2 = p.scale * 1.4426950408889634f;
+
+  bool cur_whole = false;
+  int cur = next_live(0, cur_whole);
+  if (cur < ntiles) load_kv(0, cur);
+  cp_async_commit();  // with the Q tile
+  int stage = 0;
+  while (cur < ntiles) {
+    bool nxt_whole = false;
+    const int nxt = next_live(cur + 1, nxt_whole);
+    if (nxt < ntiles) load_kv(stage ^ 1, nxt);
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but the copies just issued
+    __syncthreads();
+
+    const bf16* ks = k_s + stage * S::kTile;
+    const bf16* vs = v_s + stage * S::kTile;
+    const int* kp = kpos_s + stage * kBK;
+
+    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
+    float sc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, q_s + (warp * 16 + lane % 16) * RS + kk * 16 +
+                         (lane / 16) * 8);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t r[4];
+        ldmatrix_x4(r, ks + (np * 16 + lane % 8 + (lane / 16) * 8) * RS +
+                           kk * 16 + ((lane / 8) % 2) * 8);
+        mma_bf16(sc[2 * np], a, r[0], r[1]);
+        mma_bf16(sc[2 * np + 1], a, r[2], r[3]);
+      }
+    }
+
+    // scale (in log2 units) and mask; this thread's keys are
+    // 8n + 2 * (lane % 4) + {0, 1} of rows r_lo (e = 0, 1), r_lo + 8 (2, 3)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[n][e] *= scale_log2;
+    }
+    if (!cur_whole) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int2 kk2 =
+            *reinterpret_cast<const int2*>(kp + n * 8 + 2 * (lane % 4));
+        if (!attends(kk2.x, qp0, p)) sc[n][0] = -INFINITY;
+        if (!attends(kk2.y, qp0, p)) sc[n][1] = -INFINITY;
+        if (!attends(kk2.x, qp1, p)) sc[n][2] = -INFINITY;
+        if (!attends(kk2.y, qp1, p)) sc[n][3] = -INFINITY;
+      }
+    }
+
+    // online softmax: the row max over the quad, P = exp2(S - m)
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(sc[n][0], sc[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[n][2], sc[n][3]));
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off *= 2) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    // a row with nothing attended so far keeps P = 0 and acc = 0
+    const float base0 = mn0 == -INFINITY ? 0.f : mn0;
+    const float base1 = mn1 == -INFINITY ? 0.f : mn1;
+    const float corr0 = exp2f(m0 - base0), corr1 = exp2f(m1 - base1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      sc[n][0] = exp2f(sc[n][0] - base0);
+      sc[n][1] = exp2f(sc[n][1] - base0);
+      sc[n][2] = exp2f(sc[n][2] - base1);
+      sc[n][3] = exp2f(sc[n][3] - base1);
+      sum0 += sc[n][0] + sc[n][1];
+      sum1 += sc[n][2] + sc[n][3];
+    }
+    // l is this thread's share of the row sum; the quad adds at the end
+    l0 = l0 * corr0 + sum0;
+    l1 = l1 * corr1 + sum1;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      acc[n][0] *= corr0;
+      acc[n][1] *= corr0;
+      acc[n][2] *= corr1;
+      acc[n][3] *= corr1;
+    }
+
+    // O += P V: P (bf16) is the A operand, 16 keys per k-step
+#pragma unroll
+    for (int t = 0; t < kBK / 16; ++t) {
+      uint32_t a[4];
+      a[0] = pack_bf16(sc[2 * t][0], sc[2 * t][1]);
+      a[1] = pack_bf16(sc[2 * t][2], sc[2 * t][3]);
+      a[2] = pack_bf16(sc[2 * t + 1][0], sc[2 * t + 1][1]);
+      a[3] = pack_bf16(sc[2 * t + 1][2], sc[2 * t + 1][3]);
+#pragma unroll
+      for (int np = 0; np < DT / 2; ++np) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, vs + (t * 16 + lane % 16) * RS + np * 16 +
+                                 (lane / 16) * 8);
+        mma_bf16(acc[2 * np], a, r[0], r[1]);
+        mma_bf16(acc[2 * np + 1], a, r[2], r[3]);
+      }
+    }
+    __syncthreads();  // the slot is refilled in the next iteration
+    cur = nxt;
+    cur_whole = nxt_whole;
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
+
+  // the quad's row sums, then acc / l in bf16 through o's strides
+#pragma unroll
+  for (int off = 1; off <= 2; off *= 2) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  bf16* o = static_cast<bf16*>(p.o);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r_lo + 8 * half;
+    if (r >= live_rows) continue;
+    const float l = half ? l1 : l0;
+    const int fr = row0 + r;
+    const int s = fr / p.g;
+    const int h = kh * p.g + fr % p.g;
+    bf16* orow = o + b * p.o_sb + s * p.o_ss + h * p.o_sh + 2 * (lane % 4);
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      const float x = l > 0.f ? acc[n][2 * half] / l : 0.f;
+      const float y = l > 0.f ? acc[n][2 * half + 1] / l : 0.f;
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
+          __floats2bfloat162_rn(x, y);
+    }
+  }
+}
+
+template <int DH>
+int launch_tc_dh(const Params& p, int batch, int kv_heads,
+                 cudaStream_t stream) {
+  constexpr size_t bytes = TcShape<DH>::kSmem;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_kernel_tc<DH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const int rows = p.sq * p.g;
+  const dim3 grid((rows + kTcRows - 1) / kTcRows, kv_heads, batch);
+  flash_attention_kernel_tc<DH><<<grid, kThreads, bytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_tc(const Params& p, int batch, int kv_heads, int dh,
+              cudaStream_t stream) {
+  switch (dh) {
+    case 16: return launch_tc_dh<16>(p, batch, kv_heads, stream);
+    case 32: return launch_tc_dh<32>(p, batch, kv_heads, stream);
+    case 64: return launch_tc_dh<64>(p, batch, kv_heads, stream);
+    case 128: return launch_tc_dh<128>(p, batch, kv_heads, stream);
+    case 256: return launch_tc_dh<256>(p, batch, kv_heads, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The checked Params of one call from the entry points' arguments;
+// cudaErrorInvalidValue for sizes the kernels do not take.
+int make_params(const void* q, const void* k, const void* v, void* o,
+                const void* q_pos, const void* kv_pos, const int64_t* dims,
+                float scale, Params* p) {
   const int64_t batch = dims[0], sq = dims[1], skv = dims[2];
-  const int64_t kv_heads = dims[3], g = dims[4], dh = dims[5];
+  const int64_t kv_heads = dims[3], g = dims[4];
   if (batch <= 0 || sq <= 0 || skv <= 0 || kv_heads <= 0 || g <= 0 ||
       batch > 65535 || kv_heads > 65535 || sq * g > INT32_MAX / 2 ||
       skv > INT32_MAX / 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  p->q = q;
+  p->k = k;
+  p->v = v;
+  p->o = o;
+  p->q_pos = static_cast<const int32_t*>(q_pos);
+  p->kv_pos = static_cast<const int32_t*>(kv_pos);
+  p->q_sb = dims[6];
+  p->q_ss = dims[7];
+  p->q_sh = dims[8];
+  p->k_sb = dims[9];
+  p->k_ss = dims[10];
+  p->k_sh = dims[11];
+  p->v_sb = dims[12];
+  p->v_ss = dims[13];
+  p->v_sh = dims[14];
+  p->o_sb = dims[15];
+  p->o_ss = dims[16];
+  p->o_sh = dims[17];
+  p->sq = static_cast<int>(sq);
+  p->skv = static_cast<int>(skv);
+  p->g = static_cast<int>(g);
+  p->causal = static_cast<int>(dims[18]);
+  p->window = static_cast<int>(dims[19]);
+  p->scale = scale;
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Both entry points: q (B, Sq, K*G, Dh) and o through their strides, k and
+// v (B, Skv, K, Dh) through theirs; q_pos (Sq,) and kv_pos (Skv,) int32 on
+// the device.  dims (host memory, int64): B, Sq, Skv, K, G, Dh, then the
+// (batch, sequence, head) element strides of q, k, v and o, then causal
+// (0/1) and window (0 = none).  dtype code: 0 = float32, 1 = bfloat16 (q,
+// k, v, o alike).  Every stride and pointer must be 16-byte aligned.
+
+// The CUDA-core kernel (flash_attention_kernel), float32 or bf16.
+int flash_attention_forward(const void* q, const void* k, const void* v,
+                            void* o, const void* q_pos, const void* kv_pos,
+                            const int64_t* dims, float scale, int dtype,
+                            void* stream) {
   Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = o;
-  p.q_pos = static_cast<const int32_t*>(q_pos);
-  p.kv_pos = static_cast<const int32_t*>(kv_pos);
-  p.q_sb = dims[6];
-  p.q_ss = dims[7];
-  p.q_sh = dims[8];
-  p.k_sb = dims[9];
-  p.k_ss = dims[10];
-  p.k_sh = dims[11];
-  p.v_sb = dims[12];
-  p.v_ss = dims[13];
-  p.v_sh = dims[14];
-  p.o_sb = dims[15];
-  p.o_ss = dims[16];
-  p.o_sh = dims[17];
-  p.sq = static_cast<int>(sq);
-  p.skv = static_cast<int>(skv);
-  p.g = static_cast<int>(g);
-  p.causal = static_cast<int>(dims[18]);
-  p.window = static_cast<int>(dims[19]);
-  p.scale = scale;
+  const int err = make_params(q, k, v, o, q_pos, kv_pos, dims, scale, &p);
+  if (err != 0) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int b = static_cast<int>(batch), kh = static_cast<int>(kv_heads);
-  const int d = static_cast<int>(dh);
+  const int b = static_cast<int>(dims[0]), kh = static_cast<int>(dims[3]);
+  const int d = static_cast<int>(dims[5]);
   if (dtype == 0) return launch<float>(p, b, kh, d, s);
   if (dtype == 1) return launch<__nv_bfloat16>(p, b, kh, d, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-core kernel (flash_attention_kernel_tc), bfloat16 only.
+int flash_attention_forward_tc(const void* q, const void* k, const void* v,
+                               void* o, const void* q_pos,
+                               const void* kv_pos, const int64_t* dims,
+                               float scale, int dtype, void* stream) {
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  Params p;
+  const int err = make_params(q, k, v, o, q_pos, kv_pos, dims, scale, &p);
+  if (err != 0) return err;
+  return launch_tc(p, static_cast<int>(dims[0]), static_cast<int>(dims[3]),
+                   static_cast<int>(dims[5]),
+                   static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attention_error_string(int code) {

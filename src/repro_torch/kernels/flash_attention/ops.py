@@ -11,9 +11,14 @@ Pallas kernel's layout and meaning instead (q (B, H, Sq, Dh), k and v
 same call.
 
 For tensors on the CPU the wrappers return the plain PyTorch version.
-For CUDA tensors they launch the kernel or raise; there is no fallback.
-``LAUNCHES`` counts kernel launches: one is added where the kernel is
-launched, and nowhere else.
+For CUDA tensors they launch a kernel or raise; there is no fallback.
+Two kernels serve a CUDA call, chosen by :func:`_route` from the dtype
+and Sq alone: the tensor-core kernel (``"tc"``) for bfloat16 with more
+than one query position (prefill, window waves), the CUDA-core kernel
+(``"simt"``) for float32 and for bfloat16 decode (Sq = 1).
+``LAUNCHES["flash_attention"]`` counts the launches of both,
+``LAUNCHES["flash_attention_tc"]`` those of the tensor-core kernel; one
+is added where a kernel is launched, and nowhere else.
 """
 
 from __future__ import annotations
@@ -28,18 +33,28 @@ import torch
 from .._build import CudaLibrary
 from .ref import attention_ref
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_int,
+             ctypes.c_void_p]
+# the C entry point of each route
+ENTRY_POINTS = {"simt": "flash_attention_forward",
+                "tc": "flash_attention_forward_tc"}
 LIBRARY = CudaLibrary(
     "flash_attention",
     Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
-    {"flash_attention_forward": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]})
+    {entry: _ARGTYPES for entry in ENTRY_POINTS.values()})
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _route(dtype: torch.dtype, sq: int) -> str:
+    """The kernel of a CUDA call: ``"tc"`` (tensor cores) for bfloat16
+    with Sq > 1, ``"simt"`` (CUDA cores, fp32) otherwise."""
+    return "tc" if dtype == torch.bfloat16 and sq > 1 else "simt"
 
 
 def reset_launch_counts() -> None:
@@ -116,13 +131,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         v.stride(0), v.stride(1), v.stride(2),
         out.stride(0), out.stride(1), out.stride(3),
         int(causal), 0 if window is None else int(window))
+    route = _route(q.dtype, Sq)
     with torch.cuda.device(q.device):
-        LIBRARY.call("flash_attention", "flash_attention_forward",
+        LIBRARY.call("flash_attention", ENTRY_POINTS[route],
                      q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      out.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
                      dims, 1.0 / math.sqrt(Dh), _DTYPE_CODES[q.dtype],
                      torch.cuda.current_stream().cuda_stream)
     LAUNCHES["flash_attention"] += 1
+    if route == "tc":
+        LAUNCHES["flash_attention_tc"] += 1
     return out
 
 

@@ -53,3 +53,32 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+def mask_probe(B: int, K: int, G: int, Dh: int, q_pos: torch.Tensor,
+               kv_pos: torch.Tensor, *, causal: bool = True,
+               window: Optional[int] = None,
+               dtype: torch.dtype = torch.bfloat16):
+    """Inputs whose attention has an exact answer, and that answer.
+
+    q = 0 and k = 0, so every attended score is 0 and every attended
+    weight the same; ``v[b, j, kh, d] = 1`` where ``kv_pos[j] >= 0`` and
+    ``kv_pos[j] mod Dh == d``, else 0.  Each output row is then
+    ``count(attended j with kv_pos[j] = d mod Dh) / count(attended j)``:
+    a key dropped or leaked by the mask moves it by at least
+    ``1 / count(attended j)`` of a column's share.  Returns q
+    (B, Sq, K, G, Dh), k and v (B, Skv, K, Dh) in ``dtype`` on kv_pos's
+    device, and the answer (Sq, Dh) in float64, the same for every b, kh
+    and g (0 for a row that attends nothing).
+    """
+    dev = kv_pos.device
+    Sq, Skv = q_pos.numel(), kv_pos.numel()
+    q = torch.zeros(B, Sq, K, G, Dh, dtype=dtype, device=dev)
+    k = torch.zeros(B, Skv, K, Dh, dtype=dtype, device=dev)
+    hit = (kv_pos >= 0)[:, None] & (
+        kv_pos.long().remainder(Dh)[:, None]
+        == torch.arange(Dh, device=dev)[None, :])
+    v = hit.to(dtype)[None, :, None, :].expand(B, Skv, K, Dh).contiguous()
+    mask = attention_mask(q_pos, kv_pos, causal, window).double()
+    want = (mask @ hit.double()) / mask.sum(dim=1, keepdim=True).clamp_min(1)
+    return q, k, v, want

@@ -13,7 +13,10 @@ another order), min exact, two kernel runs bitwise equal; suite rows at
 1e-9 relative with integers exact.  RMSNorm and attention: 2e-5 for
 float32 and 5e-2 for bfloat16 (``tests/test_kernels.py``'s tolerances;
 the attention kernel keeps its softmax weights in fp32 where the plain
-version rounds them to v's dtype), two kernel runs bitwise equal.
+version rounds them to v's dtype), two kernel runs bitwise equal; the
+tensor-core attention kernel (bfloat16, Sq > 1) also gives
+``mask_probe``'s exact answer within 2^-8 of each value (one bf16
+rounding), and reads empty ring slots holding NaN as zeros.
 Grouped matmuls: float32 at 2e-5; bfloat16 per output row within 2e-2 of
 the row's max |out| (the kernel and the plain version both sum bf16
 products in fp32, in another order, and round once), rows the ragged
@@ -217,6 +220,14 @@ ATTN_CASES = {
     "dh256-prefill-ragged": (2, 45, 1, 10, 45, 256, None, None, None),
     "dh256-decode-ring-wrapped": (2, 1, 1, 10, 64, 256, [150], (64, 151),
                                   64),
+    # bf16 calls with Sq > 1 take the tensor-core kernel: every head dim,
+    # Sq and Skv not multiples of 64, G = 6 and G = 10 (a 64-row tile
+    # ends part-way through a position's group), binding windows
+    "tc-cross-ragged-dh16": (2, 70, 2, 2, 130, 16, None, None, None),
+    "tc-g6-window-dh32": (1, 150, 2, 6, 150, 32, None, None, 40),
+    "tc-g10-ragged-dh64": (1, 130, 1, 10, 161, 64, None, None, None),
+    "tc-g6-ragged-dh128": (2, 97, 2, 6, 161, 128, None, None, None),
+    "tc-g10-window-dh256": (1, 300, 1, 10, 300, 256, None, None, 100),
 }
 
 
@@ -237,6 +248,9 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, name):
     check_twice(fa.flash_attention, fa.attention_ref, q, k, v, q_pos, kv_pos,
                 causal=True, window=window)
     assert fa.LAUNCHES["flash_attention"] == 2
+    # the tensor-core kernel serves bf16 with Sq > 1 and nothing else
+    tc = dtype == torch.bfloat16 and Sq > 1
+    assert fa.LAUNCHES["flash_attention_tc"] == (2 if tc else 0)
 
 
 def test_flash_attention_kernel_layout_bidirectional(cuda):
@@ -249,6 +263,93 @@ def test_flash_attention_kernel_layout_bidirectional(cuda):
                                            causal=False)
     np.testing.assert_allclose(got.cpu().numpy(), cpu.numpy(), atol=2e-5,
                                rtol=2e-5)
+
+
+def test_flash_attention_kernel_layout_bidirectional_bf16(cuda):
+    """The kernel layout without the causal mask on the tensor-core
+    kernel: every row attends every key, so each tile is whole."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(1, 4, 48, 64, device=cuda, generator=gen).bfloat16()
+    k, v = (torch.randn(1, 2, 80, 64, device=cuda, generator=gen).bfloat16()
+            for _ in range(2))
+    fa.reset_launch_counts()
+    got = fa.flash_attention_kernel_layout(q, k, v, causal=False)
+    cpu = fa.flash_attention_kernel_layout(q.cpu(), k.cpu(), v.cpu(),
+                                           causal=False)
+    assert fa.LAUNCHES == {"flash_attention": 1, "flash_attention_tc": 1}
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               cpu.float().numpy(), atol=5e-2, rtol=5e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128, 256])
+def test_flash_attention_prefill_over_ring_slice_with_nan_slots(cuda, dtype,
+                                                                dh):
+    """A 90-position prefill over a 150-slot ring whose k and v are slices
+    of one stacked buffer (read in place), the 60 empty slots holding NaN:
+    the kernels read them as zeros (the tensor-core kernel's copies
+    zero-fill them), which is what the plain version gives on zeros."""
+    B, Sq, K, G, cap = 2, 90, 2, 3, 150
+    gen = torch.Generator(device=cuda).manual_seed(dh)
+    q = torch.randn(B, Sq, K, G, dh, device=cuda, generator=gen).to(dtype)
+    buf = torch.randn(2, B, cap, K, dh, device=cuda, generator=gen).to(dtype)
+    zeros = buf.clone()
+    buf[:, :, Sq:] = float("nan")
+    zeros[:, :, Sq:] = 0
+    q_pos = torch.arange(Sq, dtype=torch.int32, device=cuda)
+    kv_pos = ring_positions(cap, Sq, cuda)
+    fa.reset_launch_counts()
+    got = fa.flash_attention(q, buf[0], buf[1], q_pos, kv_pos)
+    again = fa.flash_attention(q, buf[0], buf[1], q_pos, kv_pos)
+    want = fa.attention_ref(q, zeros[0], zeros[1], q_pos, kv_pos)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got).all())
+    tol = TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=tol,
+                               rtol=tol)
+    assert fa.LAUNCHES["flash_attention_tc"] == \
+        (2 if dtype == torch.bfloat16 else 0)
+
+
+# B, K, G, Dh, q positions, kv positions (None: arange(Sq)), window
+PROBE_CASES = {
+    "causal-gqa-dh128": (2, 2, 8, 128, 300, None, None),
+    "window-g6-dh128": (1, 2, 6, 128, 500, None, 130),
+    "ring-nan-slots-dh64": (2, 1, 4, 64, 200, (260, 200), None),
+    "window-g10-dh256": (1, 1, 10, 256, 400, None, 256),
+    "cross-ragged-dh16": (1, 2, 2, 16, 70, (130, 130), None),
+    "window-dh32": (2, 2, 3, 32, 333, None, 64),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PROBE_CASES))
+def test_flash_attention_mask_probe(cuda, name):
+    """``mask_probe``'s exact answer through the tensor-core kernel: the
+    kernel sums exact weights of 1 in fp32 and rounds acc / l once to
+    bf16, so each value lies within 2^-8 of its own size (0 exactly
+    where the answer is 0).  A dropped 64-key tile or one leaked key
+    moves a value by far more.  Empty ring slots hold NaN."""
+    B, K, G, Dh, Sq, ring, window = PROBE_CASES[name]
+    q_pos = torch.arange(Sq, dtype=torch.int32, device=cuda)
+    if ring is None:
+        kv_pos = q_pos.clone()
+    else:
+        kv_pos = ring_positions(ring[0], ring[1], cuda)
+        q_pos = q_pos + (ring[1] - Sq)
+    q, k, v, want = fa.mask_probe(B, K, G, Dh, q_pos, kv_pos, causal=True,
+                                  window=window)
+    empty = kv_pos < 0
+    k[:, empty] = float("nan")
+    v[:, empty] = float("nan")
+    fa.reset_launch_counts()
+    got = fa.flash_attention(q, k, v, q_pos, kv_pos, causal=True,
+                             window=window)
+    assert fa.LAUNCHES["flash_attention_tc"] == 1
+    gap = (got.double() - want[None, :, None, None, :]).abs()
+    assert bool((gap <= 2.0 ** -8 * want[None, :, None, None, :]).all()), \
+        float(gap.max())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
