@@ -33,11 +33,13 @@ nonzero:
    the serve path's shapes (float32 at 2e-5; bfloat16, and for
    attention each output row within 2e-2 of its max), twice for bitwise
    repeatability, with the same times and bounds as phase 3.  Attention
-   has two kernels: float32 and bf16 decode take the CUDA-core one
-   (route ``simt``), bf16 with Sq > 1 the tensor-core one (``tc``), which
-   is also held to ``mask_probe``'s exact answer (within 2^-8 of each
-   value, empty ring slots holding NaN) at every prefill and window-wave
-   shape of the three serve paths.  Then the
+   has three routes: every decode call (Sq = 1, either dtype) takes the
+   split-KV decode kernel (``decode``), bf16 with Sq > 1 the tensor-core
+   one (``tc``), float32 with Sq > 1 the CUDA-core one (``simt``); the
+   bf16 routes are also held to ``mask_probe``'s exact answer (within
+   2^-8 of each value, empty ring slots holding NaN) at every shape of
+   the three serve paths, and their device times are read from the
+   profiler and from 20 calls in one CUDA graph, beside SDPA's.  Then the
    grouped matmul at mixtral-8x22b's expert shapes (prefill's 1,280-row
    capacity buffers, decode's 2 rows, the window wave's 1,300), float32
    at 2e-5 and bfloat16 per output row within 2e-2 of its max.
@@ -46,7 +48,8 @@ nonzero:
    32 new tokens each in waves of 4 through the kernels, with the launch
    counts read around that run alone (97 RMSNorm and 48 attention
    launches per forward pass, the 96 of the two prefill passes on the
-   tensor-core kernel); then the same requests on the plain path.
+   tensor-core kernel, the 3,072 of the 64 decode steps on the decode
+   kernel); then the same requests on the plain path.
    Prefill and teacher-forced decode logits of the two paths must agree,
    and a float32 2-layer yi-9b must agree at 2e-5; a decode wave is
    profiled for the device's idle share.
@@ -55,7 +58,8 @@ nonzero:
    freed) serves the same traffic through the kernels, with the launch
    counts read around that run alone (25 RMSNorm, 12 attention and 36
    grouped-matmul launches per forward pass; 24 tensor-core attention
-   launches in the two prefills), then on the plain path.
+   launches in the two prefills, 768 decode ones), then on the plain
+   path.
    The ragged grouped matmul is held to its plain version on the routed
    rows of the first layer of a prefill wave, as routed and with groups
    padded to 128 rows.  Teacher-forced logits must agree within 5e-2 of
@@ -74,10 +78,11 @@ nonzero:
    the gates and conv taps float32) serves the same traffic through the
    kernels, with the launch counts read around that run alone (53
    RMSNorm and 8 attention launches per forward pass, 16 of them on the
-   tensor-core kernel in the two prefills, 18 scans per prefill and none
-   in decode), then on the plain path.  Teacher-forced
-   logits must agree within 5e-2 of max |logit|, also for a 2,304-token
-   request through the 2,048-token local window; a decode wave is
+   tensor-core kernel in the two prefills and 512 on the decode kernel,
+   18 scans per prefill and none in decode), then on the plain path.
+   Teacher-forced logits must agree within 5e-2 of max |logit|, also for
+   a 2,304-token request through the 2,048-token local window; a decode
+   wave is
    profiled, and a float32 model at full width and 5 of its 26 layers
    must agree at 2e-5.
 10. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
@@ -174,7 +179,7 @@ HYBRID_ARCH, HYBRID_F32_LAYERS = "recurrentgemma-2b", 5
 HYBRID_WINDOW_PROMPT = 2304
 # the RG-LRU scan against its plain version: tests/test_kernels.py's 1e-5
 LRU_TOL = 1e-5
-# mask_probe through the tensor-core attention: exact weights summed in
+# mask_probe through the bf16 attention routes: exact weights summed in
 # fp32 and acc / l rounded once to bf16, so within 2^-8 of each value
 PROBE_REL_TOL = 2.0 ** -8
 
@@ -210,9 +215,15 @@ def time_ms(fn, reps: int = 20, samples: int = 7) -> float:
     return statistics.median(per_call)
 
 
-def device_ms(fn, kernel_name: str, reps: int = 20) -> "float | None":
-    """Mean device time per call of the kernels whose name contains
-    ``kernel_name`` (all kernels for ""), from ``torch.profiler``; None
+def device_time(fn, kernel_name: str, reps: int = 20) -> dict:
+    """Device time per call of the kernels whose name contains
+    ``kernel_name`` (all kernels for ""), from ``torch.profiler``, and how
+    many runs of them it recorded.  Late in a long process the profiler
+    can drop some of a session's kernel records, so the time is reckoned
+    per kernel name: its mean over the runs recorded, times the runs it
+    makes a call (ceil(recorded / reps), at least 1), summed over the
+    names.  A kernel that runs once a call is timed right whatever was
+    dropped, and with nothing dropped every kernel is.  ``ms`` is None
     when the profiler records no device time."""
     fn()
     torch.cuda.synchronize()
@@ -220,9 +231,41 @@ def device_ms(fn, kernel_name: str, reps: int = 20) -> "float | None":
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = sum(t for name, _, t in device_events(prof)
-                if kernel_name in name)
-    return total / reps / 1e3 if total > 0 else None
+    hits = [(c, t) for name, c, t in device_events(prof)
+            if kernel_name in name]
+    ms = sum(t / c * max(1, -(-c // reps)) for c, t in hits) / 1e3
+    return {"ms": ms if ms > 0 else None,
+            "recorded": sum(c for c, _ in hits)}
+
+
+def graph_ms(fn, calls: int = 20, samples: int = 5) -> float:
+    """Mean time per call of ``calls`` calls captured in one CUDA graph,
+    each replay timed by CUDA events (median of ``samples``): the host's
+    launch work is left out, the gaps between the graph's kernels are
+    not."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(samples):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        graph.replay()
+        t1.record()
+        t1.synchronize()
+        per_call.append(t0.elapsed_time(t1) / calls)
+    del graph
+    return statistics.median(per_call)
 
 
 def device_events(prof) -> "list[tuple[str, int, float]]":
@@ -359,8 +402,9 @@ def phase_kernels() -> dict:
         emit("kernel", kernel=name, case=f"{MAIN_TOPO} uniform", site=site,
              nnz=nnz, segments=n_seg, permuted=permuted, max_abs_err=err,
              ms=ms, plain_ms=plain_ms, library=library, library_ms=lib_ms,
-             kernel_device_ms=device_ms(call, "segment_reduce_kernel"),
-             library_device_ms=device_ms(lib_call, ""),
+             kernel_device_ms=device_time(call,
+                                          "segment_reduce_kernel")["ms"],
+             library_device_ms=device_time(lib_call, "")["ms"],
              bytes=b["bytes"], bound_ms=b["bound_ms"], bound_by=b["bound_by"],
              achieved_GBps=b["bytes"] / (ms * 1e-3) / 1e9, ok=True)
     return results
@@ -708,8 +752,9 @@ def check_grouped_matmul() -> dict:
              max_row_rel_err=row_err, row_tolerance=GMM_ROW_TOL_BF16,
              float32_max_abs_err=err32, float32_tolerance=2e-5,
              library="torch.bmm (bf16)",
-             kernel_device_ms=device_ms(call, "gmm_bf16_kernel", reps=3),
-             library_device_ms=device_ms(lib_call, "", reps=3),
+             kernel_device_ms=device_time(call, "gmm_bf16_kernel",
+                                          reps=3)["ms"],
+             library_device_ms=device_time(lib_call, "", reps=3)["ms"],
              achieved_TFLOPs=row["flops"] / (row["ms"] * 1e-3) / 1e12,
              achieved_GBps=n_bytes / (row["ms"] * 1e-3) / 1e9, ok=True)
         del x, w
@@ -762,8 +807,8 @@ def check_rmsnorm_path(phase: str, entries, gen) -> dict:
              float32_max_abs_err=errs[torch.float32],
              float32_tolerance=tol[torch.float32],
              library="torch.nn.functional.rms_norm",
-             kernel_device_ms=device_ms(call, "rmsnorm_kernel"),
-             library_device_ms=device_ms(lib_call, ""),
+             kernel_device_ms=device_time(call, "rmsnorm_kernel")["ms"],
+             library_device_ms=device_time(lib_call, "")["ms"],
              achieved_GBps=row["bytes"] / (row["ms"] * 1e-3) / 1e9, ok=True)
     return results
 
@@ -777,24 +822,26 @@ def position_at(p: int) -> torch.Tensor:
 
 
 def check_mask_probe(q_pos, kv_pos, B, K, G, Dh, window, where) -> float:
-    """``mask_probe``'s exact answer through the tensor-core kernel, with
-    NaN in the empty ring slots' k and v: every value within
+    """``mask_probe``'s exact answer through the bf16 route of ``q_pos``'s
+    length (the tensor-core kernel for Sq > 1, the decode kernel for
+    Sq = 1), with NaN in the empty ring slots' k and v: every value within
     PROBE_REL_TOL of its own size (0 exactly where the answer is 0), one
-    ``flash_attention_tc`` launch.  Returns the largest relative gap."""
+    launch counted on that route.  Returns the largest relative gap."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import _route
 
+    counter = f"flash_attention_{_route(torch.bfloat16, q_pos.numel())}"
     q, k, v, want = fa.mask_probe(B, K, G, Dh, q_pos, kv_pos, causal=True,
                                   window=window)
     empty = kv_pos < 0
     k[:, empty] = float("nan")
     v[:, empty] = float("nan")
-    before = fa.LAUNCHES["flash_attention_tc"]
+    before = fa.LAUNCHES[counter]
     got = fa.flash_attention(q, k, v, q_pos, kv_pos, causal=True,
                              window=window).double()
     torch.cuda.synchronize()
-    if fa.LAUNCHES["flash_attention_tc"] != before + 1:
-        raise AssertionError(f"mask probe {where}: not on the tensor-core "
-                             "kernel")
+    if fa.LAUNCHES[counter] != before + 1:
+        raise AssertionError(f"mask probe {where}: not on {counter}")
     want = want[None, :, None, None, :]
     gap = (got - want).abs()
     if not bool((gap <= PROBE_REL_TOL * want).all()):
@@ -805,12 +852,14 @@ def check_mask_probe(q_pos, kv_pos, B, K, G, Dh, window, where) -> float:
 
 def check_attention_path(phase: str, path, gen) -> dict:
     """Attention at a serve path's shapes, ``path`` of (arch, case, B, K,
-    G, Sq, q_pos, kv_pos, window, Dh): float32 at 2e-5 first (the
-    CUDA-core kernel, route ``simt``, at every Sq: no bf16 rounding hides
-    a dropped tile or a wrong mask there), then bf16 (timed), held per
-    row, on its own route (``tc`` for Sq > 1, which is also held to the
-    mask probe's exact answer), beside SDPA as the yardstick.  Returns
-    the first entry's row of the kernels line."""
+    G, Sq, q_pos, kv_pos, window, Dh): float32 at 2e-5 first (the decode
+    kernel for Sq = 1, the CUDA-core kernel otherwise: no bf16 rounding
+    hides a dropped tile, a lost split or a wrong mask there), then bf16
+    (timed), held per row and to the mask probe's exact answer, on its
+    own route (``tc`` for Sq > 1, ``decode`` for Sq = 1), beside SDPA as
+    the yardstick.  Device times come from the profiler and from 20 calls
+    in one CUDA graph timed by CUDA events, for the kernel and for SDPA
+    alike.  Returns the first entry's row of the kernels line."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -822,10 +871,8 @@ def check_attention_path(phase: str, path, gen) -> dict:
         Skv = kv_pos.numel()
         kw = dict(causal=True, window=window)
         route = _route(torch.bfloat16, Sq)
-        probe = None
-        if route == "tc":
-            probe = check_mask_probe(q_pos, kv_pos, B, K, G, Dh, window,
-                                     f"{arch} path {name}")
+        probe = check_mask_probe(q_pos, kv_pos, B, K, G, Dh, window,
+                                 f"{arch} path {name}")
         q, k, v = attention_inputs(gen, B, Sq, K, G, Skv, Dh, torch.float32)
         args = (q, k, v, q_pos, kv_pos)
         err32 = check_close("flash_attention", fa.flash_attention(*args, **kw),
@@ -871,22 +918,37 @@ def check_attention_path(phase: str, path, gen) -> dict:
                **attention_cost(q, k, q_pos, kv_pos, True, window),
                "kernel_route": route}
         results.setdefault("flash_attention", row)
+        kern_dev = device_time(call, "flash_attention_kernel")
+        lib_dev = device_time(lib_call, "")
+        times = {"kernel_device_ms": kern_dev["ms"],
+                 "kernel_device_runs_recorded": kern_dev["recorded"],
+                 # the decode route is two kernels a call (split, combine)
+                 "kernel_device_runs_expected": 20 * (1 if heavy else 2),
+                 "library_device_ms": lib_dev["ms"],
+                 "library_device_runs_recorded": lib_dev["recorded"],
+                 "kernel_graph_ms": graph_ms(call, 5 if heavy else 20),
+                 "library_graph_ms": graph_ms(lib_call, 5 if heavy else 20)}
+        if not heavy:
+            # the decode kernel's device time against its bound and SDPA's
+            for how in ("device", "graph"):
+                ms, lib = times[f"kernel_{how}_ms"], times[f"library_{how}_ms"]
+                times[f"kernel_{how}_ms_over_bound"] = \
+                    ms / row["bound_ms"] if ms else None
+                times[f"kernel_{how}_ms_over_library"] = \
+                    ms / lib if ms and lib else None
         emit(phase, kernel="flash_attention", arch=arch, case=name,
              q=list(q.shape), kv=list(k.shape), window=window,
              dtype="bfloat16", **row,
              max_row_rel_err=row_err, row_tolerance=ATTN_ROW_TOL_BF16,
-             mask_probe_max_rel_gap=probe,
-             mask_probe_tolerance=PROBE_REL_TOL if probe is not None
-             else None,
-             float32_route="simt", float32_max_abs_err=err32,
+             mask_probe_max_rel_gap=probe, mask_probe_tolerance=PROBE_REL_TOL,
+             float32_route=_route(torch.float32, Sq),
+             float32_max_abs_err=err32,
              float32_tolerance=tol[torch.float32],
              library="scaled_dot_product_attention(enable_gqa=True, "
                      + ("is_causal=True)" if causal_only else "attn_mask)"),
-             library_max_abs_err_vs_plain=lib_err,
-             kernel_device_ms=device_ms(call, "flash_attention_kernel",
-                                        reps=5),
-             library_device_ms=device_ms(lib_call, "", reps=5),
+             library_max_abs_err_vs_plain=lib_err, **times,
              achieved_TFLOPs=row["flops"] / (row["ms"] * 1e-3) / 1e12,
+             achieved_GBps=row["bytes"] / (row["ms"] * 1e-3) / 1e9,
              ok=True)
         del q, k, v, args, qs, ks, vs
         torch.cuda.empty_cache()
@@ -1093,9 +1155,12 @@ def profile_decode_wave(model, params, prompts, max_len: int) -> dict:
         wall = time.perf_counter() - t0
     events = device_events(prof)
     busy_ms = sum(e[2] for e in events) / 1e3
+    attn = [(c, t) for n, c, t in events if "flash_attention_kernel" in n]
     return {"profiled": "decode wave", "steps": SERVE_NEW, "wall_s": wall,
             "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
+            "attention_device_ms": sum(t for _, t in attn) / 1e3,
+            "attention_kernel_runs": sum(c for c, _ in attn),
             "top_device_ops": [{"name": n[:80], "count": c, "ms": t / 1e3}
                                for n, c, t in events[:10]]}
 
@@ -1132,12 +1197,14 @@ def phase_serve(card: str) -> dict:
     emit_serve_runs("serve", card, runs)
     # each wave: one prefill, then one decode step per new token (the
     # last step's logits are not sampled, as in the reference's engine);
-    # the prefills' attention runs on the tensor-core kernel
+    # the prefills' attention runs on the tensor-core kernel, the decode
+    # steps' on the split-KV decode kernel
     waves = runs["cuda"][0].waves
     passes = waves * (1 + SERVE_NEW)
     want = {"rmsnorm": passes * (2 * cfg.n_layers + 1),
             "flash_attention": passes * cfg.n_layers,
-            "flash_attention_tc": waves * cfg.n_layers}
+            "flash_attention_tc": waves * cfg.n_layers,
+            "flash_attention_decode": (passes - waves) * cfg.n_layers}
     if launches != want:
         raise AssertionError(f"serve launches {launches} != {want} "
                              f"({passes} forward passes)")
@@ -1392,6 +1459,7 @@ def phase_moe_serve(card: str) -> "tuple[dict, dict]":
     L = cfg.n_layers
     want = {"rmsnorm": passes * (2 * L + 1), "flash_attention": passes * L,
             "flash_attention_tc": waves * L,
+            "flash_attention_decode": (passes - waves) * L,
             "grouped_matmul": passes * 3 * L, "ragged_grouped_matmul": 0}
     if launches != want:
         raise AssertionError(f"moe_serve launches {launches} != {want} "
@@ -1520,7 +1588,7 @@ def check_lru_scan(gen) -> dict:
         results["lru_scan"] = row
         emit("hybrid_serve", **line, **row,
              library="none: no PyTorch call computes a linear recurrence",
-             kernel_device_ms=device_ms(call, "lru_scan_kernel"),
+             kernel_device_ms=device_time(call, "lru_scan_kernel")["ms"],
              achieved_GBps=row["bytes"] / (row["ms"] * 1e-3) / 1e9, ok=True)
     return results
 
@@ -1588,13 +1656,16 @@ def phase_hybrid_serve(card: str) -> "tuple[dict, dict]":
     emit_serve_runs("hybrid_serve", card, runs)
     # each wave: one prefill, then one decode step per new token; every
     # block has 2 RMSNorms, every attention block 1 attention (on the
-    # tensor-core kernel in prefill), and every rec block 1 scan in
-    # prefill and none in decode (one rg_lru_step)
+    # tensor-core kernel in prefill, the decode kernel in decode), and
+    # every rec block 1 scan in prefill and none in decode (one
+    # rg_lru_step)
     waves = runs["cuda"][0].waves
     passes = waves * (1 + SERVE_NEW)
     want = {"rmsnorm": passes * (2 * cfg.n_layers + 1),
             "flash_attention": passes * kern.n_blocks["attn"],
             "flash_attention_tc": waves * kern.n_blocks["attn"],
+            "flash_attention_decode":
+                (passes - waves) * kern.n_blocks["attn"],
             "lru_scan": waves * kern.n_blocks["rec"]}
     if launches != want:
         raise AssertionError(f"hybrid_serve launches {launches} != {want} "
@@ -1701,12 +1772,14 @@ def main() -> int:
                 "ok": True}
                for name, (replaces, source) in sources.items()]
     # attention's row times the tensor-core kernel (yi-9b prefill); its
-    # launches count both kernels, the tensor-core ones beside them
+    # launches count every route, the tensor-core and decode ones beside
     attn = next(k for k in kernels if k["name"] == "flash_attention")
     attn["kernel_route"] = kernel_results["flash_attention"]["kernel_route"]
-    attn["launches_tc_by_path"] = {
-        path: counts["flash_attention_tc"] for path, counts in by_path.items()
-        if counts.get("flash_attention_tc")}
+    for route in ("tc", "decode"):
+        attn[f"launches_{route}_by_path"] = {
+            path: counts[f"flash_attention_{route}"]
+            for path, counts in by_path.items()
+            if counts.get(f"flash_attention_{route}")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

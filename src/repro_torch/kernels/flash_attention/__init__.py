@@ -6,10 +6,13 @@ Port of ``repro/kernels/flash_attention`` (Pallas) to CUDA C++ for
 the launch count) and ``ref.py`` (the plain PyTorch version).
 """
 
-from .ops import (LAUNCHES, flash_attention, flash_attention_kernel_layout,
-                  reset_launch_counts, right_aligned_positions)
-from .ref import attention_mask, attention_ref, mask_probe
+from .ops import (LAUNCHES, decode_splits, flash_attention,
+                  flash_attention_kernel_layout, reset_launch_counts,
+                  right_aligned_positions)
+from .ref import (attention_decode_split_ref, attention_mask, attention_ref,
+                  mask_probe, split_range)
 
-__all__ = ["LAUNCHES", "attention_mask", "attention_ref", "flash_attention",
+__all__ = ["LAUNCHES", "attention_decode_split_ref", "attention_mask",
+           "attention_ref", "decode_splits", "flash_attention",
            "flash_attention_kernel_layout", "mask_probe",
-           "reset_launch_counts", "right_aligned_positions"]
+           "reset_launch_counts", "right_aligned_positions", "split_range"]

@@ -12,13 +12,16 @@ same call.
 
 For tensors on the CPU the wrappers return the plain PyTorch version.
 For CUDA tensors they launch a kernel or raise; there is no fallback.
-Two kernels serve a CUDA call, chosen by :func:`_route` from the dtype
-and Sq alone: the tensor-core kernel (``"tc"``) for bfloat16 with more
-than one query position (prefill, window waves), the CUDA-core kernel
-(``"simt"``) for float32 and for bfloat16 decode (Sq = 1).
-``LAUNCHES["flash_attention"]`` counts the launches of both,
-``LAUNCHES["flash_attention_tc"]`` those of the tensor-core kernel; one
-is added where a kernel is launched, and nowhere else.
+Three routes serve a CUDA call, chosen by :func:`_route` from the dtype
+and Sq alone: the split-KV decode kernel (``"decode"``) for every call
+with one query position, in bfloat16 and float32; the tensor-core kernel
+(``"tc"``) for bfloat16 with more than one (prefill, window waves); the
+CUDA-core kernel (``"simt"``) for float32 with more than one.
+``LAUNCHES["flash_attention"]`` counts the calls of every route,
+``LAUNCHES["flash_attention_tc"]`` and
+``LAUNCHES["flash_attention_decode"]`` those of their routes; one is
+added where a kernel is launched, and nowhere else (the decode route's
+two passes, split and combine, are one launch).
 """
 
 from __future__ import annotations
@@ -33,28 +36,55 @@ import torch
 from .._build import CudaLibrary
 from .ref import attention_ref
 
-LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0,
+            "flash_attention_decode": 0}
 HEAD_DIMS = (16, 32, 64, 128, 256)
+# the decode route's split count: enough (batch, kv head, split) blocks for
+# two on each of the H100's 132 SMs, and no more splits than the kernel's
+# 32-key tiles
+DECODE_TARGET_BLOCKS = 2 * 132
+DECODE_TILE_KEYS = 32
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_int,
-             ctypes.c_void_p]
+# q, k, v, out, q_pos, kv_pos, dims, scale, dtype code, then (decode
+# only) the workspace and the split count, then the stream
+_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+         ctypes.c_float, ctypes.c_int]
 # the C entry point of each route
 ENTRY_POINTS = {"simt": "flash_attention_forward",
-                "tc": "flash_attention_forward_tc"}
+                "tc": "flash_attention_forward_tc",
+                "decode": "flash_attention_forward_decode"}
 LIBRARY = CudaLibrary(
     "flash_attention",
     Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
-    {entry: _ARGTYPES for entry in ENTRY_POINTS.values()})
+    {ENTRY_POINTS["simt"]: _ARGS + [ctypes.c_void_p],
+     ENTRY_POINTS["tc"]: _ARGS + [ctypes.c_void_p],
+     ENTRY_POINTS["decode"]: _ARGS + [ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_void_p]})
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _route(dtype: torch.dtype, sq: int) -> str:
-    """The kernel of a CUDA call: ``"tc"`` (tensor cores) for bfloat16
-    with Sq > 1, ``"simt"`` (CUDA cores, fp32) otherwise."""
-    return "tc" if dtype == torch.bfloat16 and sq > 1 else "simt"
+    """The kernel of a CUDA call: ``"decode"`` (split KV, CUDA cores) for
+    Sq = 1 in either dtype, ``"tc"`` (tensor cores) for bfloat16 with
+    Sq > 1, ``"simt"`` (CUDA cores, fp32) for float32 with Sq > 1."""
+    if sq == 1:
+        return "decode"
+    return "tc" if dtype == torch.bfloat16 else "simt"
+
+
+def decode_splits(batch: int, kv_heads: int, skv: int) -> int:
+    """Splits of the cache on the decode route, split s holding the
+    ceil(Skv / splits) slots of :func:`~.ref.split_range`: enough that no
+    split spans more than t of the kernel's 32-key tiles, t the most (at
+    least 1) that still gives DECODE_TARGET_BLOCKS (batch, kv head,
+    split) blocks.  So the blocks reach the target wherever the cache has
+    tiles enough, and there are never more splits than tiles."""
+    want = -(-DECODE_TARGET_BLOCKS // (batch * kv_heads))
+    tiles = -(-skv // DECODE_TILE_KEYS)
+    per_split = max(1, tiles // want) * DECODE_TILE_KEYS
+    return -(-skv // per_split)
 
 
 def reset_launch_counts() -> None:
@@ -132,15 +162,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out.stride(0), out.stride(1), out.stride(3),
         int(causal), 0 if window is None else int(window))
     route = _route(q.dtype, Sq)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q_pos.data_ptr(), kv_pos.data_ptr(), dims, 1.0 / math.sqrt(Dh),
+            _DTYPE_CODES[q.dtype]]
     with torch.cuda.device(q.device):
-        LIBRARY.call("flash_attention", ENTRY_POINTS[route],
-                     q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
-                     dims, 1.0 / math.sqrt(Dh), _DTYPE_CODES[q.dtype],
+        if route == "decode":
+            # each split's (m, l, o) of each query head, merged by the
+            # kernel's second pass
+            splits = decode_splits(B, K, k.shape[1])
+            ws = torch.empty(B * K * G * splits * (Dh + 2),
+                             dtype=torch.float32, device=q.device)
+            args += [ws.data_ptr(), splits]
+        LIBRARY.call("flash_attention", ENTRY_POINTS[route], *args,
                      torch.cuda.current_stream().cuda_stream)
     LAUNCHES["flash_attention"] += 1
-    if route == "tc":
-        LAUNCHES["flash_attention_tc"] += 1
+    if route != "simt":
+        LAUNCHES[f"flash_attention_{route}"] += 1
     return out
 
 

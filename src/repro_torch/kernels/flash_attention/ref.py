@@ -15,6 +15,11 @@ across the batch and a ring cache's empty slots marked by ``kv_pos < 0``
 
 Layout (the model's): q (B, Sq, K, G, Dh), query head ``k * G + g`` reads
 kv head ``k``; k and v (B, Skv, K, Dh), any strides.
+
+``attention_decode_split_ref`` is the plain twin of the split-KV decode
+kernel's two passes (each split's running max, denominator and output,
+then their merge in split order), which the CPU tests hold against
+``attention_ref``; nothing on the serve path calls it.
 """
 
 from __future__ import annotations
@@ -53,6 +58,63 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", w.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+def split_range(skv: int, splits: int, s: int) -> "tuple[int, int]":
+    """Slots [start, end) of split ``s`` of ``splits`` over Skv slots:
+    ceil(Skv / splits) each, the last ones shorter or empty."""
+    chunk = -(-skv // splits)
+    start = min(skv, s * chunk)
+    return start, min(skv, start + chunk)
+
+
+def attention_decode_split_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, q_pos: torch.Tensor,
+                               kv_pos: torch.Tensor, splits: int, *,
+                               causal: bool = True,
+                               window: Optional[int] = None) -> torch.Tensor:
+    """Decode (Sq = 1) as the split-KV kernel computes it, in fp32.
+
+    Per split of :func:`split_range`: over the keys the query attends
+    (only those are read, so an empty slot's bits never enter), each row's
+    max score m, denominator l = sum exp(s - m) and output o = sum
+    exp(s - m) v; a split that attends nothing has m = -inf, l = 0, o = 0.
+    Then in split order: M = max m, out = sum e^(m - M) o / sum e^(m - M) l,
+    0 for a row that attends no key.  Returns (B, 1, K, G, Dh) in q's
+    dtype.
+    """
+    B, Sq, K, G, Dh = q.shape
+    if Sq != 1:
+        raise ValueError(f"decode takes one query position, got Sq = {Sq}")
+    skv = k.shape[1]
+    scale = 1.0 / math.sqrt(Dh)
+    attend = attention_mask(q_pos, kv_pos, causal, window)[0]
+    qf = q[:, 0].float()
+    dev = q.device
+    m = torch.full((splits, B, K, G), -math.inf, device=dev)
+    l = torch.zeros(splits, B, K, G, device=dev)
+    o = torch.zeros(splits, B, K, G, Dh, device=dev)
+    for s in range(splits):
+        start, end = split_range(skv, splits, s)
+        keys = start + torch.nonzero(attend[start:end]).flatten().to(dev)
+        if keys.numel() == 0:
+            continue
+        sc = torch.einsum("bkgd,bnkd->bkgn", qf, k[:, keys].float()) * scale
+        m[s] = sc.amax(dim=-1)
+        p = torch.exp(sc - m[s][..., None])
+        l[s] = p.sum(dim=-1)
+        o[s] = torch.einsum("bkgn,bnkd->bkgd", p, v[:, keys].float())
+    top = m.amax(dim=0)
+    num = torch.zeros(B, K, G, Dh, device=dev)
+    den = torch.zeros(B, K, G, device=dev)
+    for s in range(splits):
+        w = torch.where(m[s] == -math.inf, 0.0, torch.exp(m[s] - top))
+        num += w[..., None] * o[s]
+        den += w * l[s]
+    some = den > 0
+    out = torch.where(some[..., None],
+                      num / torch.where(some, den, 1.0)[..., None], 0.0)
+    return out[:, None].to(q.dtype)
 
 
 def mask_probe(B: int, K: int, G: int, Dh: int, q_pos: torch.Tensor,

@@ -1,8 +1,9 @@
 """The attention wrapper's route and the mask probe's oracle, on the CPU.
 
-A CUDA call takes one of two kernels, chosen by ``ops._route`` from the
-dtype and Sq alone: the tensor-core kernel for bfloat16 with Sq > 1, the
-CUDA-core kernel otherwise.  The kernels run only on a GPU
+A CUDA call takes one of three kernels, chosen by ``ops._route`` from the
+dtype and Sq alone: the split-KV decode kernel for Sq = 1 in either
+dtype, the tensor-core kernel for bfloat16 with Sq > 1, the CUDA-core
+kernel for float32 with Sq > 1.  The kernels run only on a GPU
 (``tests/test_torch_gpu.py``); here the route's table is held, and
 ``mask_probe``'s float64 answer, which the GPU tests and ``chip_smoke.py``
 hold the tensor-core kernel to, is held against the port's
@@ -33,8 +34,8 @@ PROBE_REL_TOL = 2.0 ** -8
 
 @pytest.mark.parametrize("dtype,sq,route", [
     (torch.bfloat16, 2, "tc"), (torch.bfloat16, 1024, "tc"),
-    (torch.bfloat16, 4160, "tc"), (torch.bfloat16, 1, "simt"),
-    (torch.float32, 1, "simt"), (torch.float32, 2, "simt"),
+    (torch.bfloat16, 4160, "tc"), (torch.bfloat16, 1, "decode"),
+    (torch.float32, 1, "decode"), (torch.float32, 2, "simt"),
     (torch.float32, 1024, "simt")])
 def test_route_table(dtype, sq, route):
     assert _route(dtype, sq) == route
@@ -155,12 +156,14 @@ def test_cpu_bf16_prefill_launches_nothing():
     reset_launch_counts()
     out = flash_attention(q, k, k, pos, pos)
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
-    assert LAUNCHES == {"flash_attention": 0, "flash_attention_tc": 0}
+    assert LAUNCHES == {"flash_attention": 0, "flash_attention_tc": 0,
+                        "flash_attention_decode": 0}
 
 
 @pytest.mark.parametrize("dtype,sq", [(torch.bfloat16, 4),
                                       (torch.bfloat16, 1),
-                                      (torch.float32, 4)])
+                                      (torch.float32, 4),
+                                      (torch.float32, 1)])
 def test_wrapper_on_meta_raises_on_either_route(dtype, sq):
     q = torch.zeros(1, sq, 1, 2, 16, dtype=dtype, device="meta")
     k = torch.zeros(1, 6, 1, 16, dtype=dtype, device="meta")

@@ -1,7 +1,8 @@
 """The port's package contract.
 
-* No module under ``src/repro_torch/``, and not ``chip_smoke.py``, imports
-  ``jax`` or anything of the JAX package ``repro`` (an AST scan).
+* No module under ``src/repro_torch/``, not ``chip_smoke.py`` and no script
+  under ``tools/`` imports ``jax`` or anything of the JAX package ``repro``
+  (an AST scan).
 * With ``jax`` and ``repro`` blocked, every module imports and the CPU
   slices run: the sim CLI, the serve CLI (yi-9b and recurrentgemma-2b)
   and a yi-9b and a mixtral-8x22b smoke forward pass (a subprocess).
@@ -52,6 +53,9 @@ PKG = os.path.join(ROOT, "src", "repro_torch")
 
 def port_files():
     out = [os.path.join(ROOT, "chip_smoke.py")]
+    tools = os.path.join(ROOT, "tools")
+    out += [os.path.join(tools, f) for f in sorted(os.listdir(tools))
+            if f.endswith(".py")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return out

@@ -16,7 +16,9 @@ the attention kernel keeps its softmax weights in fp32 where the plain
 version rounds them to v's dtype), two kernel runs bitwise equal; the
 tensor-core attention kernel (bfloat16, Sq > 1) also gives
 ``mask_probe``'s exact answer within 2^-8 of each value (one bf16
-rounding), and reads empty ring slots holding NaN as zeros.
+rounding), and reads empty ring slots holding NaN as zeros; so does the
+split-KV decode kernel (Sq = 1, both dtypes), whose launches
+``LAUNCHES["flash_attention_decode"]`` counts.
 Grouped matmuls: float32 at 2e-5; bfloat16 per output row within 2e-2 of
 the row's max |out| (the kernel and the plain version both sum bf16
 products in fp32, in another order, and round once), rows the ragged
@@ -248,9 +250,11 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, name):
     check_twice(fa.flash_attention, fa.attention_ref, q, k, v, q_pos, kv_pos,
                 causal=True, window=window)
     assert fa.LAUNCHES["flash_attention"] == 2
-    # the tensor-core kernel serves bf16 with Sq > 1 and nothing else
+    # the tensor-core kernel serves bf16 with Sq > 1 and nothing else, the
+    # decode kernel every call with Sq = 1
     tc = dtype == torch.bfloat16 and Sq > 1
     assert fa.LAUNCHES["flash_attention_tc"] == (2 if tc else 0)
+    assert fa.LAUNCHES["flash_attention_decode"] == (2 if Sq == 1 else 0)
 
 
 def test_flash_attention_kernel_layout_bidirectional(cuda):
@@ -276,7 +280,8 @@ def test_flash_attention_kernel_layout_bidirectional_bf16(cuda):
     got = fa.flash_attention_kernel_layout(q, k, v, causal=False)
     cpu = fa.flash_attention_kernel_layout(q.cpu(), k.cpu(), v.cpu(),
                                            causal=False)
-    assert fa.LAUNCHES == {"flash_attention": 1, "flash_attention_tc": 1}
+    assert fa.LAUNCHES == {"flash_attention": 1, "flash_attention_tc": 1,
+                           "flash_attention_decode": 0}
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                cpu.float().numpy(), atol=5e-2, rtol=5e-2)
 
@@ -350,6 +355,169 @@ def test_flash_attention_mask_probe(cuda, name):
     gap = (got.double() - want[None, :, None, None, :]).abs()
     assert bool((gap <= 2.0 ** -8 * want[None, :, None, None, :]).all()), \
         float(gap.max())
+
+
+# the split-KV decode kernel: B, K, G, Dh, cache slots, positions written,
+# window; the query sits at the last position written
+DECODE_CASES = {
+    "one-slot": (2, 2, 4, 64, 1, 1, None),
+    "shorter-than-a-split": (3, 2, 6, 128, 20, 20, None),
+    "ring-empty-g8": (4, 4, 8, 128, 1057, 1040, None),
+    "g1-wrapped-window": (2, 4, 1, 32, 100, 250, 40),
+    "g20-ring-empty": (2, 1, 20, 64, 300, 170, None),
+    "g6-one-split-per-key": (1, 2, 6, 16, 33, 33, None),
+    # recurrentgemma-2b's window decode: one KV head of 10 queries at head
+    # dim 256 over its wrapped 2,048-slot ring, one block per split
+    "recurrentgemma-window": (1, 1, 10, 256, 2048, 2312, 2048),
+    # mixtral-8x22b's: 8 KV heads of 6 over its wrapped 4,096-slot ring
+    "mixtral-window": (1, 8, 6, 128, 4096, 4168, 4096),
+}
+
+
+def decode_inputs(cuda, name, dtype, dh=None):
+    B, K, G, Dh, cap, written, window = DECODE_CASES[name]
+    Dh = dh or Dh
+    gen = torch.Generator(device=cuda).manual_seed(len(name) + Dh)
+    q = torch.randn(B, 1, K, G, Dh, device=cuda, generator=gen).to(dtype)
+    k, v = (torch.randn(B, cap, K, Dh, device=cuda, generator=gen).to(dtype)
+            for _ in range(2))
+    q_pos = torch.tensor([written - 1], dtype=torch.int32, device=cuda)
+    return q, k, v, q_pos, ring_positions(cap, written, cuda), window
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(DECODE_CASES))
+def test_flash_attention_decode_kernel_matches_plain(cuda, dtype, name):
+    """Against the plain version, two calls the same bits, one
+    ``flash_attention_decode`` launch a call."""
+    q, k, v, q_pos, kv_pos, window = decode_inputs(cuda, name, dtype)
+    fa.reset_launch_counts()
+    check_twice(fa.flash_attention, fa.attention_ref, q, k, v, q_pos, kv_pos,
+                causal=True, window=window)
+    assert fa.LAUNCHES == {"flash_attention": 2, "flash_attention_tc": 0,
+                           "flash_attention_decode": 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", list(fa.ops.HEAD_DIMS))
+def test_flash_attention_decode_every_head_dim_with_nan_slots(cuda, dtype,
+                                                              dh):
+    """Decode over a ring of k and v slices of one stacked buffer (read in
+    place), its empty slots holding NaN: the kernel's copies zero-fill
+    them, which is what the plain version gives on zeros."""
+    B, K, G, cap, written = 2, 2, 6, 200, 130
+    gen = torch.Generator(device=cuda).manual_seed(dh)
+    q = torch.randn(B, 1, K, G, dh, device=cuda, generator=gen).to(dtype)
+    buf = torch.randn(2, B, cap, K, dh, device=cuda, generator=gen).to(dtype)
+    zeros = buf.clone()
+    buf[:, :, written:] = float("nan")
+    zeros[:, :, written:] = 0
+    q_pos = torch.tensor([written - 1], dtype=torch.int32, device=cuda)
+    kv_pos = ring_positions(cap, written, cuda)
+    fa.reset_launch_counts()
+    got = fa.flash_attention(q, buf[0], buf[1], q_pos, kv_pos, window=100)
+    again = fa.flash_attention(q, buf[0], buf[1], q_pos, kv_pos, window=100)
+    want = fa.attention_ref(q, zeros[0], zeros[1], q_pos, kv_pos, window=100)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got).all())
+    tol = TOL[dtype]
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=tol,
+                               rtol=tol)
+    assert fa.LAUNCHES["flash_attention_decode"] == 2
+
+
+@pytest.mark.parametrize("name", sorted(DECODE_CASES))
+def test_flash_attention_decode_mask_probe(cuda, name):
+    """``mask_probe``'s exact answer through the decode kernel in bf16,
+    within 2^-8 of each value, empty ring slots holding NaN."""
+    B, K, G, Dh, cap, written, window = DECODE_CASES[name]
+    q_pos = torch.tensor([written - 1], dtype=torch.int32, device=cuda)
+    kv_pos = ring_positions(cap, written, cuda)
+    q, k, v, want = fa.mask_probe(B, K, G, Dh, q_pos, kv_pos, causal=True,
+                                  window=window)
+    empty = kv_pos < 0
+    k[:, empty] = float("nan")
+    v[:, empty] = float("nan")
+    fa.reset_launch_counts()
+    got = fa.flash_attention(q, k, v, q_pos, kv_pos, causal=True,
+                             window=window)
+    assert fa.LAUNCHES["flash_attention_decode"] == 1
+    gap = (got.double() - want[None, :, None, None, :]).abs()
+    assert bool((gap <= 2.0 ** -8 * want[None, :, None, None, :]).all()), \
+        float(gap.max())
+
+
+def test_flash_attention_decode_row_attending_nothing_is_zero(cuda):
+    """Every slot lies after the query's position: zeros, as the twin
+    ``attention_decode_split_ref`` gives (the plain version's softmax
+    over all -1e30 scores gives the mean of v instead)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn(2, 1, 2, 3, 64, device=cuda, generator=gen)
+    k, v = (torch.randn(2, 90, 2, 64, device=cuda, generator=gen)
+            for _ in range(2))
+    q_pos = torch.tensor([4], dtype=torch.int32, device=cuda)
+    kv_pos = torch.arange(10, 100, dtype=torch.int32, device=cuda)
+    got = fa.flash_attention(q, k, v, q_pos, kv_pos)
+    twin = fa.attention_decode_split_ref(q, k, v, q_pos, kv_pos, 2)
+    assert torch.equal(got, torch.zeros_like(q))
+    assert torch.equal(twin, torch.zeros_like(q))
+
+
+# each C entry point and a call it must refuse, or (None) take: entry,
+# dtype, Sq, then the decode entry's split count
+ENTRY_CASES = {
+    "simt-takes-float32-prefill": ("simt", torch.float32, 2, None, None),
+    "simt-refuses-bf16": ("simt", torch.bfloat16, 2, None,
+                          "invalid argument"),
+    "simt-refuses-decode": ("simt", torch.float32, 1, None,
+                            "invalid argument"),
+    # the combine's shared memory: 2 * 6,144 + 1 floats pass 48 KB
+    "decode-refuses-6144-splits": ("decode", torch.bfloat16, 1, 6144,
+                                   "invalid argument"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_CASES))
+def test_flash_attention_entry_points_refuse_other_routes(cuda, name):
+    """A C entry point called directly, past the wrapper's route: the
+    CUDA-core one takes float32 with Sq > 1 alone, the decode one at most
+    kMaxDecodeSplits splits; a refused call raises and launches
+    nothing."""
+    import ctypes
+    entry, dtype, sq, splits, refused = ENTRY_CASES[name]
+    B, K, G, Dh, skv = 1, 1, 2, 64, 6144
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(B, sq, K, G, Dh, device=cuda, generator=gen).to(dtype)
+    k, v = (torch.randn(B, skv, K, Dh, device=cuda, generator=gen).to(dtype)
+            for _ in range(2))
+    q_pos = torch.arange(skv - sq, skv, dtype=torch.int32, device=cuda)
+    kv_pos = torch.arange(skv, dtype=torch.int32, device=cuda)
+    out = torch.zeros_like(q)
+    dims = (ctypes.c_int64 * 20)(
+        B, sq, skv, K, G, Dh, q.stride(0), q.stride(1), q.stride(3),
+        k.stride(0), k.stride(1), k.stride(2), v.stride(0), v.stride(1),
+        v.stride(2), out.stride(0), out.stride(1), out.stride(3), 1, 0)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q_pos.data_ptr(), kv_pos.data_ptr(), dims, Dh ** -0.5,
+            fa.ops._DTYPE_CODES[dtype]]
+    if splits is not None:
+        ws = torch.empty(B * K * G * splits * (Dh + 2), device=cuda)
+        args += [ws.data_ptr(), splits]
+    call = lambda: fa.ops.LIBRARY.call(  # noqa: E731
+        "flash_attention", fa.ops.ENTRY_POINTS[entry], *args,
+        torch.cuda.current_stream().cuda_stream)
+    if refused is None:
+        call()
+        want = fa.attention_ref(q, k, v, q_pos, kv_pos)
+        np.testing.assert_allclose(out.cpu().numpy(), want.cpu().numpy(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+        return
+    with pytest.raises(RuntimeError, match=refused):
+        call()
+    torch.cuda.synchronize()
+    assert not bool(out.any())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
