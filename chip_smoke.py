@@ -42,7 +42,12 @@ nonzero:
    profiler and from 20 calls in one CUDA graph, beside SDPA's.  Then the
    grouped matmul at mixtral-8x22b's expert shapes (prefill's 1,280-row
    capacity buffers, decode's 2 rows, the window wave's 1,300), float32
-   at 2e-5 and bfloat16 per output row within 2e-2 of its max.
+   at 2e-5 and bfloat16 per output row within 2e-2 of its max.  It has
+   three routes too: bf16 with more than 64 rows a tile takes the
+   TMA-fed ``wgmma`` kernel, bf16 with at most 64 (decode) the
+   ``mma.sync`` one, float32 the CUDA-core one (``f32``); its device
+   times come from the profiler and from CUDA graphs as attention's,
+   beside ``torch.bmm``'s, with the SM clock around each timing.
 7. ``serve``: yi-9b at full width and depth (random bf16 weights drawn
    on the card from a seed) serves 8 requests of 1,024 prompt tokens and
    32 new tokens each in waves of 4 through the kernels, with the launch
@@ -58,15 +63,18 @@ nonzero:
    freed) serves the same traffic through the kernels, with the launch
    counts read around that run alone (25 RMSNorm, 12 attention and 36
    grouped-matmul launches per forward pass; 24 tensor-core attention
-   launches in the two prefills, 768 decode ones), then on the plain
-   path.
+   launches in the two prefills, 768 decode ones; the 72 grouped-matmul
+   launches of the two prefills on the ``wgmma`` route, the 2,304 of
+   decode on ``mma``), then on the plain path.
    The ragged grouped matmul is held to its plain version on the routed
    rows of the first layer of a prefill wave, as routed and with groups
-   padded to 128 rows.  Teacher-forced logits must agree within 5e-2 of
-   max |logit| with the plain path's expert choice replayed on the kernel
-   path (the router is discontinuous: a near-tie flipped by bf16 rounding
-   moves a token's FFN output by O(1)); the free-routing gap and the count
-   of routings that differ are printed beside it.  A 4,160-token request
+   padded to 128 rows (the ``wgmma`` route; timed as the grouped one,
+   beside ``torch._grouped_mm``).  Teacher-forced logits must agree
+   within 5e-2 of max |logit| with the plain path's expert choice
+   replayed on the kernel path (the router is discontinuous: a near-tie
+   flipped by bf16 rounding moves a token's FFN output by O(1)); the
+   free-routing gap and the count of routings that differ are printed
+   beside it.  A 4,160-token request
    runs through mixtral's 4,096-token window, a decode wave is profiled,
    and a float32 2-layer mixtral must agree at 2e-5 with no routing
    flipped.
@@ -194,6 +202,15 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz() -> int:
+    """The card's SM clock now, from ``nvidia-smi`` (MHz)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return int(out.stdout.split()[0])
 
 
 def time_ms(fn, reps: int = 20, samples: int = 7) -> float:
@@ -701,10 +718,48 @@ def expert_inputs(gen, E, M, K, N, dtype):
     return x, w.mul_(1.0 / math.sqrt(K)).to(dtype)
 
 
+def device_time_kept(fn, kernel_name: str, reps: int,
+                     sessions: int = 3) -> dict:
+    """``device_time``, profiled again (up to ``sessions`` sessions) while
+    the profiler keeps no record of the kernel: late in this process a
+    short session can lose all of them (``moe_serve``'s ragged rows kept
+    0 of 3 on an NVIDIA H100 80GB HBM3 at 700 W)."""
+    for _ in range(sessions):
+        got = device_time(fn, kernel_name, reps=reps)
+        if got["recorded"]:
+            break
+    return got
+
+
+def gmm_times(call, lib_call, heavy: bool, reps: int = 0) -> dict:
+    """A grouped matmul's device times beside its library call's: the
+    profiler's (``device_time_kept`` over ``reps`` calls, 3 when heavy
+    and 20 else by default; every route's kernel name starts with
+    ``gmm_``) and 20 (5 when heavy) calls in one CUDA graph
+    (``graph_ms``), with the SM clock before and after the kernel's.
+    ``lib_call`` None: no library times."""
+    reps, calls = (reps or 3, 5) if heavy else (reps or 20, 20)
+    clock0 = sm_clock_mhz()
+    kern = device_time_kept(call, "gmm_", reps)
+    kern_graph = graph_ms(call, calls)
+    clock1 = sm_clock_mhz()
+    lib = device_time_kept(lib_call, "", reps) if lib_call else {"ms": None}
+    return {"kernel_device_ms": kern["ms"],
+            "kernel_device_runs_recorded": kern["recorded"],
+            "kernel_device_runs_expected": reps,
+            "kernel_graph_ms": kern_graph,
+            "library_device_ms": lib["ms"],
+            "library_graph_ms": graph_ms(lib_call, calls) if lib_call
+            else None,
+            "sm_clock_mhz_before_after": [clock0, clock1]}
+
+
 def check_grouped_matmul() -> dict:
     """The grouped matmul at mixtral-8x22b's expert shapes: float32 at
-    2e-5, then bf16 (timed) per output row."""
+    2e-5, then bf16 (timed) per output row, on its route (``wgmma`` for
+    more than 64 rows, ``mma`` for decode's 2)."""
     from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels.grouped_matmul.ops import _route, call_route
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     E, d, f = 8, 6144, 16384
@@ -740,22 +795,28 @@ def check_grouped_matmul() -> dict:
 
         heavy = M > 2
         n_bytes = 2 * (x.numel() + w.numel() + E * M * N)
-        row = {"max_abs_err": err,
-               "ms": time_ms(call, reps=3 if heavy else 20),
+        clock0 = sm_clock_mhz()
+        kern_ms = time_ms(call, reps=3 if heavy else 20)
+        clock1 = sm_clock_mhz()
+        row = {"max_abs_err": err, "ms": kern_ms,
                "plain_ms": time_ms(lambda: gm.grouped_matmul_ref(x, w),
                                    reps=2 if heavy else 5, samples=3),
                "library_ms": time_ms(lib_call, reps=3 if heavy else 20),
-               **gmm_cost(2 * E * M * K * N, n_bytes, x.dtype)}
+               **gmm_cost(2 * E * M * K * N, n_bytes, x.dtype),
+               "kernel_route": call_route(x)}
         results.setdefault("grouped_matmul", row)
+        times = gmm_times(call, lib_call, heavy)
         emit("model_kernel", kernel="grouped_matmul", case=case,
              x=list(x.shape), w=list(w.shape), dtype="bfloat16", **row,
              max_row_rel_err=row_err, row_tolerance=GMM_ROW_TOL_BF16,
+             float32_route=_route(torch.float32, M),
              float32_max_abs_err=err32, float32_tolerance=2e-5,
-             library="torch.bmm (bf16)",
-             kernel_device_ms=device_time(call, "gmm_bf16_kernel",
-                                          reps=3)["ms"],
-             library_device_ms=device_time(lib_call, "", reps=3)["ms"],
+             library="torch.bmm (bf16)", **times,
+             sm_clock_mhz_around_ms=[clock0, clock1],
              achieved_TFLOPs=row["flops"] / (row["ms"] * 1e-3) / 1e12,
+             achieved_device_TFLOPs=(
+                 row["flops"] / (times["kernel_device_ms"] * 1e-3) / 1e12
+                 if times["kernel_device_ms"] else None),
              achieved_GBps=n_bytes / (row["ms"] * 1e-3) / 1e9, ok=True)
         del x, w
         torch.cuda.empty_cache()
@@ -1342,6 +1403,7 @@ def check_ragged(params, x_flat, top_i) -> dict:
     to a multiple of 128 rows.  Every row is compared: the masked rows
     must be 0, the others within the bf16 row rule."""
     from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels.grouped_matmul.ops import call_route
 
     w = params["layers"][0]["moe"]["experts"]["w_gate"]
     E, K, N = w.shape
@@ -1399,14 +1461,19 @@ def check_ragged(params, x_flat, top_i) -> dict:
                  "plain_ms": time_ms(
                      lambda: gm.ragged_grouped_matmul_masked_ref(xs, w, gs),
                      reps=2, samples=3),
-                 **gmm_cost(2 * kept * K * N, n_bytes, xs.dtype)}
+                 **gmm_cost(2 * kept * K * N, n_bytes, xs.dtype),
+                 "kernel_route": call_route(xs, 128)}
         # the yardstick last: the kernel's own numbers do not wait on it
         try:
             timed["library_ms"] = time_ms(lib_call, reps=3)
             lib_note = "torch._grouped_mm(offs=cumsum(group_sizes))"
+            lib = lib_call
         except (AttributeError, RuntimeError) as e:
             timed["library_ms"] = None
             lib_note = f"torch._grouped_mm unavailable: {e}"
+            lib = None
+        # late in the process: a longer profiler session than phase 6's
+        times = gmm_times(call, lib, True, reps=10)
         row.setdefault("ragged_grouped_matmul", timed)
         emit("moe_serve", kernel="ragged_grouped_matmul", case=case,
              x=list(xs.shape), w=list(w.shape), block_m=128,
@@ -1414,8 +1481,11 @@ def check_ragged(params, x_flat, top_i) -> dict:
              rows_masked=xs.shape[0] - kept,
              rows_equal_to_exact_oracle=exact_rows, dtype="bfloat16",
              **timed, max_row_rel_err=row_err,
-             row_tolerance=GMM_ROW_TOL_BF16, library=lib_note,
+             row_tolerance=GMM_ROW_TOL_BF16, library=lib_note, **times,
              achieved_TFLOPs=timed["flops"] / (timed["ms"] * 1e-3) / 1e12,
+             achieved_device_TFLOPs=(
+                 timed["flops"] / (times["kernel_device_ms"] * 1e-3) / 1e12
+                 if times["kernel_device_ms"] else None),
              ok=True)
     return row
 
@@ -1460,7 +1530,8 @@ def phase_moe_serve(card: str) -> "tuple[dict, dict]":
     want = {"rmsnorm": passes * (2 * L + 1), "flash_attention": passes * L,
             "flash_attention_tc": waves * L,
             "flash_attention_decode": (passes - waves) * L,
-            "grouped_matmul": passes * 3 * L, "ragged_grouped_matmul": 0}
+            "grouped_matmul": passes * 3 * L, "ragged_grouped_matmul": 0,
+            "grouped_matmul_wgmma": waves * 3 * L}
     if launches != want:
         raise AssertionError(f"moe_serve launches {launches} != {want} "
                              f"({passes} forward passes)")
@@ -1780,6 +1851,17 @@ def main() -> int:
             path: counts[f"flash_attention_{route}"]
             for path, counts in by_path.items()
             if counts.get(f"flash_attention_{route}")}
+    # the grouped matmuls' rows time the wgmma route (mixtral prefill
+    # gate/up, the routed rows); their launches count every route, the
+    # wgmma ones (both variants) beside
+    for name in ("grouped_matmul", "ragged_grouped_matmul"):
+        row = next(k for k in kernels if k["name"] == name)
+        row["kernel_route"] = kernel_results[name]["kernel_route"]
+    gmm = next(k for k in kernels if k["name"] == "grouped_matmul")
+    gmm["launches_wgmma_by_path"] = {
+        path: counts["grouped_matmul_wgmma"]
+        for path, counts in by_path.items()
+        if counts.get("grouped_matmul_wgmma")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,18 @@ and ``megablocks_matmul`` are the reference's names for the two
 (``repro/kernels/grouped_matmul/ops.py``).
 
 For tensors on the CPU the wrappers return the plain PyTorch versions.
-For CUDA tensors they launch the kernel or raise; there is no fallback.
-The bfloat16 kernel takes K and N that are multiples of 8 and 16-byte
-aligned operands (every MoE width is); float32 takes any shape.
-``LAUNCHES`` counts kernel launches: one is added where a kernel is
+For CUDA tensors they launch a kernel or raise; there is no fallback.
+Three routes serve a CUDA call, chosen by :func:`_route` from the dtype
+and the rows of a tile (M, or ``min(block_m, T)`` for the ragged
+variant) alone, both variants alike: ``"wgmma"`` (TMA-fed ``wgmma``,
+warp-specialised) for bfloat16 with more than 64 rows, every prefill and
+window wave; ``"mma"`` (``mma.sync``) for bfloat16 with at most 64, every
+decode step; ``"f32"`` (CUDA cores) for float32.  The bfloat16 routes
+take K and N that are multiples of 8 and 16-byte aligned operands (every
+MoE width is); float32 takes any shape.  ``LAUNCHES`` counts kernel
+launches: ``"grouped_matmul"`` and ``"ragged_grouped_matmul"`` every
+call of their variant on any route, ``"grouped_matmul_wgmma"`` the calls
+of either variant on the ``wgmma`` route; one is added where a kernel is
 launched, and nowhere else.
 """
 
@@ -28,16 +36,51 @@ import torch
 from .._build import CudaLibrary
 from .ref import grouped_matmul_ref, ragged_grouped_matmul_masked_ref
 
-LAUNCHES = {"grouped_matmul": 0, "ragged_grouped_matmul": 0}
+LAUNCHES = {"grouped_matmul": 0, "ragged_grouped_matmul": 0,
+            "grouped_matmul_wgmma": 0}
+# the rows of a tile above which a bfloat16 call takes the wgmma route
+MMA_MAX_ROWS = 64
+# the entry point's code of each route
+ROUTE_CODES = {"f32": 0, "mma": 1, "wgmma": 2}
 
 LIBRARY = CudaLibrary(
     "grouped_matmul",
     Path(__file__).resolve().parent / "csrc" / "grouped_matmul.cu",
     {"grouped_matmul_forward": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_void_p]})
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int, ctypes.c_void_p],
+     "grouped_matmul_occupancy": [ctypes.c_int,
+                                  ctypes.POINTER(ctypes.c_int)]})
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _route(dtype: torch.dtype, tile_rows: int) -> str:
+    """The kernel of a CUDA call: ``"f32"`` for float32, ``"wgmma"`` for
+    bfloat16 with more than MMA_MAX_ROWS rows a tile, ``"mma"`` for
+    bfloat16 with at most that many."""
+    if dtype == torch.float32:
+        return "f32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"grouped matmul: no route for {dtype}")
+    return "wgmma" if tile_rows > MMA_MAX_ROWS else "mma"
+
+
+def call_route(x: torch.Tensor, block_m: "int | None" = None) -> str:
+    """The route of a CUDA call on ``x``: ``grouped_matmul``'s x
+    (E, M, K) has M rows a tile, ``ragged_grouped_matmul``'s x (T, K)
+    with ``block_m`` has ``min(block_m, T)``."""
+    rows = x.shape[1] if block_m is None else min(block_m, x.shape[0])
+    return _route(x.dtype, rows)
+
+
+def occupancy(route: str) -> int:
+    """Blocks of ``route``'s kernel that fit on one SM of the current
+    card, from CUDA's occupancy calculator."""
+    blocks = ctypes.c_int(0)
+    LIBRARY.call("grouped_matmul", "grouped_matmul_occupancy",
+                 ROUTE_CODES[route], ctypes.byref(blocks))
+    return blocks.value
 
 
 def reset_launch_counts() -> None:
@@ -51,14 +94,14 @@ def _check(name: str, x, w, x_dim: int) -> None:
         want = "(E, M, K)" if x_dim == 3 else "(T, K)"
         raise ValueError(f"{name}: x must be {want} and w (E, K, N), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
-    if x.dtype not in _DTYPE_CODES or w.dtype != x.dtype:
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
         raise TypeError(f"{name}: x and w must share one dtype, float32 or "
                         f"bfloat16, got {x.dtype} and {w.dtype}")
     if w.device != x.device:
         raise ValueError(f"{name}: x and w lie on different devices")
 
 
-def _launch(name: str, x, w, out, group_sizes, dims) -> None:
+def _launch(name: str, x, w, out, group_sizes, dims, route: str) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
@@ -74,9 +117,11 @@ def _launch(name: str, x, w, out, group_sizes, dims) -> None:
         LIBRARY.call(name, "grouped_matmul_forward", x.data_ptr(),
                      w.data_ptr(), out.data_ptr(),
                      None if group_sizes is None else group_sizes.data_ptr(),
-                     (ctypes.c_int64 * 6)(*dims), _DTYPE_CODES[x.dtype],
+                     (ctypes.c_int64 * 6)(*dims), ROUTE_CODES[route],
                      torch.cuda.current_stream().cuda_stream)
     LAUNCHES[name] += 1
+    if route == "wgmma":
+        LAUNCHES["grouped_matmul_wgmma"] += 1
 
 
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -89,7 +134,8 @@ def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((E, M, N), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    _launch("grouped_matmul", x, w, out, None, (0, E, M, K, N, 0))
+    _launch("grouped_matmul", x, w, out, None, (0, E, M, K, N, 0),
+            call_route(x))
     return out
 
 
@@ -120,7 +166,7 @@ def ragged_grouped_matmul(x: torch.Tensor, w: torch.Tensor,
         return out
     sizes = group_sizes.to(torch.int32).contiguous()
     _launch("ragged_grouped_matmul", x, w, out, sizes,
-            (1, E, T, K, N, min(block_m, T)))
+            (1, E, T, K, N, min(block_m, T)), call_route(x, block_m))
     return out
 
 

@@ -571,10 +571,25 @@ def grouped_inputs(gen, x_shape, w_shape, dtype, device):
 
 # E, M, K, N: decode rows, a single row, the prefill tile's edges, the
 # window wave's 1,300 rows, and an N that is not a multiple of 8 (float32
-# only: the bfloat16 kernel refuses it)
+# only: the bfloat16 kernel refuses it).  Then the wgmma route's edges
+# (bf16 with M > 64): K below its 64-deep k tile, N past a 256-wide tile
+# by one 8-wide column pair, one expert, M one row past its 128-row tile,
+# and a K of 16 k tiles that wraps its 4-stage ring four times with a
+# 40-wide K tail.
 GMM_CASES = {"decode-m2": (8, 2, 256, 384), "one-row": (2, 1, 64, 64),
              "tile-edges": (3, 300, 136, 200), "rows-1300": (2, 1300, 64, 128),
-             "small-m-tiles": (2, 33, 64, 72), "unaligned": (4, 50, 40, 30)}
+             "small-m-tiles": (2, 33, 64, 72), "unaligned": (4, 50, 40, 30),
+             "k-below-tile": (2, 200, 40, 256), "n-264": (2, 130, 64, 264),
+             "one-expert": (1, 256, 128, 512), "m-129": (3, 129, 96, 128),
+             "deep-k": (2, 192, 1000, 512)}
+
+
+def gmm_launches(dtype, tile_rows, grouped=0, ragged=0):
+    """``gm.LAUNCHES`` after ``grouped`` and ``ragged`` calls whose tiles
+    have ``tile_rows`` rows: the bfloat16 ones past 64 rows on wgmma."""
+    wgmma = dtype == torch.bfloat16 and tile_rows > 64
+    return {"grouped_matmul": grouped, "ragged_grouped_matmul": ragged,
+            "grouped_matmul_wgmma": (grouped + ragged) if wgmma else 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -587,13 +602,12 @@ def test_grouped_matmul_kernel_matches_plain(cuda, dtype, name):
     if dtype == torch.bfloat16 and N % 8:
         with pytest.raises(ValueError, match="multiples of 8"):
             gm.grouped_matmul(x, w)
-        assert gm.LAUNCHES == {"grouped_matmul": 0,
-                               "ragged_grouped_matmul": 0}
+        assert gm.LAUNCHES == gmm_launches(dtype, M)
         return
     got, again = gm.grouped_matmul(x, w), gm.grouped_matmul(x, w)
     want = gm.grouped_matmul_ref(x, w)
     torch.cuda.synchronize()
-    assert gm.LAUNCHES == {"grouped_matmul": 2, "ragged_grouped_matmul": 0}
+    assert gm.LAUNCHES == gmm_launches(dtype, M, grouped=2)
     assert torch.equal(got, again)
     assert got.dtype == dtype and got.shape == (E, M, N)
     if dtype == torch.float32:
@@ -615,18 +629,61 @@ def test_bf16_grouped_matmul_refuses_misaligned_operands(cuda):
     with pytest.raises(ValueError, match="16-byte aligned"):
         gm.ragged_grouped_matmul(x.reshape(E * M, K), w,
                                  torch.tensor([M, M], device=cuda))
-    assert gm.LAUNCHES == {"grouped_matmul": 0, "ragged_grouped_matmul": 0}
+    assert gm.LAUNCHES == {"grouped_matmul": 0, "ragged_grouped_matmul": 0,
+                           "grouped_matmul_wgmma": 0}
+
+
+# route code, K: an unknown route, and each bf16 route given a K that is
+# not a multiple of 8 (TMA's row strides and the 16-byte copies need it)
+GMM_ENTRY_CASES = {"unknown-route": (3, 64), "wgmma-k-12": (2, 12),
+                   "mma-k-12": (1, 12)}
+
+
+@pytest.mark.parametrize("name", sorted(GMM_ENTRY_CASES))
+def test_grouped_matmul_entry_point_refuses_bad_calls(cuda, name):
+    """The C entry point called directly, past the wrapper's checks: a
+    refused call raises, launches nothing and writes nothing."""
+    import ctypes
+    route, K = GMM_ENTRY_CASES[name]
+    E, M, N = 2, 130, 64
+    x = torch.ones(E, M, K, dtype=torch.bfloat16, device=cuda)
+    w = torch.ones(E, K, N, dtype=torch.bfloat16, device=cuda)
+    out = torch.zeros(E, M, N, dtype=torch.bfloat16, device=cuda)
+    dims = (ctypes.c_int64 * 6)(0, E, M, K, N, 0)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        gm.ops.LIBRARY.call("grouped_matmul", "grouped_matmul_forward",
+                            x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                            None, dims, route,
+                            torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert not bool(out.any())
+
+
+def test_grouped_matmul_occupancy(cuda):
+    """The wgmma kernel's 197,696 bytes of shared memory leave room for
+    one block on an SM; the other routes' kernels fit at least one."""
+    assert gm.ops.occupancy("wgmma") == 1
+    assert gm.ops.occupancy("mma") >= 1
+    assert gm.ops.occupancy("f32") >= 1
 
 
 # group sizes, ownership block rows, K, N: the reference's four cases
 # (tests/test_kernels.py), routed sizes that straddle 128-row blocks, and
-# 16-row blocks (the decode tile)
+# 16-row blocks (the decode tile).  Then the wgmma route's (bf16 with
+# block_m > 64): 96- and 192-row blocks, whose 128-row tiles reach into
+# the next ownership block (a store of those rows would overwrite it), the
+# 192 one with a K that wraps the stage ring; T not a multiple of 128; an
+# empty last group.
 RAGGED_CASES = {"even": ([64, 64, 64, 64], 32, 32, 16),
                 "empty-group": ([128, 0, 64, 64], 32, 32, 16),
                 "one-group": ([256, 0, 0, 0], 32, 32, 16),
                 "boundaries": ([32, 96, 64, 64], 32, 32, 16),
                 "routed": ([300, 17, 0, 211], 128, 64, 96),
-                "routed-16": ([45, 3, 80, 0, 22], 16, 72, 128)}
+                "routed-16": ([45, 3, 80, 0, 22], 16, 72, 128),
+                "block-96": ([100, 0, 150, 70], 96, 72, 264),
+                "block-192": ([300, 50, 0, 170], 192, 600, 128),
+                "t-tail": ([130, 77, 60], 128, 136, 256),
+                "empty-last": ([200, 56, 0], 128, 64, 256)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -642,7 +699,8 @@ def test_ragged_grouped_matmul_kernel_matches_plain(cuda, dtype, name):
     again = gm.ragged_grouped_matmul(x, w, gs, block_m)
     want = gm.ragged_grouped_matmul_masked_ref(x, w, gs, block_m)
     torch.cuda.synchronize()
-    assert gm.LAUNCHES == {"grouped_matmul": 0, "ragged_grouped_matmul": 2}
+    assert gm.LAUNCHES == gmm_launches(dtype, min(block_m, x.shape[0]),
+                                       ragged=2)
     assert torch.equal(got, again)
     _, inside = gm.block_owners(gs, x.shape[0], block_m)
     assert bool((got[~inside] == 0).all())
@@ -680,7 +738,9 @@ def test_moe_decoder_through_kernels_matches_plain(cuda, arch):
         got, caches = kern.decode_step(params, tok, caches)
         want, pcaches = plain.decode_step(params, tok, pcaches)
         assert float((got - want).abs().max()) <= 2e-5 * scale, step
-    assert gm.LAUNCHES["grouped_matmul"] == 5 * 3 * n_moe
+    assert gm.LAUNCHES == {"grouped_matmul": 5 * 3 * n_moe,
+                           "ragged_grouped_matmul": 0,
+                           "grouped_matmul_wgmma": 0}   # float32: no wgmma
 
 
 # B, S, W: tests/test_kernels.py's lru_scan sweep, and recurrentgemma-2b
