@@ -32,7 +32,12 @@ nonzero:
    ring cache with empty and wrapped slots, float32 and bfloat16), at
    the serve path's shapes (float32 at 2e-5; bfloat16, and for
    attention each output row within 2e-2 of its max), twice for bitwise
-   repeatability, with the same times and bounds as phase 3.  Attention
+   repeatability, with the same times and bounds as phase 3.  RMSNorm's
+   bf16 rows at the serve paths' shapes carry the plan the timed calls
+   took (``ops.call_plan``; ``register``: one pass, the row in
+   registers, at every model width) and that route's kernel's and
+   ``F.rms_norm``'s device ms from the profiler and from 20 calls in one
+   CUDA graph.  Attention
    has three routes: every decode call (Sq = 1, either dtype) takes the
    split-KV decode kernel (``decode``), bf16 with Sq > 1 the tensor-core
    one (``tc``), float32 with Sq > 1 the CUDA-core one (``simt``); the
@@ -861,15 +866,23 @@ def check_rmsnorm_path(phase: str, entries, gen) -> dict:
                "plain_ms": time_ms(lambda: rn.rmsnorm_ref(x, s, 1e-6)),
                "library_ms": time_ms(lib_call), **rmsnorm_cost(x, s)}
         results.setdefault("rmsnorm", row)
+        # the plan the timed calls took, and its kernel's name alone in
+        # the device time
+        route = rn.ops.call_plan(x, s)
+        kernel_name = ("rmsnorm_row_kernel" if route.route == "register"
+                       else "rmsnorm_kernel")
         emit(phase, kernel="rmsnorm", arch=arch,
              case="prefill" if rows > SERVE_BATCH else "decode",
-             shape=[rows, d], dtype="bfloat16", **row,
+             shape=[rows, d], dtype="bfloat16",
+             kernel_route=route._asdict(), **row,
              max_row_rel_err=row_err, row_tolerance=ATTN_ROW_TOL_BF16,
              float32_max_abs_err=errs[torch.float32],
              float32_tolerance=tol[torch.float32],
              library="torch.nn.functional.rms_norm",
-             kernel_device_ms=device_time(call, "rmsnorm_kernel")["ms"],
+             kernel_device_ms=device_time(call, kernel_name)["ms"],
              library_device_ms=device_time(lib_call, "")["ms"],
+             kernel_graph_ms=graph_ms(call),
+             library_graph_ms=graph_ms(lib_call),
              achieved_GBps=row["bytes"] / (row["ms"] * 1e-3) / 1e9, ok=True)
     return results
 

@@ -40,6 +40,41 @@ def find_nvcc() -> str:
                        "repro_torch are built with it at first use")
 
 
+class LaunchWord:
+    """Named unsigned fields packed into one integer, the first field in
+    the lowest bits, for a C entry point's arguments that stay the same
+    from call to call: ctypes converts every argument anew on each call,
+    and at decode that host time is most of a call's.  The entry point
+    decodes the same layout; ``pack`` raises where a value does not fit
+    its field, so nothing is cut silently."""
+
+    def __init__(self, **widths: int):
+        self.fields = {}
+        shift = 0
+        for name, width in widths.items():
+            self.fields[name] = (shift, width)
+            shift += width
+        if shift > 63:
+            raise ValueError(f"launch word of {shift} bits: at most 63")
+
+    def pack(self, **values: int) -> int:
+        if values.keys() != self.fields.keys():
+            raise ValueError(f"launch word fields {sorted(values)}, want "
+                             f"{sorted(self.fields)}")
+        word = 0
+        for name, value in values.items():
+            shift, width = self.fields[name]
+            if not 0 <= value < 1 << width:
+                raise ValueError(f"launch word field {name}={value} does "
+                                 f"not fit in {width} bits")
+            word |= value << shift
+        return word
+
+    def unpack(self, word: int) -> "dict[str, int]":
+        return {name: word >> shift & (1 << width) - 1
+                for name, (shift, width) in self.fields.items()}
+
+
 class CudaLibrary:
     """One ``.cu`` source built into ``lib<name>-<hash>.so``.
 
@@ -52,7 +87,9 @@ class CudaLibrary:
         self.name = name
         self.source = Path(source)
         self.entry_points = entry_points
+        self.functions = {}
         self._lib = None
+        self._error_string = None
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(self.source.read_bytes()
@@ -78,25 +115,40 @@ class CudaLibrary:
         return out, proc.stdout + proc.stderr
 
     def load(self) -> ctypes.CDLL:
-        """The built library with every entry point's signature set."""
+        """The built library with every entry point's signature set; each
+        entry point stays bound in ``functions``."""
         if self._lib is None:
             path, _ = self.build()
             lib = ctypes.CDLL(str(path))
+            functions = {}
             for fn_name, argtypes in self.entry_points.items():
                 fn = getattr(lib, fn_name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+                functions[fn_name] = fn
             err = getattr(lib, f"{self.name}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
+            self._error_string = err
+            self.functions = functions
             self._lib = lib
         return self._lib
 
+    def function(self, entry: str):
+        """The bound ctypes function of ``entry`` (built and loaded at
+        first use)."""
+        if self._lib is None:
+            self.load()
+        return self.functions[entry]
+
+    def fail(self, kernel: str, rc: int) -> None:
+        """Raise for the CUDA error code ``rc`` of a launch."""
+        msg = self._error_string(rc).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error "
+                           f"{rc} ({msg})")
+
     def call(self, kernel: str, entry: str, *args) -> None:
         """Launch ``entry`` and raise if CUDA refused the launch."""
-        lib = self.load()
-        rc = getattr(lib, entry)(*args)
+        rc = self.function(entry)(*args)
         if rc != 0:
-            msg = getattr(lib, f"{self.name}_error_string")(rc).decode()
-            raise RuntimeError(f"{kernel} kernel launch failed: CUDA error "
-                               f"{rc} ({msg})")
+            self.fail(kernel, rc)

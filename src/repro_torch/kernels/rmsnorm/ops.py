@@ -1,34 +1,134 @@
-"""Checked wrapper of the CUDA RMSNorm, and its launch count.
+"""Checked wrapper of the CUDA RMSNorm, its plan, and its launch count.
 
 ``rmsnorm(x, scale, eps)`` keeps the meaning of the Pallas kernel it
 replaces (``repro/kernels/rmsnorm/kernel.py``): per row of ``x`` (N, D),
 ``x * rsqrt(mean(x^2) + eps) * scale`` in fp32, returned in x's dtype.
 
-For a tensor on the CPU the wrapper returns the plain PyTorch version
-(:mod:`.ref`).  For a CUDA tensor it launches the kernel or raises; there
-is no fallback.  ``LAUNCHES`` counts kernel launches: one is added where
-the kernel is launched, and nowhere else.
+The checks run the same way on every device.  Then, for a tensor on the
+CPU the wrapper returns the plain PyTorch version (:mod:`.ref`); for a
+CUDA tensor it launches the kernel or raises: there is no fallback.
+``LAUNCHES`` counts kernel launches: one is added where the kernel is
+launched, and nowhere else.
+
+The launch path is thin, since at decode the host's work is most of a
+call's time.  Host us a call on the H100's host (an NVIDIA H100 80GB
+HBM3 at 700 W), each part timed alone by ``tools/rmsnorm_times.py`` at
+the serve paths' six shapes, decide each step: the tensors' attributes
+are read once (the checks take 1.0-2.3 us);
+the output comes from ``torch.empty_like`` (2.4-5.8 us, against 3.8-8.5
+for ``torch.empty`` with a dtype and a device); the stream from
+``torch._C._cuda_getCurrentRawStream`` (0.09-0.19 us, against 2.9-6.7
+for ``torch.cuda.current_stream(dev).cuda_stream``, which builds a
+``torch.cuda.Stream``; both give the stream that a CUDA graph capture or
+a ``torch.cuda.stream`` block made current); there is no
+``torch.cuda.device`` context (2.1-5.0 us): the C entry point makes the
+device current only when it is not; and the dtype, the route, the
+vectors a thread, the device and D travel in one cached word
+(``LAUNCH_WORD``), the row count, row stride and word as pointer-sized
+integers: ctypes alone takes 0.9-2.0 us so, against 1.6-4.6 for twelve
+plain ``c_int`` / ``c_int64`` arguments, which lost to ``F.rms_norm`` at
+yi-9b decode in two runs out of two where the word won at all six
+shapes.  The whole wrapper takes 11.3-18.9 us, ``F.rms_norm`` 12.6-22.2
+in the same runs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
-from .._build import CudaLibrary
+from .._build import CudaLibrary, LaunchWord
 from .ref import rmsnorm_ref
 
 LAUNCHES = {"rmsnorm": 0}
 
 LIBRARY = CudaLibrary(
     "rmsnorm", Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu",
-    {"rmsnorm_forward": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]})
+    # the row count, the row stride and the launch word are integers in
+    # pointer-sized arguments, which ctypes converts faster than c_int64
+    {"rmsnorm_forward": [ctypes.c_void_p] * 5 + [ctypes.c_float]
+     + [ctypes.c_void_p] * 2})
+# the entry point's word (csrc/rmsnorm.cu decodes it): the dtype's code,
+# the route's, the plan's vecs, the CUDA device and D
+LAUNCH_WORD = LaunchWord(dtype=1, route=2, vecs=4, device=8, d=31)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ELEMENT_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+# the kernel's routes (csrc/rmsnorm.cu)
+ROUTE_CODES = {"register": 0, "loop": 1, "narrow": 2}
+# rows shorter than this take the narrow route (one warp a row)
+NARROW_BELOW = 1024
+# the register route: 16-byte vectors a thread (the kernel's instances),
+# and the block sizes tried in turn (the kernel's launch bound is the last)
+REGISTER_VECS = (1, 2, 4, 8)
+REGISTER_THREADS = (256, 512)
+# the loop and narrow routes' block (csrc/rmsnorm.cu's kBlock)
+LOOP_THREADS = 256
+
+
+class Plan(NamedTuple):
+    """How the kernel runs a row of D values.  ``route``: "register" (one
+    pass, the row in registers), "loop" or "narrow" (the two-pass loop, a
+    block or a warp a row); ``threads``: a block's threads; ``vecs``: the
+    16-byte vectors each thread holds on the register route, 0 on the
+    other two (which load 16-byte vectors where the rows allow)."""
+    route: str
+    threads: int
+    vecs: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan(d: int, dtype: torch.dtype, aligned: bool) -> Plan:
+    """The route and block for rows of ``d`` values of ``dtype``;
+    ``aligned``: x's and scale's pointers, D and the row stride all fall
+    on 16 bytes.  The register route splits the row's vectors evenly over
+    whole warps, with the fewest vectors a thread that keep the block
+    within 256 threads, else within 512; a row that no such split fits
+    takes the loop route."""
+    if d < NARROW_BELOW:
+        return Plan("narrow", LOOP_THREADS, 0)
+    if aligned:
+        n_vec = d * _ELEMENT_BYTES[dtype] // 16
+        for cap in REGISTER_THREADS:
+            for vecs in REGISTER_VECS:
+                threads = n_vec // vecs
+                if n_vec % vecs == 0 and threads % 32 == 0 \
+                        and threads <= cap:
+                    return Plan("register", threads, vecs)
+    return Plan("loop", LOOP_THREADS, 0)
+
+
+def aligned_rows(x_ptr: int, scale_ptr: int, d: int, ld: int,
+                 dtype: torch.dtype) -> bool:
+    """Whether x's and scale's pointers, D and the row stride ``ld``
+    (elements) all fall on 16 bytes.  The output, from
+    ``torch.empty_like``, always does: the caching allocator aligns
+    every block to 512 bytes (and the entry point refuses a register
+    plan on an unaligned one)."""
+    elt = _ELEMENT_BYTES[dtype]
+    return not (x_ptr | scale_ptr | d * elt | ld * elt) & 15
+
+
+def call_plan(x: torch.Tensor, scale: torch.Tensor) -> Plan:
+    """The plan that ``rmsnorm(x, scale)`` launches."""
+    _, dtype, _, d, ld = check_inputs(x, scale)
+    return plan(d, dtype, aligned_rows(x.data_ptr(), scale.data_ptr(), d,
+                                       ld, dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def launch_word(d: int, dtype: torch.dtype, aligned: bool,
+                device: int) -> int:
+    """The entry point's ``LAUNCH_WORD`` for rows of ``d`` values of
+    ``dtype`` on CUDA device ``device``."""
+    p = plan(d, dtype, aligned)
+    return LAUNCH_WORD.pack(dtype=_DTYPE_CODES[dtype],
+                            route=ROUTE_CODES[p.route], vecs=p.vecs,
+                            device=device, d=d)
 
 
 def reset_launch_counts() -> None:
@@ -36,37 +136,54 @@ def reset_launch_counts() -> None:
         LAUNCHES[k] = 0
 
 
+def check_inputs(x: torch.Tensor, scale: torch.Tensor
+                 ) -> "tuple[torch.device, torch.dtype, int, int, int]":
+    """The wrapper's checks, the same on every device.  Reads each of x's
+    attributes once; returns (device, dtype, N, D, row stride)."""
+    shape, dtype, dev = x.shape, x.dtype, x.device
+    if len(shape) != 2 or scale.shape != (shape[1],):
+        raise ValueError(f"rmsnorm: x must be (N, D) and scale (D,), got "
+                         f"{tuple(shape)} and {tuple(scale.shape)}")
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"rmsnorm: x must be float32 or bfloat16, got "
+                        f"{dtype}")
+    if scale.dtype != dtype:
+        raise TypeError(f"rmsnorm: scale must have x's dtype {dtype}, got "
+                        f"{scale.dtype}")
+    if scale.device != dev:
+        raise ValueError("rmsnorm: x and scale lie on different devices")
+    n, d = shape
+    stride = x.stride()
+    ld = stride[0] if n > 1 else d
+    if (stride[1] != 1 and d > 1) or ld < d or not scale.is_contiguous():
+        raise ValueError("rmsnorm: x's rows must be contiguous and not "
+                         f"overlap (strides {stride}), scale contiguous")
+    return dev, dtype, n, d, ld
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """x: (N, D) bf16 or float32, rows contiguous (a row stride is
-    allowed); scale: (D,) of x's dtype.  Returns a contiguous (N, D)."""
-    if x.dim() != 2 or scale.shape != (x.shape[1],):
-        raise ValueError(f"rmsnorm: x must be (N, D) and scale (D,), got "
-                         f"{tuple(x.shape)} and {tuple(scale.shape)}")
-    if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"rmsnorm: x must be float32 or bfloat16, got "
-                        f"{x.dtype}")
-    if scale.dtype != x.dtype:
-        raise TypeError(f"rmsnorm: scale must have x's dtype {x.dtype}, got "
-                        f"{scale.dtype}")
-    if scale.device != x.device:
-        raise ValueError("rmsnorm: x and scale lie on different devices")
-    if x.device.type == "cpu":
-        return rmsnorm_ref(x, scale, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm: no kernel for device {x.device}")
-    N, D = x.shape
-    ld = x.stride(0) if N > 1 else D
-    if (x.stride(1) != 1 and D > 1) or ld < D or not scale.is_contiguous():
-        raise ValueError("rmsnorm: x's rows must be contiguous and not "
-                         f"overlap (strides {x.stride()}), scale contiguous")
-    out = torch.empty((N, D), dtype=x.dtype, device=x.device)
-    if x.numel() == 0:
+    allowed); scale: (D,) of x's dtype, contiguous.  Returns a contiguous
+    (N, D)."""
+    dev, dtype, n, d, ld = check_inputs(x, scale)
+    if not x.is_cuda:   # not dev.type, which builds a string each call
+        if dev.type == "cpu":
+            return rmsnorm_ref(x, scale, eps)
+        raise ValueError(f"rmsnorm: no kernel for device {dev}")
+    # contiguous: an x that passes the checks is either dense with rows
+    # of D (so empty_like keeps its contiguous strides) or not dense (so
+    # empty_like lays the output out contiguously)
+    out = torch.empty_like(x)
+    if n == 0 or d == 0:
         return out
-    with torch.cuda.device(x.device):
-        LIBRARY.call("rmsnorm", "rmsnorm_forward", x.data_ptr(),
-                     scale.data_ptr(), out.data_ptr(), N, D, ld, float(eps),
-                     _DTYPE_CODES[x.dtype],
-                     torch.cuda.current_stream().cuda_stream)
+    xp, sp = x.data_ptr(), scale.data_ptr()
+    idx = dev.index
+    rc = LIBRARY.function("rmsnorm_forward")(
+        xp, sp, out.data_ptr(), n, ld, eps,
+        launch_word(d, dtype, aligned_rows(xp, sp, d, ld, dtype), idx),
+        torch._C._cuda_getCurrentRawStream(idx))
+    if rc:
+        LIBRARY.fail("rmsnorm", rc)
     LAUNCHES["rmsnorm"] += 1
     return out

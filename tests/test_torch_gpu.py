@@ -174,9 +174,19 @@ def check_twice(kernel, plain, *args, **kw):
                                rtol=tol)
 
 
+# RMSNorm row widths: every route (narrow below 1,024, the register route
+# at the models' widths, the loop where no even split exists: 8,200) and
+# ragged edges; row counts from one row to a ragged 4,097
+RMSNORM_WIDTHS = [1, 7, 128, 1000, 1024, 2560, 4096, 5120, 6144, 7168, 8192,
+                  8200]
+RMSNORM_ROWS = [1, 3, 4, 8, 4097]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,d", [(1, 16), (7, 64), (33, 1000), (5, 13),
-                                 (4, 4096), (4096, 4096), (9, 8192)])
+                                 (4096, 4096), (9, 8192)]
+                         + [(n, d) for d in RMSNORM_WIDTHS
+                            for n in RMSNORM_ROWS])
 def test_rmsnorm_kernel_matches_plain(cuda, dtype, n, d):
     gen = torch.Generator(device=cuda).manual_seed(n * d)
     x = torch.randn(n, d, device=cuda, generator=gen).to(dtype)
@@ -196,6 +206,112 @@ def test_rmsnorm_kernel_reads_strided_rows(cuda, pad):
     s = torch.randn(4096, device=cuda, generator=gen).bfloat16()
     check_twice(rn.rmsnorm, rn.rmsnorm_ref, x, s, 1e-6)
     assert rn.rmsnorm(x, s).is_contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", RMSNORM_WIDTHS)
+def test_rmsnorm_kernel_unaligned_and_strided_views(cuda, dtype, d):
+    """``x[:, 1:]`` of a (N, D + 1) buffer (rows and pointer off 16 bytes:
+    scalar loads) and every other row of a (2N, D) buffer (a row stride
+    of 2D: vector loads where D allows) against the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    s = torch.randn(d, device=cuda, generator=gen).to(dtype)
+    buf = torch.randn(5, d + 1, device=cuda, generator=gen).to(dtype)
+    check_twice(rn.rmsnorm, rn.rmsnorm_ref, buf[:, 1:], s, 1e-6)
+    rows = torch.randn(10, d, device=cuda, generator=gen).to(dtype)[::2]
+    check_twice(rn.rmsnorm, rn.rmsnorm_ref, rows, s, 1e-6)
+
+
+@pytest.mark.parametrize("d", [128, 2560, 4096, 6144, 8200])
+def test_rmsnorm_kernel_in_cuda_graph(cuda, d):
+    """20 calls captured in one CUDA graph and replayed give the bits of
+    20 eager calls; capturing counts the 20 launches once."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    xs = torch.randn(20, 4, d, device=cuda, generator=gen).bfloat16()
+    s = torch.randn(d, device=cuda, generator=gen).bfloat16()
+    eager = [rn.rmsnorm(xs[i], s, 1e-6) for i in range(20)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rn.rmsnorm(xs[0], s, 1e-6)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    rn.reset_launch_counts()
+    with torch.cuda.graph(graph):
+        outs = [rn.rmsnorm(xs[i], s, 1e-6) for i in range(20)]
+    assert rn.LAUNCHES["rmsnorm"] == 20
+    for o in outs:
+        o.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert rn.LAUNCHES["rmsnorm"] == 20
+    for got, want in zip(outs, eager):
+        assert torch.equal(got, want)
+
+
+def test_rmsnorm_kernel_on_side_stream(cuda):
+    """On a side stream the launch is ordered after that stream's work:
+    x is written on the side stream behind a ~10 ms spin, so a kernel on
+    any other stream would read it unwritten."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    src = torch.randn(4096, 4096, device=cuda, generator=gen).bfloat16()
+    s = torch.randn(4096, device=cuda, generator=gen).bfloat16()
+    want = rn.rmsnorm_ref(src, s, 1e-6)
+    x = torch.zeros_like(src)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(20_000_000)
+        x.copy_(src)
+        got = rn.rmsnorm(x, s, 1e-6)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(got, rn.rmsnorm(src, s, 1e-6))
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=5e-2,
+                               rtol=5e-2)
+
+
+def test_rmsnorm_launches_counted_exactly(cuda):
+    """One count per launch, none for a CPU call, an empty call or a call
+    that raises."""
+    x = torch.randn(4, 4096, device=cuda).bfloat16()
+    s = torch.ones(4096, device=cuda).bfloat16()
+    rn.reset_launch_counts()
+    for _ in range(7):
+        rn.rmsnorm(x, s)
+    rn.rmsnorm(x.cpu(), s.cpu())
+    rn.rmsnorm(x[:0], s)
+    with pytest.raises(TypeError):
+        rn.rmsnorm(x, s.float())
+    assert rn.LAUNCHES["rmsnorm"] == 7
+
+
+@pytest.mark.parametrize("name,route,vecs,d", [
+    ("uneven-split", "register", 2, 4104),       # 513 vectors
+    ("part-warp", "register", 8, 3072),          # 48 threads, not warps
+    ("over-launch-bound", "register", 1, 8192),  # 1,024 threads
+    ("vecs-not-an-instance", "register", 3, 3072),
+    ("no-vecs", "register", 0, 4096),
+    ("loop-with-vecs", "loop", 1, 4096),
+    ("unknown-route", None, 0, 4096),
+])
+def test_rmsnorm_entry_point_refuses_bad_plans(cuda, name, route, vecs, d):
+    """A plan that does not fit the call returns cudaErrorInvalidValue
+    and launches nothing: out keeps its bits."""
+    x = torch.randn(4, d, device=cuda).bfloat16()
+    s = torch.ones(d, device=cuda).bfloat16()
+    out = torch.full_like(x, 7.0)
+    word = rn.ops.LAUNCH_WORD.pack(
+        dtype=1, route=rn.ops.ROUTE_CODES[route] if route else 3, vecs=vecs,
+        device=x.device.index, d=d)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        rn.ops.LIBRARY.call(
+            "rmsnorm", "rmsnorm_forward", x.data_ptr(), s.data_ptr(),
+            out.data_ptr(), 4, d, 1e-6, word,
+            torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())
 
 
 def ring_positions(cap, written, device):
