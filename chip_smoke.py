@@ -14,11 +14,14 @@ nonzero:
    scan), one nvcc each, all started together, with each kernel's
    registers and spills.
 3. ``kernel``: the segment kernels against their plain PyTorch versions
-   on the card, at edge-case sizes and at the sim path's shapes
-   (mphx-4p-86x9 uniform: the incidence's edge and flow columns), twice
-   for bitwise repeatability, with their time, the time of the plain
-   version and of the one PyTorch call that computes the same function,
-   and their bound.
+   on the card, at edge-case sizes (two leave the last warp part-filled)
+   and at the sim path's shapes (mphx-4p-86x9 uniform: the incidence's
+   edge and flow columns), twice for bitwise repeatability; the sum also
+   bit for bit against its ordered twin at the plan's lanes, and at the
+   sim's shapes that twin against the twin at 32 lanes (the first
+   kernel's order).  Each line carries the plan's lanes a segment, the
+   kernel's time, the time of the plain version and of the one PyTorch
+   call that computes the same function, and their bound.
 4. ``main_path``: ``--suite sim`` on mphx-4p-86x9 (uniform and
    neighbor_shift, loads 0.5 and 0.9) through the hand-written kernels,
    with the launch counts read around that run alone; then again with
@@ -303,22 +306,38 @@ def device_events(prof) -> "list[tuple[str, int, float]]":
 def bound(nnz: int, n_seg: int, permuted: bool) -> dict:
     """Least time for one segment reduction: each value (8 B), each
     permutation entry (4 B), each CSR offset (4 B) read once and each
-    output (8 B) written once, or one float64 operation per entry."""
+    output (8 B) written once, or one float64 operation per entry.  With
+    a permutation, also the bytes at the card's 32-byte sectors when each
+    gathered value takes a sector of its own, and their time (beside the
+    bound, not in it)."""
     n_bytes = 8 * nnz + (4 * nnz if permuted else 0) + 4 * (n_seg + 1) \
         + 8 * n_seg
     t_bytes = n_bytes / PEAK_BYTES_PER_S
     t_ops = nnz / PEAK_FP64_PER_S
-    return {"bytes": n_bytes, "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    out = {"bytes": n_bytes, "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    if permuted:
+        sectors = n_bytes + 24 * nnz
+        out.update(sector_bytes=sectors,
+                   sector_ms=sectors / PEAK_BYTES_PER_S * 1e3)
+    return out
 
 
-def check_kernel(name: str, vals, ids, n_seg: int, plan=None) -> float:
-    """Kernel vs plain version on the card; returns the max abs error.
-    Sum: within 1e-12 * max|v| * NNZ.  Min: exact.  Two runs: same bits."""
+def check_kernel(name: str, vals, ids, n_seg: int, plan=None,
+                 main_shape: bool = False) -> "tuple[float, int]":
+    """Kernel vs plain version on the card; returns the max abs error and
+    the plan's lanes.  Sum: bit for bit its ordered twin at the plan's
+    lanes (the plan the wrapper builds when none is given), and within
+    1e-12 * max|v| * NNZ of ``index_add_`` (which adds in no fixed
+    order); at a main-path shape the twin at the plan's lanes must also
+    equal the twin at 32, the one-warp-a-segment order of the first
+    kernel.  Min: exact.  Two runs: same bits."""
     from repro_torch.kernels import segment_fairshare as sf
 
     kern = getattr(sf, name)
     ref = getattr(sf, f"{name}_ref")
+    if plan is None:
+        plan = sf.make_plan(ids, n_seg)
     got = kern(vals, ids, n_seg, plan=plan)
     again = kern(vals, ids, n_seg, plan=plan)
     want = ref(vals, ids, n_seg)
@@ -334,12 +353,21 @@ def check_kernel(name: str, vals, ids, n_seg: int, plan=None) -> float:
         if not torch.equal(got, want):
             raise AssertionError(f"{name}: differs from plain version "
                                  f"(max abs err {err})")
-    else:
-        vmax = float(vals.abs().max()) if vals.numel() else 0.0
-        tol = 1e-12 * vmax * vals.numel()
-        if err > tol:
-            raise AssertionError(f"{name}: max abs err {err} > {tol}")
-    return err
+        return err, plan.lanes
+    vmax = float(vals.abs().max()) if vals.numel() else 0.0
+    tol = 1e-12 * vmax * vals.numel()
+    if err > tol:
+        raise AssertionError(f"{name}: max abs err {err} > {tol}")
+    twin = sf.segment_sum_ordered_ref(vals, plan)
+    if not torch.equal(got.view(torch.int64), twin.view(torch.int64)):
+        raise AssertionError(f"{name}: differs from its ordered twin at "
+                             f"{plan.lanes} lanes (nnz={vals.numel()}, "
+                             f"segments={n_seg})")
+    if main_shape and not torch.equal(
+            twin, sf.segment_sum_ordered_ref(vals, plan, 32)):
+        raise AssertionError(f"{name}: the twin at {plan.lanes} lanes "
+                             "differs from the twin at 32")
+    return err, plan.lanes
 
 
 def phase_kernels() -> dict:
@@ -354,21 +382,22 @@ def phase_kernels() -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    # edge cases: (nnz, segments, id range low, id range high)
+    # edge cases: (nnz, segments, id range low, id range high); 101 and
+    # 333 segments at 4 and 16 lanes leave the last warp part-filled
     cases = [(0, 5, 0, 5), (1, 1, 0, 1), (1, 3, 0, 3), (1000, 37, 0, 37),
              (1025, 2000, 0, 2000), (3000, 1, 0, 1), (4097, 64, 0, 67),
-             (10, 0, 0, 1)]
+             (10, 0, 0, 1), (300, 101, 0, 101), (3000, 333, 0, 333)]
     for nnz, n_seg, lo, hi in cases:
         vals = torch.randn(nnz, dtype=torch.float64, device=dev,
                            generator=gen)
         ids = torch.randint(lo, hi, (nnz,), device=dev, generator=gen)
         for name in KERNELS:
-            err = check_kernel(name, vals, ids, n_seg)
+            err, lanes = check_kernel(name, vals, ids, n_seg)
             srt = torch.sort(ids).values
             check_kernel(name, vals, srt, n_seg,
                          plan=make_plan(srt, n_seg, presorted=True))
             emit("kernel", kernel=name, case="edge", nnz=nnz, segments=n_seg,
-                 max_abs_err=err, ok=True)
+                 lanes=lanes, max_abs_err=err, ok=True)
 
     # the main path's shapes: mphx-4p-86x9 uniform incidence
     topo = SWEEP_TOPOLOGIES[MAIN_TOPO]
@@ -396,8 +425,9 @@ def phase_kernels() -> dict:
     refs = {"segment_sum": segment_sum_ref, "segment_min": segment_min_ref}
     results = {}
     for name, site, vals, (ids, n_seg, plan, permuted) in shapes:
-        err = check_kernel(name, vals, ids, n_seg, plan)
-        check_kernel(name, rand, ids, n_seg, plan)
+        err, lanes = check_kernel(name, vals, ids, n_seg, plan,
+                                  main_shape=True)
+        check_kernel(name, rand, ids, n_seg, plan, main_shape=True)
         kern, ref = getattr(ops, name), refs[name]
         out = torch.empty(n_seg, dtype=torch.float64, device=dev)
         if name == "segment_sum":
@@ -419,15 +449,18 @@ def phase_kernels() -> dict:
         lib_ms = time_ms(lib_call)
         b = bound(nnz, n_seg, permuted)
         row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms, **b}
+               "library_ms": lib_ms, "lanes": lanes, **b}
         results.setdefault(name, row)
         emit("kernel", kernel=name, case=f"{MAIN_TOPO} uniform", site=site,
-             nnz=nnz, segments=n_seg, permuted=permuted, max_abs_err=err,
-             ms=ms, plain_ms=plain_ms, library=library, library_ms=lib_ms,
+             nnz=nnz, segments=n_seg, permuted=permuted, lanes=lanes,
+             max_abs_err=err, ms=ms, plain_ms=plain_ms, library=library,
+             library_ms=lib_ms,
+             # one template, segment_reduce_kernel<Op, G>: the name
+             # matches the instance of every Op and lanes count, and the
+             # call launches one of them
              kernel_device_ms=device_time(call,
                                           "segment_reduce_kernel")["ms"],
-             library_device_ms=device_time(lib_call, "")["ms"],
-             bytes=b["bytes"], bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+             library_device_ms=device_time(lib_call, "")["ms"], **b,
              achieved_GBps=b["bytes"] / (ms * 1e-3) / 1e9, ok=True)
     return results
 
@@ -1855,6 +1888,11 @@ def main() -> int:
                 "library_ms": kernel_results[name]["library_ms"],
                 "ok": True}
                for name, (replaces, source) in sources.items()]
+    # the segment kernels' rows time their first main-path shape, at the
+    # lanes of its plan
+    for name in KERNELS:
+        row = next(k for k in kernels if k["name"] == name)
+        row["lanes"] = kernel_results[name]["lanes"]
     # attention's row times the tensor-core kernel (yi-9b prefill); its
     # launches count every route, the tensor-core and decode ones beside
     attn = next(k for k in kernels if k["name"] == "flash_attention")

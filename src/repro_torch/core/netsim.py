@@ -79,7 +79,7 @@ def latency_under_load(topo: Topology, utilization: float,
     return base + sw_hops * net.t_switch * rho / (1.0 - rho)
 
 
-def load_sweep(topo: Topology, demand_builder, mode: str = "minimal",
+def load_sweep(topo: Topology, demand_builder, mode: str = "adaptive",
                load_fractions=(0.1, 0.25, 0.5, 0.75, 0.9, 1.0),
                msg_bytes: float = 4096, net: NetParams = DEFAULT_NET,
                router=None, simulate: bool = False,
@@ -89,10 +89,13 @@ def load_sweep(topo: Topology, demand_builder, mode: str = "minimal",
 
     ``demand_builder(topo, offered_per_nic_gbps) -> DemandArrays``.  With
     a fixed path spread the utilizations scale linearly with offered load,
-    so only the first level is routed.  ``simulate=True`` adds measured
-    FCT columns per level (:func:`repro_torch.sim.events.simulate_demands`):
-    each demand pair becomes one flow sized to transfer for
-    ``flow_time_s`` at its offered rate.  ``sim_backend`` is the
+    so only the first level is routed.  ``mode`` defaults to the
+    reference's ``adaptive``, which is not ported yet and raises
+    ``NotImplementedError``: pass ``mode="minimal"``.  ``simulate=True``
+    adds measured FCT columns per level
+    (:func:`repro_torch.sim.events.simulate_demands`): each demand pair
+    becomes one flow sized to transfer for ``flow_time_s`` at its offered
+    rate.  ``sim_backend`` is the
     fair-share solver backend (``cuda`` or ``torch``).
     """
     if router is None:

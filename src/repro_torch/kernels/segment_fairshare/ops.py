@@ -6,12 +6,23 @@
 per-segment min with ``+inf`` for empty segments, of a float64 COO value
 vector; entries with an id outside ``[0, num_segments)`` are dropped.
 
-For a tensor on the CPU the wrappers return the plain PyTorch version
-(:mod:`.ref`).  For a CUDA tensor they launch the kernel or raise; there
-is no fallback.  A :class:`SegmentPlan` (CSR offsets plus the stable
-permutation into segment order) is built once per incidence and passed
+The checks run the same way on every device.  Then, for a tensor on the
+CPU the wrappers return the plain PyTorch version (:mod:`.ref`); for a
+CUDA tensor they launch the kernel or raise: there is no fallback.  A
+:class:`SegmentPlan` (CSR offsets, the stable permutation into segment
+order, and the lanes a segment) is built once per incidence and passed
 with ``plan=`` beside the very id tensor it was built from; without one
 the wrapper builds it for the call.
+
+The launch path is thin, as RMSNorm's (``kernels/rmsnorm/ops.py``): the
+tensors' attributes are read once, the output comes from
+``values.new_empty``, the stream from
+``torch._C._cuda_getCurrentRawStream`` (not a ``torch.cuda.Stream``
+object: 3.4-6.2 us against 0.1-0.2 on the H100's host,
+``tools/segment_times.py``), there is no ``torch.cuda.device`` context
+(2.4-4.3 us; the C entry point makes the device current only when it is
+not), and the entry point is the bound ctypes function.  It can be
+captured in a CUDA graph.
 
 ``LAUNCHES`` counts kernel launches per wrapper: one is added where a
 kernel is launched, and nowhere else.
@@ -28,8 +39,9 @@ import torch
 from .._build import CudaLibrary
 from .ref import segment_min_ref, segment_sum_ref
 
+# values, perm, offsets, num_segments, lanes, device, out, stream
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-         ctypes.c_void_p, ctypes.c_void_p]
+         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 LIBRARY = CudaLibrary(
     "segment_reduce",
     Path(__file__).resolve().parent / "csrc" / "segment_reduce.cu",
@@ -37,12 +49,25 @@ LIBRARY = CudaLibrary(
 
 LAUNCHES = {"segment_sum": 0, "segment_min": 0}
 
+# the kernel's instances: lanes a segment (csrc/segment_reduce.cu)
+LANES = (1, 2, 4, 8, 16, 32)
 _INT32_MAX = 2**31 - 1
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def lanes_for(nnz: int, num_segments: int) -> int:
+    """Lanes a segment for ``nnz`` entries in ``num_segments`` segments:
+    the smallest power of two G <= 32 with G * num_segments >= nnz (at or
+    above the mean segment length), else 32.  A function of the two
+    counts alone, so it needs no look at the device."""
+    lanes = 1
+    while lanes < LANES[-1] and lanes * num_segments < nnz:
+        lanes *= 2
+    return lanes
 
 
 @dataclass(frozen=True)
@@ -52,7 +77,9 @@ class SegmentPlan:
     ``offsets`` (num_segments + 1,) int32: segment ``s`` owns positions
     ``offsets[s]:offsets[s+1]`` of the sorted order.  ``perm`` (NNZ,)
     int32 maps those positions to entries, or is None when the ids are
-    already sorted (the incidence's flow column).
+    already sorted (the incidence's flow column).  ``lanes``: the lanes
+    of a warp that reduce one segment (one of ``LANES``), which fixes the
+    kernel's order of operations (:func:`.ref.segment_sum_ordered_ref`).
     """
 
     ids: torch.Tensor
@@ -60,12 +87,31 @@ class SegmentPlan:
     perm: "torch.Tensor | None"
     num_segments: int
     nnz: int
+    lanes: int
+
+    def __post_init__(self):
+        if self.lanes not in LANES:
+            raise ValueError(f"lanes must be one of {LANES}, got "
+                             f"{self.lanes}")
+
+    def keep(self, kept: torch.Tensor, ids: torch.Tensor) -> "SegmentPlan":
+        """The plan of ``ids``, this plan's ids renumbered so that segment
+        ``kept[i]`` becomes ``i``.  ``kept`` is ascending and holds every
+        non-empty segment, so the renumbering keeps the order and the
+        permutation stays; the lanes follow the kept count
+        (:func:`lanes_for`)."""
+        n = int(kept.shape[0])
+        offsets = torch.cat([self.offsets[kept], self.offsets[-1:]])
+        return SegmentPlan(ids, offsets, self.perm, n, self.nnz,
+                           lanes_for(self.nnz, n))
 
 
 def make_plan(segment_ids: torch.Tensor, num_segments: int, *,
               presorted: bool = False) -> SegmentPlan:
-    """Plan for ``segment_ids``.  ``presorted=True`` skips the sort and
-    checks that the ids are non-decreasing instead."""
+    """Plan for ``segment_ids``, with :func:`lanes_for` lanes a segment
+    (``dataclasses.replace(plan, lanes=G)`` forces another G).
+    ``presorted=True`` skips the sort and checks that the ids are
+    non-decreasing instead."""
     if segment_ids.dim() != 1:
         raise ValueError("segment_ids must be 1-D")
     nnz = segment_ids.numel()
@@ -83,56 +129,62 @@ def make_plan(segment_ids: torch.Tensor, num_segments: int, *,
     bounds = torch.arange(num_segments + 1, dtype=sorted_ids.dtype,
                           device=sorted_ids.device)
     offsets = torch.searchsorted(sorted_ids, bounds).to(torch.int32)
-    return SegmentPlan(segment_ids, offsets, perm, num_segments, nnz)
+    return SegmentPlan(segment_ids, offsets, perm, num_segments, nnz,
+                       lanes_for(nnz, num_segments))
 
 
-def _check(values, segment_ids, num_segments: int, plan) -> None:
+def check_inputs(values: torch.Tensor, segment_ids: torch.Tensor,
+                 num_segments: int, plan) -> torch.device:
+    """The wrappers' checks, the same on every device.  Reads each of
+    values' attributes once; returns its device."""
+    dev, shape = values.device, values.shape
     if values.dtype != torch.float64:
         raise TypeError(f"values must be float64, got {values.dtype}")
-    if values.dim() != 1 or segment_ids.shape != values.shape:
+    if len(shape) != 1 or segment_ids.shape != shape:
         raise ValueError("values and segment_ids must be 1-D of one length, "
-                         f"got {tuple(values.shape)} and "
+                         f"got {tuple(shape)} and "
                          f"{tuple(segment_ids.shape)}")
     if segment_ids.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"segment_ids must be int32 or int64, got "
                         f"{segment_ids.dtype}")
-    if segment_ids.device != values.device:
+    if segment_ids.device != dev:
         raise ValueError("values and segment_ids lie on different devices")
     if num_segments < 0:
         raise ValueError(f"num_segments must be >= 0, got {num_segments}")
+    if not values.is_contiguous():
+        raise ValueError("values must be contiguous")
     if plan is None:
-        return
-    if plan.num_segments != num_segments or plan.nnz != values.numel():
+        return dev
+    if plan.num_segments != num_segments or plan.nnz != shape[0]:
         raise ValueError("plan was built for another incidence: "
                          f"{plan.nnz} entries / {plan.num_segments} segments, "
-                         f"called with {values.numel()} / {num_segments}")
+                         f"called with {shape[0]} / {num_segments}")
     if plan.ids is not segment_ids:
         raise ValueError("plan was built for another incidence: pass the "
                          "segment_ids tensor the plan was made from")
+    for t in (plan.offsets, plan.perm):
+        if t is not None and (t.device != dev or t.dtype != torch.int32
+                              or not t.is_contiguous()):
+            raise ValueError(f"plan tensors must be contiguous int32 on "
+                             f"{dev}")
+    return dev
 
 
 def _launch(name: str, entry: str, values, segment_ids, num_segments: int,
-            plan) -> torch.Tensor:
-    if values.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for device {values.device}")
-    if not values.is_contiguous():
-        raise ValueError(f"{name}: values must be contiguous")
-    out = torch.empty(num_segments, dtype=torch.float64, device=values.device)
+            plan, dev: torch.device) -> torch.Tensor:
+    out = values.new_empty(num_segments)
     if num_segments == 0:
         return out
     if plan is None:
         plan = make_plan(segment_ids, num_segments)
-    for t in (plan.offsets, plan.perm):
-        if t is not None and (t.device != values.device
-                              or t.dtype != torch.int32
-                              or not t.is_contiguous()):
-            raise ValueError(f"{name}: plan tensors must be contiguous int32 "
-                             f"on {values.device}")
-    with torch.cuda.device(values.device):
-        LIBRARY.call(name, entry, values.data_ptr(),
-                     None if plan.perm is None else plan.perm.data_ptr(),
-                     plan.offsets.data_ptr(), num_segments, out.data_ptr(),
-                     torch.cuda.current_stream().cuda_stream)
+    perm = plan.perm
+    idx = dev.index
+    rc = LIBRARY.function(entry)(
+        values.data_ptr(), None if perm is None else perm.data_ptr(),
+        plan.offsets.data_ptr(), num_segments, plan.lanes, idx,
+        out.data_ptr(), torch._C._cuda_getCurrentRawStream(idx))
+    if rc:
+        LIBRARY.fail(name, rc)
     LAUNCHES[name] += 1
     return out
 
@@ -141,19 +193,23 @@ def segment_sum(values: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int, *, plan: "SegmentPlan | None" = None
                 ) -> torch.Tensor:
     """Scatter-add ``values`` (NNZ,) into ``num_segments`` bins."""
-    _check(values, segment_ids, num_segments, plan)
-    if values.device.type == "cpu":
-        return segment_sum_ref(values, segment_ids, num_segments)
+    dev = check_inputs(values, segment_ids, num_segments, plan)
+    if not values.is_cuda:   # not dev.type, which builds a string each call
+        if dev.type == "cpu":
+            return segment_sum_ref(values, segment_ids, num_segments)
+        raise ValueError(f"segment_sum: no kernel for device {dev}")
     return _launch("segment_sum", "segment_sum_f64", values, segment_ids,
-                   num_segments, plan)
+                   num_segments, plan, dev)
 
 
 def segment_min(values: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int, *, plan: "SegmentPlan | None" = None
                 ) -> torch.Tensor:
     """Per-segment min of ``values`` (NNZ,); empty segments hold +inf."""
-    _check(values, segment_ids, num_segments, plan)
-    if values.device.type == "cpu":
-        return segment_min_ref(values, segment_ids, num_segments)
+    dev = check_inputs(values, segment_ids, num_segments, plan)
+    if not values.is_cuda:
+        if dev.type == "cpu":
+            return segment_min_ref(values, segment_ids, num_segments)
+        raise ValueError(f"segment_min: no kernel for device {dev}")
     return _launch("segment_min", "segment_min_f64", values, segment_ids,
-                   num_segments, plan)
+                   num_segments, plan, dev)

@@ -4,6 +4,13 @@ The CPU path of :mod:`.ops` and the yardstick the CUDA kernels are held
 against on the card.  Entries whose id lies outside ``[0, num_segments)``
 are dropped, as the Pallas kernel drops its padding: they are sent to
 one spare bin past the end, which is cut off.
+
+``segment_sum_ordered_ref`` is the kernel's ordered twin: the same sums
+in the CUDA kernel's order of additions, read from a segment plan, so
+the kernel can be held to it bit for bit (``index_add_`` adds in no
+fixed order on the card).  The tests and ``chip_smoke.py`` use it; the
+main path never does.  A min is the same in any order, so
+``segment_min_ref`` is the min kernel's yardstick as it is.
 """
 
 from __future__ import annotations
@@ -34,3 +41,35 @@ def segment_min_ref(values: torch.Tensor, segment_ids: torch.Tensor,
     out.scatter_reduce_(0, _spare_bin_ids(segment_ids, num_segments),
                         values, "amin")
     return out[:num_segments]
+
+
+def segment_sum_ordered_ref(values: torch.Tensor, plan,
+                            lanes: "int | None" = None) -> torch.Tensor:
+    """(num_segments,) sums of ``values`` (NNZ,) over ``plan``'s segments
+    (a :class:`.ops.SegmentPlan`), added in the order of the CUDA kernel
+    run with ``lanes`` lanes a segment (default: the plan's).
+
+    That order: lane ``l`` of a segment's G lanes adds the segment's
+    entries ``l, l + G, l + 2G, ...`` (in plan order) one by one, from
+    +0.0; then a tree of width G, ``G/2`` down to 1, in which lane ``l <
+    off`` adds lane ``l + off``'s partial to its own; lane 0 holds the
+    sum.  Runs on any device, vectorised over segments.
+    """
+    G = plan.lanes if lanes is None else lanes
+    n = plan.num_segments
+    offsets = plan.offsets.to(torch.int64)
+    lo, hi = offsets[:-1, None], offsets[1:, None]
+    ordered = values if plan.perm is None else values[plan.perm.long()]
+    acc = torch.zeros((n, G), dtype=values.dtype, device=values.device)
+    longest = int((hi - lo).max()) if n else 0
+    lane = torch.arange(G, device=values.device)
+    for step in range(0, longest, G):
+        idx = lo + step + lane
+        live = idx < hi
+        acc = torch.where(live, acc + ordered[torch.where(live, idx, 0)],
+                          acc)
+    off = G // 2
+    while off:
+        acc = acc[:, :off] + acc[:, off:2 * off]
+        off //= 2
+    return acc[:, 0].contiguous()

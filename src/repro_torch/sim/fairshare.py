@@ -187,12 +187,8 @@ class SolveProblem:
         used, edge_c, cap_c = _compress_edges(inc)
         edge_plan = None
         if backend == "cuda":
-            # the full plan with its empty segments dropped: remapping
-            # keeps the edge order, so the permutation is the same
-            full = inc.edge_plan()
-            offsets = torch.cat([full.offsets[used], full.offsets[-1:]])
-            edge_plan = SegmentPlan(edge_c, offsets, full.perm,
-                                    int(used.shape[0]), inc.nnz)
+            # the full plan with its empty segments dropped
+            edge_plan = inc.edge_plan().keep(used, edge_c)
         return cls(inc.flow, edge_c, inc.frac, cap_c, used, inc.n_flows,
                    backend, edge_plan, inc.flow_plan(backend))
 

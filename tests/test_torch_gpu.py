@@ -8,12 +8,14 @@ and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_gpu.py
 
-Tolerances: sum within ``1e-12 * max|value| * NNZ`` (the kernel sums in
-another order), min exact, two kernel runs bitwise equal; suite rows at
-1e-9 relative with integers exact.  RMSNorm and attention: 2e-5 for
-float32 and 5e-2 for bfloat16 (``tests/test_kernels.py``'s tolerances;
-the attention kernel keeps its softmax weights in fp32 where the plain
-version rounds them to v's dtype), two kernel runs bitwise equal; the
+Tolerances: sum within ``1e-12 * max|value| * NNZ`` of ``index_add_``
+(which adds in no fixed order) and bit for bit equal to its ordered twin
+``segment_sum_ordered_ref`` at every lanes count, min exact, two kernel
+runs bitwise equal; suite rows at 1e-9 relative with integers exact.
+RMSNorm and attention: 2e-5 for float32 and 5e-2 for bfloat16
+(``tests/test_kernels.py``'s tolerances; the attention kernel keeps its
+softmax weights in fp32 where the plain version rounds them to v's
+dtype), two kernel runs bitwise equal; the
 tensor-core attention kernel (bfloat16, Sq > 1) also gives
 ``mask_probe``'s exact answer within 2^-8 of each value (one bf16
 rounding), and reads empty ring slots holding NaN as zeros; so does the
@@ -45,8 +47,10 @@ from repro_torch.kernels import grouped_matmul as gm  # noqa: E402
 from repro_torch.kernels import rg_lru  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 from repro_torch.kernels.segment_fairshare import (  # noqa: E402
-    LAUNCHES, make_plan, reset_launch_counts, segment_min, segment_min_ref,
-    segment_sum, segment_sum_ref)
+    LANES, LAUNCHES, make_plan, reset_launch_counts, segment_min,
+    segment_min_ref, segment_sum, segment_sum_ordered_ref, segment_sum_ref)
+from repro_torch.kernels.segment_fairshare.ops import (  # noqa: E402
+    LIBRARY as SEGMENT_LIBRARY)
 from repro_torch.models.registry import get_config, get_model  # noqa: E402
 from repro_torch.sim.events import simulate_incidence  # noqa: E402
 from repro_torch.sim.fairshare import (SolveProblem,  # noqa: E402
@@ -156,6 +160,112 @@ def test_staggered_golden_on_gpu(cuda):
     np.testing.assert_allclose(res.finish_s.cpu().numpy(), rec["finish_s"],
                                rtol=0, atol=1e-9 * makespan)
     assert abs(res.makespan_s - makespan) <= 1e-9 * makespan
+
+
+# CASES, and segment counts that leave the last warp part-filled at
+# lanes below 32 (groups before and past the last segment in one warp)
+LANE_CASES = {**CASES, "part-warp-101": (300, 101, 101),
+              "part-warp-333": (3000, 333, 333),
+              "part-warp-77": (150, 77, 77)}
+
+
+def lane_case(name, cuda):
+    nnz, n_seg, hi = LANE_CASES[name]
+    rng = np.random.default_rng(sorted(LANE_CASES).index(name))
+    vals = torch.from_numpy(rng.standard_normal(nnz)).to(cuda)
+    ids = torch.from_numpy(rng.integers(0, hi, nnz)).to(cuda)
+    srt = torch.sort(ids).values
+    return vals, ((ids, False), (srt, True)), n_seg
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("name", sorted(LANE_CASES))
+def test_segment_sum_kernel_equals_ordered_twin(cuda, name, lanes):
+    """The sum kernel, forced to each lanes count through its plan, gives
+    its ordered twin's bits, permuted and presorted."""
+    vals, columns, n_seg = lane_case(name, cuda)
+    for ids, presorted in columns:
+        plan = dataclasses.replace(
+            make_plan(ids, n_seg, presorted=presorted), lanes=lanes)
+        got = segment_sum(vals, ids, n_seg, plan=plan)
+        want = segment_sum_ordered_ref(vals, plan)
+        torch.cuda.synchronize()
+        assert got.shape == (n_seg,)
+        assert torch.equal(got, want), (name, lanes, presorted)
+        assert torch.equal(got.view(torch.int64), want.view(torch.int64))
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("name", sorted(LANE_CASES))
+def test_segment_min_kernel_equals_plain_at_each_lanes(cuda, name, lanes):
+    vals, columns, n_seg = lane_case(name, cuda)
+    for ids, presorted in columns:
+        plan = dataclasses.replace(
+            make_plan(ids, n_seg, presorted=presorted), lanes=lanes)
+        got = segment_min(vals, ids, n_seg, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, segment_min_ref(vals, ids, n_seg)), \
+            (name, lanes, presorted)
+
+
+def test_segment_entry_points_refuse_other_lanes(cuda):
+    """A lanes count with no kernel instance launches nothing and returns
+    cudaErrorInvalidValue (1)."""
+    vals = torch.ones(8, dtype=torch.float64, device=cuda)
+    plan = make_plan(torch.zeros(8, dtype=torch.int64, device=cuda), 2,
+                     presorted=True)
+    out = torch.full((2,), -1.0, dtype=torch.float64, device=cuda)
+    for entry in ("segment_sum_f64", "segment_min_f64"):
+        for lanes in (0, 3, 64):
+            rc = SEGMENT_LIBRARY.function(entry)(
+                vals.data_ptr(), None, plan.offsets.data_ptr(), 2, lanes,
+                cuda.index or 0, out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+            assert rc == 1, (entry, lanes)
+    torch.cuda.synchronize()
+    assert bool((out == -1.0).all())
+
+
+@pytest.mark.parametrize("kernel", ["segment_sum", "segment_min"])
+def test_segment_kernels_in_cuda_graph(cuda, kernel):
+    """20 calls captured in one CUDA graph and replayed give the bits of
+    20 eager calls; capturing counts the 20 launches once."""
+    topo = MPHX(n=2, p=8, dims=(8, 8))
+    inc = flow_incidence(make_router(topo, device=cuda),
+                         uniform_demands(topo, 800.0, device=cuda))
+    prob = SolveProblem.build(inc, "cuda")
+    fn = {"segment_sum": segment_sum, "segment_min": segment_min}[kernel]
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    xs = torch.rand(20, inc.nnz, dtype=torch.float64, device=cuda,
+                    generator=gen)
+    cols = [(prob.edge, prob.n_edges, prob.edge_plan),
+            (inc.flow, inc.n_flows, prob.flow_plan)]
+
+    def calls():
+        outs = []
+        for i in range(20):
+            ids, n_seg, plan = cols[i % 2]
+            outs.append(fn(xs[i], ids, n_seg, plan=plan))
+        return outs
+
+    eager = calls()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    reset_launch_counts()
+    with torch.cuda.graph(graph):
+        outs = calls()
+    assert LAUNCHES[kernel] == 20
+    for o in outs:
+        o.fill_(-1.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert LAUNCHES[kernel] == 20
+    for got, want in zip(outs, eager):
+        assert torch.equal(got, want)
 
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}

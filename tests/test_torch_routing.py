@@ -102,3 +102,33 @@ def test_unported_modes_raise():
         router.incidence(dem, "adaptive")
     with pytest.raises(ValueError, match="unknown mode"):
         router.route(dem, "bogus")
+
+
+def test_load_sweep_defaults_match_the_reference():
+    """Every parameter the port's ``load_sweep`` shares with the
+    reference's has the reference's default (``net``, each package's own
+    ``NetParams``, by its fields).  So a call without ``mode`` asks for
+    the reference's adaptive routing, which the port has not ported: it
+    raises, where it once returned minimal-routing rows."""
+    import dataclasses
+    import inspect
+
+    from repro.core.netsim import load_sweep as ref_load_sweep
+    from repro_torch.core.netsim import load_sweep
+
+    ref = inspect.signature(ref_load_sweep).parameters
+    port = inspect.signature(load_sweep).parameters
+    shared = set(ref) & set(port)
+    assert {"mode", "load_fractions", "msg_bytes", "net", "router",
+            "simulate", "flow_time_s", "sim_backend"} <= shared
+    for name in sorted(shared):
+        want, got = ref[name].default, port[name].default
+        if name == "net":
+            assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        else:
+            assert got == want, name
+    topo = MPHX(**TOPOS["mphx-2p-8x8"])
+    router = make_router(topo, device="cpu")
+    with pytest.raises(NotImplementedError, match="adaptive"):
+        load_sweep(topo, lambda t, g: uniform_demands(t, g, device="cpu"),
+                   router=router)

@@ -6,9 +6,15 @@ tensors) are held against ``repro.kernels.segment_fairshare``'s
 in interpret mode under x64.  Tolerances: sum within
 ``1e-12 * max|value| * NNZ`` (the summation order differs), min exact.
 The segment plans the CUDA kernels read are checked here by replaying
-them in Python; the kernels themselves run only on a GPU
-(``tests/test_torch_gpu.py``).
+them in Python, and the sum kernel's ordered twin
+(``segment_sum_ordered_ref``, its order of additions at each lanes
+count) against the references and, bit for bit, against a
+left-to-right loop and its own 32-lane order; the kernels themselves run
+only on a GPU (``tests/test_torch_gpu.py``).
 """
+
+import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -21,9 +27,18 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.segment_fairshare import (  # noqa: E402
     segment_min as pallas_segment_min, segment_min_ref as jax_min_ref,
     segment_sum as pallas_segment_sum, segment_sum_ref as jax_sum_ref)
+from repro_torch.core.hyperx import MPHX  # noqa: E402
+from repro_torch.core.netsim import make_router  # noqa: E402
+from repro_torch.core.routing_vec import (  # noqa: E402
+    neighbor_shift_demands, uniform_demands)
 from repro_torch.kernels.segment_fairshare import (  # noqa: E402
-    LAUNCHES, make_plan, reset_launch_counts, segment_min, segment_min_ref,
-    segment_sum, segment_sum_ref)
+    LANES, LAUNCHES, lanes_for, make_plan, reset_launch_counts,
+    segment_min, segment_min_ref, segment_sum, segment_sum_ordered_ref,
+    segment_sum_ref)
+from repro_torch.kernels.segment_fairshare.ops import (  # noqa: E402
+    check_inputs)
+from repro_torch.sim.fairshare import (  # noqa: E402
+    SolveProblem, flow_incidence)
 
 
 @pytest.fixture(autouse=True)
@@ -167,3 +182,149 @@ def test_cpu_tensors_launch_nothing():
     segment_sum(torch.from_numpy(vals), torch.from_numpy(ids), n_seg)
     segment_min(torch.from_numpy(vals), torch.from_numpy(ids), n_seg)
     assert LAUNCHES == {"segment_sum": 0, "segment_min": 0}
+
+
+@pytest.mark.parametrize("num_segments", [1, 2, 3, 7, 64, 1000])
+def test_lanes_for_is_the_smallest_power_of_two_at_the_mean(num_segments):
+    for nnz in range(0, 40 * num_segments + 2,
+                     max(1, num_segments // 7)):
+        lanes = lanes_for(nnz, num_segments)
+        mean = nnz / num_segments
+        assert lanes in LANES and lanes & (lanes - 1) == 0 and lanes <= 32
+        if mean <= 32:
+            assert lanes >= mean, (nnz, num_segments)
+            assert lanes == 1 or lanes / 2 < mean, (nnz, num_segments)
+        else:
+            assert lanes == 32
+
+
+def test_plans_carry_their_lanes():
+    ids = torch.tensor([0, 0, 0, 1, 2, 2, 2, 2, 2])
+    plan = make_plan(ids, 3)
+    assert plan.lanes == lanes_for(9, 3) == 4
+    assert dataclasses.replace(plan, lanes=16).lanes == 16
+    for bad in (0, 3, 64):
+        with pytest.raises(ValueError, match="lanes must be one of"):
+            dataclasses.replace(plan, lanes=bad)
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_keep_equals_a_plan_of_the_renumbered_ids(name):
+    """``SegmentPlan.keep`` drops a plan's empty segments without a new
+    sort: its offsets, permutation and lanes are those of a plan sorted
+    afresh from the renumbered ids, and its twin gives the kept
+    segments' sums of the full plan, bit for bit."""
+    vals, ids, n_seg = make_case(name)
+    full = make_plan(torch.from_numpy(ids), n_seg)
+    kept = torch.nonzero(full.offsets[1:] > full.offsets[:-1]).squeeze(1)
+    k = kept.numpy()
+    # ids past the end stay past the end, in their order
+    new_ids = torch.from_numpy(np.where(ids < n_seg, np.searchsorted(k, ids),
+                                        ids - n_seg + k.size))
+    plan = full.keep(kept, new_ids)
+    fresh = make_plan(new_ids, k.size)
+    assert plan.ids is new_ids
+    assert ((plan.num_segments, plan.nnz, plan.lanes)
+            == (fresh.num_segments, fresh.nnz, fresh.lanes))
+    assert torch.equal(plan.offsets, fresh.offsets)
+    assert torch.equal(plan.perm, fresh.perm)
+    tv = torch.from_numpy(vals)
+    check_inputs(tv, new_ids, k.size, plan)
+    wide = segment_sum_ordered_ref(
+        tv, dataclasses.replace(full, lanes=plan.lanes))
+    got = segment_sum_ordered_ref(tv, plan)
+    assert got.numpy().tobytes() == wide[kept].numpy().tobytes()
+
+
+@functools.lru_cache(maxsize=None)
+def case_refs(name):
+    return jax_refs(*make_case(name))
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_ordered_twin_at_one_lane_is_a_left_to_right_loop(name):
+    vals, ids, n_seg = make_case(name)
+    plan = dataclasses.replace(make_plan(torch.from_numpy(ids), n_seg),
+                               lanes=1)
+    want = np.zeros(n_seg)
+    for s in range(n_seg):
+        for v in vals[ids == s]:
+            want[s] = want[s] + v
+    got = segment_sum_ordered_ref(torch.from_numpy(vals), plan).numpy()
+    assert got.tobytes() == want.tobytes()
+
+
+@pytest.mark.parametrize("lanes", LANES)
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_ordered_twin_matches_jax_ref_and_pallas(name, lanes):
+    vals, ids, n_seg = make_case(name)
+    plan = dataclasses.replace(make_plan(torch.from_numpy(ids), n_seg),
+                               lanes=lanes)
+    got = segment_sum_ordered_ref(torch.from_numpy(vals), plan).numpy()
+    assert got.shape == (n_seg,) and got.dtype == np.float64
+    for which, (want_sum, _) in case_refs(name).items():
+        np.testing.assert_allclose(got, want_sum, rtol=0,
+                                   atol=sum_tol(vals), err_msg=which)
+
+
+def twin_keeps_the_32_lane_bits(vals, plan) -> int:
+    """Asserts twin(G) == twin(32) bit for bit for every lanes count G
+    that no segment of ``plan`` is longer than; returns how many G."""
+    longest = int((plan.offsets[1:] - plan.offsets[:-1]).max()) \
+        if plan.num_segments else 0
+    wide = segment_sum_ordered_ref(vals, plan, 32)
+    held = 0
+    for lanes in LANES:
+        if lanes >= longest:
+            got = segment_sum_ordered_ref(vals, plan, lanes)
+            assert got.numpy().tobytes() == wide.numpy().tobytes(), lanes
+            held += 1
+    return held
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_ordered_twin_keeps_the_32_lane_bits_where_segments_fit(name):
+    vals, ids, n_seg = make_case(name)
+    tv = torch.from_numpy(vals)
+    plan = make_plan(torch.from_numpy(ids), n_seg)
+    twin_keeps_the_32_lane_bits(tv, plan)
+    # one entry a segment: every lanes count fits
+    one = make_plan(torch.arange(vals.size), vals.size, presorted=True)
+    assert twin_keeps_the_32_lane_bits(tv, one) == len(LANES)
+
+
+@pytest.mark.parametrize("scenario", ["uniform", "neighbor_shift"])
+def test_ordered_twin_keeps_the_32_lane_bits_on_the_incidence(scenario):
+    """The mphx-2p-8x8 incidence's two columns, as the solver plans them:
+    at the plan's lanes the twin gives the 32-lane order's bits."""
+    topo = MPHX(n=2, p=8, dims=(8, 8))
+    build = {"uniform": uniform_demands,
+             "neighbor_shift": neighbor_shift_demands}[scenario]
+    inc = flow_incidence(make_router(topo, device="cpu"),
+                         build(topo, 800.0, device="cpu"))
+    prob = SolveProblem.build(inc, "cuda")
+    want_lanes = {"uniform": (16, 4), "neighbor_shift": (1, 1)}[scenario]
+    assert (prob.edge_plan.lanes, prob.flow_plan.lanes) == want_lanes
+    rand = torch.from_numpy(np.random.default_rng(3).random(inc.nnz))
+    for vals in (inc.frac, rand):
+        for plan in (prob.edge_plan, prob.flow_plan):
+            assert twin_keeps_the_32_lane_bits(vals, plan) >= 1
+            got = segment_sum_ordered_ref(vals, plan)
+            assert torch.equal(got, segment_sum_ordered_ref(vals, plan, 32))
+
+
+def test_checks_run_on_every_device():
+    """The wrapper's checks on the CPU, where no kernel runs: values laid
+    out with a stride, and a plan whose tensors the kernel could not
+    read, are refused before the plain path."""
+    vals = torch.arange(8, dtype=torch.float64)
+    ids = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(ValueError, match="contiguous"):
+        segment_sum(vals[::2], ids, 2)
+    plan = make_plan(ids, 2)
+    for bad in (dataclasses.replace(plan, offsets=plan.offsets.long()),
+                dataclasses.replace(plan, perm=plan.perm[::1].long())):
+        for kern in (segment_sum, segment_min):
+            with pytest.raises(ValueError, match="plan tensors"):
+                kern(vals[:4], ids, 2, plan=bad)
+    assert check_inputs(vals[:4], ids, 2, plan) == torch.device("cpu")
