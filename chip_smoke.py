@@ -53,7 +53,10 @@ nonzero:
    at 2e-5 and bfloat16 per output row within 2e-2 of its max.  It has
    three routes too: bf16 with more than 64 rows a tile takes the
    TMA-fed ``wgmma`` kernel, bf16 with at most 64 (decode) the
-   ``mma.sync`` one, float32 the CUDA-core one (``f32``); its device
+   ``mma.sync`` one, float32 the CUDA-core one (``f32``); the ``mma``
+   route splits K where its grid leaves the card's slots under-filled
+   (``ops.splits_for``: decode down takes 2 on the H100, every other
+   shape 1), and each line carries its ``splits``; its device
    times come from the profiler and from CUDA graphs as attention's,
    beside ``torch.bmm``'s, with the SM clock around each timing.
 7. ``serve``: yi-9b at full width and depth (random bf16 weights drawn
@@ -73,7 +76,8 @@ nonzero:
    grouped-matmul launches per forward pass; 24 tensor-core attention
    launches in the two prefills, 768 decode ones; the 72 grouped-matmul
    launches of the two prefills on the ``wgmma`` route, the 2,304 of
-   decode on ``mma``), then on the plain path.
+   decode on ``mma``, of which the 768 down products split K on the
+   H100), then on the plain path.
    The ragged grouped matmul is held to its plain version on the routed
    rows of the first layer of a prefill wave, as routed and with groups
    padded to 128 rows (the ``wgmma`` route; timed as the grouped one,
@@ -806,7 +810,7 @@ def check_grouped_matmul() -> dict:
     shapes = [("prefill gate/up", 1280, d, f), ("prefill down", 1280, f, d),
               ("decode gate/up", 2, d, f), ("decode down", 2, f, d),
               ("window gate/up", 1300, d, f)]
-    results = {}
+    results, splits_by_case = {}, {}
     for case, M, K, N in shapes:
         x, w = expert_inputs(gen, E, M, K, N, torch.float32)
         err32 = check_close("grouped_matmul", gm.grouped_matmul(x, w),
@@ -833,6 +837,8 @@ def check_grouped_matmul() -> dict:
 
         heavy = M > 2
         n_bytes = 2 * (x.numel() + w.numel() + E * M * N)
+        splits = gm.ops.call_splits(x, w)
+        splits_by_case[case] = splits
         clock0 = sm_clock_mhz()
         kern_ms = time_ms(call, reps=3 if heavy else 20)
         clock1 = sm_clock_mhz()
@@ -841,7 +847,7 @@ def check_grouped_matmul() -> dict:
                                    reps=2 if heavy else 5, samples=3),
                "library_ms": time_ms(lib_call, reps=3 if heavy else 20),
                **gmm_cost(2 * E * M * K * N, n_bytes, x.dtype),
-               "kernel_route": call_route(x)}
+               "kernel_route": call_route(x), "splits": splits}
         results.setdefault("grouped_matmul", row)
         times = gmm_times(call, lib_call, heavy)
         emit("model_kernel", kernel="grouped_matmul", case=case,
@@ -858,6 +864,7 @@ def check_grouped_matmul() -> dict:
              achieved_GBps=n_bytes / (row["ms"] * 1e-3) / 1e9, ok=True)
         del x, w
         torch.cuda.empty_cache()
+    results["grouped_matmul"]["splits_by_case"] = splits_by_case
     return results
 
 
@@ -1508,7 +1515,8 @@ def check_ragged(params, x_flat, top_i) -> dict:
                      lambda: gm.ragged_grouped_matmul_masked_ref(xs, w, gs),
                      reps=2, samples=3),
                  **gmm_cost(2 * kept * K * N, n_bytes, xs.dtype),
-                 "kernel_route": call_route(xs, 128)}
+                 "kernel_route": call_route(xs, 128),
+                 "splits": gm.ops.call_splits(xs, w, 128)}
         # the yardstick last: the kernel's own numbers do not wait on it
         try:
             timed["library_ms"] = time_ms(lib_call, reps=3)
@@ -1541,6 +1549,7 @@ def phase_moe_serve(card: str) -> "tuple[dict, dict]":
     from repro_torch.kernels import grouped_matmul as gm
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.launch.serve import make_requests
+    from repro_torch.models.moe import _capacity
     from repro_torch.models.registry import get_config, get_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1573,15 +1582,36 @@ def phase_moe_serve(card: str) -> "tuple[dict, dict]":
     waves = runs["cuda"][0].waves
     passes = waves * (1 + SERVE_NEW)
     L = cfg.n_layers
+    # the K splits of a decode step's expert products, (E, C, K) buffers
+    # of the decode capacity C against the layers' weights
+    experts = params["layers"][0]["moe"]["experts"]
+    cap = _capacity(SERVE_BATCH, cfg)
+    decode_splits = {
+        name: gm.ops.call_splits(
+            w.new_empty((w.shape[0], cap, w.shape[1])), w)
+        for name, w in (("gate/up", experts["w_gate"]),
+                        ("down", experts["w_down"]))}
+    # on the H100's 132 SMs (264 slots of 2 blocks) the plan splits decode
+    # down's 384 blocks in 2 and leaves gate/up's 1,024 whole: pinned here,
+    # so a plan that stopped splitting would not lower the count it is
+    # held to below
+    if (torch.cuda.get_device_properties(0).multi_processor_count == 132
+            and decode_splits != {"gate/up": 1, "down": 2}):
+        raise AssertionError(f"moe_serve decode splits {decode_splits} on "
+                             "132 SMs, not gate/up 1 and down 2")
+    split_per_pass = L * (2 * (decode_splits["gate/up"] > 1)
+                          + (decode_splits["down"] > 1))
     want = {"rmsnorm": passes * (2 * L + 1), "flash_attention": passes * L,
             "flash_attention_tc": waves * L,
             "flash_attention_decode": (passes - waves) * L,
             "grouped_matmul": passes * 3 * L, "ragged_grouped_matmul": 0,
-            "grouped_matmul_wgmma": waves * 3 * L}
+            "grouped_matmul_wgmma": waves * 3 * L,
+            "grouped_matmul_splitk": (passes - waves) * split_per_pass}
     if launches != want:
         raise AssertionError(f"moe_serve launches {launches} != {want} "
                              f"({passes} forward passes)")
     emit("moe_serve", launches=launches, forward_passes=passes,
+         decode_capacity=cap, decode_splits=decode_splits,
          launches_per_pass={k: v / passes for k, v in launches.items()},
          tokens_equal_to_plain_path=tokens_equal(runs),
          tokens_total=SERVE_REQUESTS * SERVE_NEW)
@@ -1903,16 +1933,21 @@ def main() -> int:
             for path, counts in by_path.items()
             if counts.get(f"flash_attention_{route}")}
     # the grouped matmuls' rows time the wgmma route (mixtral prefill
-    # gate/up, the routed rows); their launches count every route, the
-    # wgmma ones (both variants) beside
+    # gate/up, the routed rows) with its K splits (1); their launches
+    # count every route, the wgmma ones (both variants) and the split-K
+    # ones (mma, S > 1) beside, and the grouped row every shape's splits
     for name in ("grouped_matmul", "ragged_grouped_matmul"):
         row = next(k for k in kernels if k["name"] == name)
         row["kernel_route"] = kernel_results[name]["kernel_route"]
+        row["splits"] = kernel_results[name]["splits"]
     gmm = next(k for k in kernels if k["name"] == "grouped_matmul")
-    gmm["launches_wgmma_by_path"] = {
-        path: counts["grouped_matmul_wgmma"]
-        for path, counts in by_path.items()
-        if counts.get("grouped_matmul_wgmma")}
+    gmm["splits_by_case"] = kernel_results["grouped_matmul"][
+        "splits_by_case"]
+    for route in ("wgmma", "splitk"):
+        gmm[f"launches_{route}_by_path"] = {
+            path: counts[f"grouped_matmul_{route}"]
+            for path, counts in by_path.items()
+            if counts.get(f"grouped_matmul_{route}")}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,11 +8,12 @@ their launch counts) and ``ref.py`` (the plain PyTorch versions).
 
 from .ops import (LAUNCHES, expert_ffn_matmul, grouped_matmul,
                   megablocks_matmul, ragged_grouped_matmul,
-                  reset_launch_counts)
-from .ref import (block_owners, grouped_matmul_ref, ragged_grouped_matmul_ref,
-                  ragged_grouped_matmul_masked_ref)
+                  reset_launch_counts, splits_for)
+from .ref import (block_owners, grouped_matmul_ref, grouped_matmul_split_ref,
+                  ragged_grouped_matmul_ref, ragged_grouped_matmul_masked_ref)
 
 __all__ = ["LAUNCHES", "block_owners", "expert_ffn_matmul", "grouped_matmul",
-           "grouped_matmul_ref", "megablocks_matmul", "ragged_grouped_matmul",
+           "grouped_matmul_ref", "grouped_matmul_split_ref",
+           "megablocks_matmul", "ragged_grouped_matmul",
            "ragged_grouped_matmul_masked_ref", "ragged_grouped_matmul_ref",
-           "reset_launch_counts"]
+           "reset_launch_counts", "splits_for"]

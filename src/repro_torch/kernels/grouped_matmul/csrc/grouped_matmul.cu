@@ -53,19 +53,33 @@
 //   mma.sync.m16n8k16 on 16 x 128 tiles with a 64-deep K tile, 4 warps,
 //   operands staged by cp.async (16-byte copies, zero-filled past the
 //   edges) in a 4-stage ring, fragments read with ldmatrix (.trans for
-//   w); the deep K tile keeps more of the weights in flight.
+//   w); the deep K tile keeps more of the weights in flight.  78,848
+//   bytes of shared memory a block leave room for 2 blocks an SM, 264
+//   slots on 132 SMs; mixtral's decode down (N 6,144) has 48 column tiles
+//   of 8 experts, 384 blocks that each walk all 256 K tiles: 1.45 waves,
+//   the second one half empty.  So the caller may split K (ops.splits_for:
+//   S in 1, 2, 4, 8, the least that fills 90 % of the waves' slots; 1
+//   wherever the grid already does): blockIdx.z then carries the split
+//   as well as the expert, each block walks ktiles / S K tiles and
+//   stores its fp32 tile to its split's plane of a workspace (S planes of
+//   the output's shape), and gmm_splitk_reduce_kernel adds the planes in
+//   split order and rounds once.  At S = 1 the kernel walks every K tile
+//   and rounds in its own epilogue, as before the split existed.
 // * f32: FFMA on CUDA cores (never TF32), 64 x 64 tiles of 4 x 4 per
 //   thread, in the same loop order.
 //
-// bf16 products are exact in fp32 and summed in fp32 in a fixed order
-// (no split K, no atomics), so every call gives the same bits.  bf16
-// needs K and N multiples of 8 and 16-byte aligned pointers (TMA's
+// bf16 products are exact in fp32 and summed in fp32 in a fixed order (a
+// split K's partial sums too, added in split order by one thread an
+// element; no atomics, no counters), so every call gives the same bits.
+// bf16 needs K and N multiples of 8 and 16-byte aligned pointers (TMA's
 // strides, cp.async's and the epilogue's vectors); the entry point
 // refuses other inputs.
 //
-// Launches on the caller's stream, allocates nothing, never synchronizes;
-// the entry point returns cudaGetLastError() of its launch, or an error
-// of its own when a tensor map cannot be encoded.
+// Launches on the caller's stream (both kernels of a split, in order),
+// allocates nothing (the caller passes the split's workspace), never
+// synchronizes; makes the given device current only if it is not; the
+// entry point returns the first error of its launches, or one of its own
+// when a tensor map cannot be encoded.
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder is
                    // looked up at run time (encoder()), libcuda is not
@@ -90,6 +104,8 @@ struct Params {
   int ragged;
   int64_t block_m;             // ragged: rows of an ownership block
   int tiles_per_block;         // ragged: CUDA row tiles per ownership block
+  int splits;                  // mma: K splits (1: no workspace)
+  float* ws;                   // mma, splits > 1: (splits, out's shape)
 };
 
 // One block's share: rows [row0, row0 + rows) of x and out (within the
@@ -102,11 +118,12 @@ struct Tile {
   int row0, expert;
 };
 
+// z: the block's expert (grouped; blockIdx.z but for a split K)
 template <int BM>
-__device__ __forceinline__ Tile make_tile(const Params& p) {
+__device__ __forceinline__ Tile make_tile(const Params& p, int64_t z) {
   Tile t;
   if (!p.ragged) {
-    const int64_t e = blockIdx.z;
+    const int64_t e = z;
     const int64_t row0 = static_cast<int64_t>(blockIdx.x) * BM;
     t.rows = static_cast<int>(min(static_cast<int64_t>(BM), p.m - row0));
     t.lo = 0;
@@ -223,14 +240,25 @@ gmm_bf16_kernel(const Params p) {
   bf16* As = reinterpret_cast<bf16*>(smem_raw);
   bf16* Bs = As + STAGES * BM * AS;
 
-  const Tile t = make_tile<BM>(p);
+  // blockIdx.z: split * (experts, 1 when ragged) + expert
+  const int ez = p.ragged ? 1 : p.experts;
+  const int split = static_cast<int>(blockIdx.z) / ez;
+  const Tile t = make_tile<BM>(p, blockIdx.z - split * ez);
   if (t.rows <= 0) return;
   const bf16* a = static_cast<const bf16*>(p.x) + t.a_off;
   const bf16* b = static_cast<const bf16*>(p.w) + t.b_off;
   bf16* c = static_cast<bf16*>(p.out) + t.c_off;
   const int64_t K = p.k, N = p.n;
   const int64_t n0 = static_cast<int64_t>(blockIdx.y) * BN;
-  const int ktiles = static_cast<int>((K + BK - 1) / BK);
+  // this split's K tiles: [kt0, kt0 + ktiles) (splits divides the count)
+  const int ktiles = static_cast<int>((K + BK - 1) / BK) / p.splits;
+  const int kt0 = split * ktiles;
+  // a split's fp32 partial tile goes to its plane of the workspace
+  float* part = nullptr;
+  if (p.splits > 1) {
+    const int64_t plane = (p.ragged ? p.m : p.experts * p.m) * N;
+    part = p.ws + split * plane + t.c_off;
+  }
 
   auto load_stage = [&](int stage, int kt) {
     const int64_t k0 = static_cast<int64_t>(kt) * BK;
@@ -260,7 +288,7 @@ gmm_bf16_kernel(const Params p) {
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load_stage(s, s);
+    if (s < ktiles) load_stage(s, kt0 + s);
     cp_async_commit();
   }
   for (int kt = 0; kt < ktiles; ++kt) {
@@ -268,7 +296,7 @@ gmm_bf16_kernel(const Params p) {
     __syncthreads();
     // refill the slot every warp finished reading in the last iteration
     const int next = kt + STAGES - 1;
-    if (next < ktiles) load_stage(next % STAGES, next);
+    if (next < ktiles) load_stage(next % STAGES, kt0 + next);
     cp_async_commit();
 
     const bf16* as = As + (kt % STAGES) * BM * AS;
@@ -299,7 +327,8 @@ gmm_bf16_kernel(const Params p) {
   }
   cp_async_wait<0>();
 
-  // epilogue: rows outside [lo, hi) are written as 0
+  // epilogue: rows outside [lo, hi) are written as 0, so a split's
+  // partials of such a row are 0 and so is their sum
 #pragma unroll
   for (int i = 0; i < MI; ++i) {
 #pragma unroll
@@ -313,11 +342,46 @@ gmm_bf16_kernel(const Params p) {
         const float v0 = keep ? acc[i][j][2 * half] : 0.f;
         const float v1 = keep ? acc[i][j][2 * half + 1] : 0.f;
         // N % 8 == 0: the pair lies inside the row
-        *reinterpret_cast<__nv_bfloat162*>(c + r * N + col) =
-            __floats2bfloat162_rn(v0, v1);
+        if (part != nullptr) {
+          *reinterpret_cast<float2*>(part + r * N + col) =
+              make_float2(v0, v1);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(c + r * N + col) =
+              __floats2bfloat162_rn(v0, v1);
+        }
       }
     }
   }
+}
+
+// The split K's second pass: out[i] = ws[0][i] + ws[1][i] + ... +
+// ws[splits - 1][i], added in that order in fp32 and rounded to bf16
+// once; `count` (the output's elements) is a multiple of 4 (N % 8 == 0),
+// and each thread takes 4 elements, 16-byte loads and an 8-byte store.
+// Bound by bytes: splits * 4 + 2 bytes an element, 0.88 MB at mixtral's
+// decode down (S = 2), a few microseconds.
+constexpr int kReduceThreads = 256;
+
+__global__ void __launch_bounds__(kReduceThreads)
+gmm_splitk_reduce_kernel(const float* __restrict__ ws, bf16* __restrict__ out,
+                         int64_t count, int splits) {
+  const int64_t i =
+      (static_cast<int64_t>(blockIdx.x) * kReduceThreads + threadIdx.x) * 4;
+  if (i >= count) return;
+  float4 acc = *reinterpret_cast<const float4*>(ws + i);
+  for (int s = 1; s < splits; ++s) {
+    const float4 v = *reinterpret_cast<const float4*>(ws + s * count + i);
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+  }
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(acc.x, acc.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(acc.z, acc.w);
+  uint2 packed;
+  packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+  packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(out + i) = packed;
 }
 
 // ---- the wgmma route -------------------------------------------------------
@@ -466,7 +530,7 @@ gmm_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                  const Params p) {
   using namespace wg;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Tile t = make_tile<kBM>(p);
+  const Tile t = make_tile<kBM>(p, blockIdx.z);
   if (t.rows <= 0) return;
   const uint32_t ring = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t bars = ring + kStages * kStageBytes;
@@ -571,7 +635,7 @@ __global__ void __launch_bounds__(kF32Threads)
 gmm_f32_kernel(const Params p) {
   __shared__ __align__(16) float As[kF32BK][kF32BM + 4];
   __shared__ __align__(16) float Bs[kF32BK][kF32BN + 4];
-  const Tile t = make_tile<kF32BM>(p);
+  const Tile t = make_tile<kF32BM>(p, blockIdx.z);
   if (t.rows <= 0) return;
   const float* a = static_cast<const float*>(p.x) + t.a_off;
   const float* b = static_cast<const float*>(p.w) + t.b_off;
@@ -620,13 +684,14 @@ gmm_f32_kernel(const Params p) {
 }
 
 // grid: row tiles (x), column tiles (y), experts (z; 1 when ragged)
+// times the K splits
 dim3 grid_for(const Params& p, int bm, int bn) {
   const int64_t row_tiles =
       p.ragged ? ((p.m + p.block_m - 1) / p.block_m) * p.tiles_per_block
                : (p.m + bm - 1) / bm;
   return dim3(static_cast<unsigned>(row_tiles),
               static_cast<unsigned>((p.n + bn - 1) / bn),
-              p.ragged ? 1u : static_cast<unsigned>(p.experts));
+              static_cast<unsigned>((p.ragged ? 1 : p.experts) * p.splits));
 }
 
 // the dynamic shared memory limit is an attribute of the function on the
@@ -660,6 +725,13 @@ int launch_mma(Params p, cudaStream_t stream) {
   p.tiles_per_block = static_cast<int>((p.block_m + C::kBM - 1) / C::kBM);
   gmm_bf16_kernel<C>
       <<<grid_for(p, C::kBM, C::kBN), C::kThreads, C::kSmem, stream>>>(p);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || p.splits == 1) return static_cast<int>(e);
+  const int64_t count = (p.ragged ? p.m : p.experts * p.m) * p.n;
+  const int64_t blocks = (count / 4 + kReduceThreads - 1) / kReduceThreads;
+  gmm_splitk_reduce_kernel<<<static_cast<unsigned>(blocks), kReduceThreads,
+                             0, stream>>>(p.ws, static_cast<bf16*>(p.out),
+                                          count, p.splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -745,20 +817,35 @@ bool aligned16(const void* ptr) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
+int launch(Params p, int route, cudaStream_t s) {
+  if (route == kRouteF32) {
+    p.tiles_per_block =
+        static_cast<int>((p.block_m + kF32BM - 1) / kF32BM);
+    gmm_f32_kernel<<<grid_for(p, kF32BM, kF32BN), kF32Threads, 0, s>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (route == kRouteMma) return launch_mma(p, s);
+  return launch_wgmma(p, s);
+}
+
 }  // namespace
 
 extern "C" {
 
 // x, w, out: contiguous.  dims (host memory, int64): ragged (0/1),
 // experts E, rows (M per expert, or T), K, N, block_m (ragged: the
-// ownership block, already min(block_m, T)).  grouped: x (E, M, K),
-// w (E, K, N), out (E, M, N).  ragged: x (T, K), w (E, K, N), out (T, N),
-// group_sizes (E,) int32 on the device.  route: 0 = f32 (float32), 1 =
+// ownership block, already min(block_m, T)), splits S.  grouped: x (E, M,
+// K), w (E, K, N), out (E, M, N).  ragged: x (T, K), w (E, K, N), out (T,
+// N), group_sizes (E,) int32 on the device.  route: 0 = f32 (float32), 1 =
 // mma, 2 = wgmma (both bfloat16: x, w and out alike; K and N multiples of
-// 8, pointers 16-byte aligned).
+// 8, pointers 16-byte aligned).  S is 1, or (mma only) 2, 4 or 8 dividing
+// ceil(K / 64), with workspace (S, out's shape) float32, 16-byte aligned;
+// workspace is not read at S = 1.  `device` is the CUDA device of every
+// pointer and of the stream.
 int grouped_matmul_forward(const void* x, const void* w, void* out,
-                           const void* group_sizes, const int64_t* dims,
-                           int route, void* stream) {
+                           const void* group_sizes, void* workspace,
+                           const int64_t* dims, int route, int device,
+                           void* stream) {
   Params p;
   p.x = x;
   p.w = w;
@@ -771,28 +858,41 @@ int grouped_matmul_forward(const void* x, const void* w, void* out,
   p.n = dims[4];
   p.block_m = p.ragged ? dims[5] : 0;
   p.tiles_per_block = 1;
-  if (p.experts <= 0 || p.m <= 0 || p.k <= 0 || p.n <= 0 ||
+  p.splits = static_cast<int>(dims[6]);
+  p.ws = static_cast<float*>(workspace);
+  const int64_t ktiles = (p.k + Decode::kBK - 1) / Decode::kBK;
+  const bool split_ok =
+      p.splits == 1 ||
+      ((p.splits == 2 || p.splits == 4 || p.splits == 8) &&
+       route == kRouteMma && ktiles % p.splits == 0 &&
+       workspace != nullptr && aligned16(workspace));
+  if (p.experts <= 0 || p.m <= 0 || p.k <= 0 || p.n <= 0 || !split_ok ||
       (p.ragged && (p.block_m <= 0 || group_sizes == nullptr)) ||
-      (!p.ragged && p.experts > 65535) || (p.n + 15) / 16 > 65535) {
+      (p.ragged ? p.splits : p.experts * static_cast<int64_t>(p.splits))
+          > 65535 ||
+      (p.n + 15) / 16 > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == kRouteF32) {
-    p.tiles_per_block =
-        static_cast<int>((p.block_m + kF32BM - 1) / kF32BM);
-    gmm_f32_kernel<<<grid_for(p, kF32BM, kF32BN), kF32Threads, 0, s>>>(p);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if ((route != kRouteMma && route != kRouteWgmma) || p.k % 8 != 0 ||
-      p.n % 8 != 0 || !aligned16(x) || !aligned16(w) || !aligned16(out)) {
+  if (route != kRouteF32 &&
+      ((route != kRouteMma && route != kRouteWgmma) || p.k % 8 != 0 ||
+       p.n % 8 != 0 || !aligned16(x) || !aligned16(w) || !aligned16(out))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (route == kRouteMma) return launch_mma(p, s);
   // tensor-map coordinates are 32-bit
-  if (p.m > INT32_MAX || p.k > INT32_MAX || p.n > INT32_MAX) {
+  if (route == kRouteWgmma &&
+      (p.m > INT32_MAX || p.k > INT32_MAX || p.n > INT32_MAX)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_wgmma(p, s);
+  int previous = -1;
+  cudaError_t e = cudaGetDevice(&previous);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (previous != device) {
+    e = cudaSetDevice(device);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int rc = launch(p, route, static_cast<cudaStream_t>(stream));
+  if (previous != device) cudaSetDevice(previous);
+  return rc;
 }
 
 // blocks of a route's kernel that fit on one SM (its dynamic shared

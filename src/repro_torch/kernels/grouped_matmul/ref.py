@@ -7,6 +7,13 @@ against on the card:
   copies of the reference's oracles (``repro/kernels/grouped_matmul/
   ref.py``): fp32 products, the result in x's dtype; the ragged one is
   exact per group (every row times its own group's weights).
+* :func:`grouped_matmul_split_ref` is the grouped matmul with K cut
+  into ``splits`` slices of whole 64-deep K tiles, as the ``mma`` route
+  splits it: each slice's fp32 product, the slices added in order, one
+  cast.  At ``splits=1`` it is :func:`grouped_matmul_ref`, bit for bit.
+  It is the yardstick of the split's arithmetic, against the JAX
+  reference on the CPU and for the forced-split kernel on the card, and
+  is never called on the main path.
 * :func:`ragged_grouped_matmul_masked_ref` is the ragged matmul as the
   Pallas kernel computes it (``kernel.py:_ragged_kernel``): rows are cut
   into blocks of ``min(block_m, T)``, a block is owned by the group of its
@@ -20,11 +27,35 @@ from __future__ import annotations
 
 import torch
 
+# the mma kernel's K tile (csrc/grouped_matmul.cu, ``Decode``): a split
+# K's slices are whole tiles of it
+K_TILE = 64
+
 
 def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (E, M, K), w (E, K, N) -> (E, M, N) in x's dtype, fp32 inside.
     One fp32 copy of ``w`` lives for the call."""
     return torch.bmm(x.float(), w.float()).to(x.dtype)
+
+
+def grouped_matmul_split_ref(x: torch.Tensor, w: torch.Tensor,
+                             splits: int) -> torch.Tensor:
+    """x (E, M, K), w (E, K, N) -> (E, M, N) in x's dtype: K cut into
+    ``splits`` slices of ceil(K / K_TILE) / splits whole K tiles (the
+    last one short where K is), each slice's product in fp32, the
+    products added in slice order in fp32 and cast once."""
+    K = x.shape[-1]
+    ktiles = -(-K // K_TILE)
+    if splits < 1 or ktiles % splits:
+        raise ValueError(f"grouped_matmul_split_ref: {splits} splits do not "
+                         f"divide the {ktiles} K tiles of K={K}")
+    step = ktiles // splits * K_TILE
+    acc = None
+    for lo in range(0, ktiles * K_TILE, step):
+        part = torch.bmm(x[..., lo:lo + step].float(),
+                         w[:, lo:lo + step].float())
+        acc = part if acc is None else acc + part
+    return acc.to(x.dtype)
 
 
 def ragged_grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor,

@@ -24,7 +24,8 @@ split-KV decode kernel (Sq = 1, both dtypes), whose launches
 Grouped matmuls: float32 at 2e-5; bfloat16 per output row within 2e-2 of
 the row's max |out| (the kernel and the plain version both sum bf16
 products in fp32, in another order, and round once), rows the ragged
-kernel masks exactly 0, two kernel runs bitwise equal.  The RG-LRU scan:
+kernel masks exactly 0, two kernel runs bitwise equal; so at every K
+split S of the ``mma`` route, whose S = 1 is the unsplit kernel's bits.  The RG-LRU scan:
 1e-5 (``tests/test_kernels.py``'s), two kernel runs bitwise equal.
 """
 
@@ -810,12 +811,14 @@ GMM_CASES = {"decode-m2": (8, 2, 256, 384), "one-row": (2, 1, 64, 64),
              "deep-k": (2, 192, 1000, 512)}
 
 
-def gmm_launches(dtype, tile_rows, grouped=0, ragged=0):
+def gmm_launches(dtype, tile_rows, grouped=0, ragged=0, splitk=0):
     """``gm.LAUNCHES`` after ``grouped`` and ``ragged`` calls whose tiles
-    have ``tile_rows`` rows: the bfloat16 ones past 64 rows on wgmma."""
+    have ``tile_rows`` rows: the bfloat16 ones past 64 rows on wgmma;
+    ``splitk`` of them on the mma route with K split."""
     wgmma = dtype == torch.bfloat16 and tile_rows > 64
     return {"grouped_matmul": grouped, "ragged_grouped_matmul": ragged,
-            "grouped_matmul_wgmma": (grouped + ragged) if wgmma else 0}
+            "grouped_matmul_wgmma": (grouped + ragged) if wgmma else 0,
+            "grouped_matmul_splitk": splitk}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -833,7 +836,9 @@ def test_grouped_matmul_kernel_matches_plain(cuda, dtype, name):
     got, again = gm.grouped_matmul(x, w), gm.grouped_matmul(x, w)
     want = gm.grouped_matmul_ref(x, w)
     torch.cuda.synchronize()
-    assert gm.LAUNCHES == gmm_launches(dtype, M, grouped=2)
+    split = gm.ops.call_splits(x, w) > 1
+    assert gm.LAUNCHES == gmm_launches(dtype, M, grouped=2,
+                                       splitk=2 if split else 0)
     assert torch.equal(got, again)
     assert got.dtype == dtype and got.shape == (E, M, N)
     if dtype == torch.float32:
@@ -855,14 +860,19 @@ def test_bf16_grouped_matmul_refuses_misaligned_operands(cuda):
     with pytest.raises(ValueError, match="16-byte aligned"):
         gm.ragged_grouped_matmul(x.reshape(E * M, K), w,
                                  torch.tensor([M, M], device=cuda))
-    assert gm.LAUNCHES == {"grouped_matmul": 0, "ragged_grouped_matmul": 0,
-                           "grouped_matmul_wgmma": 0}
+    assert gm.LAUNCHES == gmm_launches(torch.bfloat16, M)
 
 
-# route code, K: an unknown route, and each bf16 route given a K that is
-# not a multiple of 8 (TMA's row strides and the 16-byte copies need it)
-GMM_ENTRY_CASES = {"unknown-route": (3, 64), "wgmma-k-12": (2, 12),
-                   "mma-k-12": (1, 12)}
+# route code, K, splits: an unknown route, and each bf16 route given a K
+# that is not a multiple of 8 (TMA's row strides and the 16-byte copies
+# need it); then K splits the entry point refuses: one not in 1, 2, 4, 8,
+# one that does not divide the 6 K tiles of K = 384, and a split off the
+# mma route
+GMM_ENTRY_CASES = {"unknown-route": (3, 64, 1), "wgmma-k-12": (2, 12, 1),
+                   "mma-k-12": (1, 12, 1), "mma-splits-3": (1, 384, 3),
+                   "mma-splits-4-of-6-tiles": (1, 384, 4),
+                   "wgmma-splits-2": (2, 384, 2),
+                   "f32-splits-2": (0, 384, 2)}
 
 
 @pytest.mark.parametrize("name", sorted(GMM_ENTRY_CASES))
@@ -870,27 +880,39 @@ def test_grouped_matmul_entry_point_refuses_bad_calls(cuda, name):
     """The C entry point called directly, past the wrapper's checks: a
     refused call raises, launches nothing and writes nothing."""
     import ctypes
-    route, K = GMM_ENTRY_CASES[name]
+    route, K, splits = GMM_ENTRY_CASES[name]
     E, M, N = 2, 130, 64
-    x = torch.ones(E, M, K, dtype=torch.bfloat16, device=cuda)
-    w = torch.ones(E, K, N, dtype=torch.bfloat16, device=cuda)
-    out = torch.zeros(E, M, N, dtype=torch.bfloat16, device=cuda)
-    dims = (ctypes.c_int64 * 6)(0, E, M, K, N, 0)
+    dtype = torch.float32 if route == 0 else torch.bfloat16
+    x = torch.ones(E, M, K, dtype=dtype, device=cuda)
+    w = torch.ones(E, K, N, dtype=dtype, device=cuda)
+    out = torch.zeros(E, M, N, dtype=dtype, device=cuda)
+    ws = torch.zeros(max(splits, 1), E, M, N, device=cuda)
+    dims = (ctypes.c_int64 * 7)(0, E, M, K, N, 0, splits)
     with pytest.raises(RuntimeError, match="invalid argument"):
         gm.ops.LIBRARY.call("grouped_matmul", "grouped_matmul_forward",
                             x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                            None, dims, route,
+                            None, ws.data_ptr(), dims, route,
+                            torch.cuda.current_device(),
                             torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
-    assert not bool(out.any())
+    assert not bool(out.any()) and not bool(ws.any())
 
 
 def test_grouped_matmul_occupancy(cuda):
     """The wgmma kernel's 197,696 bytes of shared memory leave room for
-    one block on an SM; the other routes' kernels fit at least one."""
+    one block on an SM; the mma kernel's 78,848 for 2 (the number the
+    split plan's slots rest on: 264 on the H100's 132 SMs, where
+    mixtral's decode down takes 2 K splits and its gate/up 1); the
+    float32 kernel fits at least one."""
     assert gm.ops.occupancy("wgmma") == 1
-    assert gm.ops.occupancy("mma") >= 1
+    assert gm.ops.occupancy("mma") == 2
     assert gm.ops.occupancy("f32") >= 1
+    idx = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(idx).multi_processor_count
+    assert gm.ops.slots(idx) == 2 * sms
+    if sms == 132:
+        assert gm.splits_for(384, 256, gm.ops.slots(idx)) == 2
+        assert gm.splits_for(1024, 96, gm.ops.slots(idx)) == 1
 
 
 # group sizes, ownership block rows, K, N: the reference's four cases
@@ -937,6 +959,134 @@ def test_ragged_grouped_matmul_kernel_matches_plain(cuda, dtype, name):
         row_close(got[inside], want[inside], 2e-2)
 
 
+# the mma route's K split, forced through the private ``_launch``: the
+# grouped variant at a decode shape, and the ragged one with routed-16's
+# group sizes and 16-row blocks and with an empty group (empty-group's
+# sizes, 32-row blocks), all at K = 1,024 (16 K tiles, which every S
+# divides)
+SPLIT_CASES = {"grouped-decode": ((8, 2, 1024, 384), None, None),
+               "ragged-routed-16": ((None, None, 1024, 128),
+                                    [45, 3, 80, 0, 22], 16),
+               "ragged-empty-group": ((None, None, 1024, 256),
+                                      [128, 0, 64, 64], 32)}
+
+
+def split_call(name, cuda, splits):
+    """The case's inputs, a call of ``_launch`` at ``splits`` (None: the
+    route's own) and its plain version (the grouped variant's, at a
+    forced S, the split twin ``grouped_matmul_split_ref``); the group
+    sizes and block rows (None for the grouped variant)."""
+    (E, M, K, N), sizes, block_m = SPLIT_CASES[name]
+    gen = torch.Generator(device=cuda).manual_seed(len(name))
+    if sizes is None:
+        x, w = grouped_inputs(gen, (E, M, K), (E, K, N), torch.bfloat16,
+                              cuda)
+        gs = None
+        want = (gm.grouped_matmul_ref(x, w) if splits is None
+                else gm.grouped_matmul_split_ref(x, w, splits))
+    else:
+        x, w = grouped_inputs(gen, (sum(sizes), K), (len(sizes), K, N),
+                              torch.bfloat16, cuda)
+        gs = torch.tensor(sizes, device=cuda, dtype=torch.int32)
+        want = gm.ragged_grouped_matmul_masked_ref(x, w, gs, block_m)
+    dims = gm.ops._dims(x, w, block_m)
+    assert gm.ops.call_route(x, block_m) == "mma"
+
+    def call(s=splits):
+        out = torch.empty_like(want)
+        gm.ops._launch("grouped_matmul" if gs is None
+                       else "ragged_grouped_matmul", x, w, out, gs, dims,
+                       "mma", splits=s)
+        return out
+    return x, w, gs, block_m, call, want
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_grouped_matmul_split_k_matches_plain(cuda, name, splits):
+    """Each row within 2e-2 of its max of the plain version at every
+    forced S (the grouped variant's: the split twin, which adds the same
+    K slices in the same order, and every element within one bf16 step
+    of it plus 1e-4 of its row's max), the ragged variant's foreign rows
+    exactly 0, two calls the same bits, one split-and-reduce launch
+    counted per call at S > 1."""
+    x, w, gs, block_m, call, want = split_call(name, cuda, splits)
+    gm.reset_launch_counts()
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    ragged = 0 if gs is None else 2
+    assert gm.LAUNCHES == gmm_launches(
+        torch.bfloat16, 1, grouped=2 - ragged, ragged=ragged,
+        splitk=2 if splits > 1 else 0)
+    assert torch.equal(got, again)
+    if gs is None:
+        row_close(got, want, 2e-2)
+        ref = want.float()
+        rowmax = ref.abs().amax(-1, keepdim=True)
+        # one step of bf16 (8 significant bits) at |ref|
+        step = 2.0 ** -7 * ref.abs()
+        assert bool(((got.float() - ref).abs() <= step + 1e-4 * rowmax)
+                    .all())
+        return
+    _, inside = gm.block_owners(gs, x.shape[0], block_m)
+    assert bool((got[~inside] == 0).all())
+    row_close(got[inside], want[inside], 2e-2)
+
+
+def test_grouped_matmul_split_k_refused_before_any_launch(cuda):
+    """A forced S that does not divide ceil(K / 64) (4 of K = 384's 6
+    tiles), one not in 1, 2, 4, 8, and any S > 1 off the mma route raise
+    ``ValueError`` in the wrapper: nothing launched, nothing written."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x, w = grouped_inputs(gen, (2, 2, 384), (2, 384, 128), torch.bfloat16,
+                          cuda)
+    out = torch.zeros(2, 2, 128, dtype=torch.bfloat16, device=cuda)
+    dims = gm.ops._dims(x, w, None)
+    gm.reset_launch_counts()
+    for route, splits in (("mma", 4), ("mma", 3), ("mma", 16),
+                          ("wgmma", 2), ("f32", 2)):
+        with pytest.raises(ValueError, match="K splits"):
+            gm.ops._launch("grouped_matmul", x, w, out, None, dims, route,
+                           splits=splits)
+    torch.cuda.synchronize()
+    assert gm.LAUNCHES == gmm_launches(torch.bfloat16, 2)
+    assert not bool(out.any())
+
+
+def test_grouped_matmul_split_1_is_the_auto_route_where_it_gives_1(cuda):
+    """At a decode shape where the plan gives S = 1 (24 blocks over 4 K
+    tiles), the forced S = 1 call equals the wrapper's bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x, w = grouped_inputs(gen, (8, 2, 256), (8, 256, 384), torch.bfloat16,
+                          cuda)
+    assert gm.ops.call_splits(x, w) == 1
+    out = torch.empty(8, 2, 384, dtype=torch.bfloat16, device=cuda)
+    gm.ops._launch("grouped_matmul", x, w, out, None,
+                   gm.ops._dims(x, w, None), "mma", splits=1)
+    assert torch.equal(out, gm.grouped_matmul(x, w))
+
+
+def test_grouped_matmul_split_k_in_a_cuda_graph(cuda):
+    """One S = 2 call (its workspace, split kernel and reduction)
+    captured in a CUDA graph and replayed twice: the eager call's bits."""
+    x, w, gs, block_m, call, want = split_call("grouped-decode", cuda, 2)
+    eager = call()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call()                                  # warm-up off the default
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(2):
+        captured.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+    row_close(eager, want, 2e-2)
+
+
 @pytest.mark.parametrize("arch", ["mixtral-8x22b", "kimi-k2-1t-a32b"])
 def test_moe_decoder_through_kernels_matches_plain(cuda, arch):
     """An MoE smoke config in float32: prefill and decode logits through
@@ -964,9 +1114,11 @@ def test_moe_decoder_through_kernels_matches_plain(cuda, arch):
         got, caches = kern.decode_step(params, tok, caches)
         want, pcaches = plain.decode_step(params, tok, pcaches)
         assert float((got - want).abs().max()) <= 2e-5 * scale, step
+    # float32: no wgmma, no split
     assert gm.LAUNCHES == {"grouped_matmul": 5 * 3 * n_moe,
                            "ragged_grouped_matmul": 0,
-                           "grouped_matmul_wgmma": 0}   # float32: no wgmma
+                           "grouped_matmul_wgmma": 0,
+                           "grouped_matmul_splitk": 0}
 
 
 # B, S, W: tests/test_kernels.py's lru_scan sweep, and recurrentgemma-2b
