@@ -90,9 +90,12 @@ nonzero:
    runs through mixtral's 4,096-token window, a decode wave is profiled,
    and a float32 2-layer mixtral must agree at 2e-5 with no routing
    flipped.
-9. ``hybrid_serve``: the RG-LRU scan against its plain version at
-   ``tests/test_kernels.py``'s edge shapes and recurrentgemma-2b
-   prefill's (4, 1024, 2560) within 1e-5, RMSNorm at d_model 2,560 and
+9. ``hybrid_serve``: the RG-LRU scan bit for bit equal to its plain
+   version, with each shape's plan, at ``tests/test_kernels.py``'s edge
+   shapes, ragged widths and lengths, recurrentgemma-2b prefill's (4,
+   1024, 2560) (timed: event, device and CUDA-graph ms, GB/s and the
+   share of the bound by device ms) and its window wave's (1, 2304, 2560)
+   (a check row), RMSNorm at d_model 2,560 and
    attention at head dim 256 at the path's shapes (as phase 6); then
    recurrentgemma-2b uncut (26 layers, 6.26 GB of random bf16 weights,
    the gates and conv taps float32) serves the same traffic through the
@@ -1692,16 +1695,22 @@ def lru_scan_cost(a) -> dict:
 
 
 def check_lru_scan(gen) -> dict:
-    """The RG-LRU scan against its plain version, y and h_last within
-    LRU_TOL absolute and relative, two kernel runs the same bits: at
-    tests/test_kernels.py's edge shapes, then (timed) at recurrentgemma-2b
-    prefill's (4, 1024, 2560), all with a random h0."""
+    """The RG-LRU scan against its plain version: y and h_last bit for
+    bit equal to it (and so within LRU_TOL), two kernel runs the same
+    bits, with each shape's plan: at tests/test_kernels.py's edge shapes,
+    ragged widths and lengths, then (timed) recurrentgemma-2b prefill's
+    (4, 1024, 2560) and (a check row) its window wave's (1, 2304, 2560),
+    all with a random h0."""
     from repro_torch.kernels import rg_lru
 
     dev = torch.device("cuda")
     shapes = [("edge", 1, 16, 32), ("edge", 2, 75, 96), ("edge", 3, 128, 64),
-              ("edge", 1, 200, 48),
-              ("prefill", SERVE_BATCH, SERVE_PROMPT, 2560)]
+              ("edge", 1, 200, 48), ("ragged", 3, 40, 1),
+              ("ragged", 2, 70, 33), ("ragged", 2, 90, 2576),
+              ("ragged", 2, 1, 96), ("ragged", 2, 31, 96),
+              ("ragged", 2, 33, 96), ("ragged", 2, 1025, 160),
+              ("prefill", SERVE_BATCH, SERVE_PROMPT, 2560),
+              ("window", 1, HYBRID_WINDOW_PROMPT, 2560)]
     results = {}
     for case, B, S, W in shapes:
         a = torch.empty(B, S, W, device=dev).uniform_(0.4, 0.999,
@@ -1715,27 +1724,44 @@ def check_lru_scan(gen) -> dict:
                               f"y {(B, S, W)}"),
                   check_close("lru_scan", h, h2, wh, LRU_TOL,
                               f"h_last {(B, S, W)}"))
+        if not (torch.equal(y, wy) and torch.equal(h, wh)):
+            raise AssertionError(f"lru_scan {(B, S, W)}: not bit for bit "
+                                 "equal to lru_scan_ref")
         if not torch.equal(h, y[:, -1]):
             raise AssertionError(f"lru_scan {(B, S, W)}: h_last != y[:, -1]")
+        ops = rg_lru.ops
         line = {"kernel": "lru_scan", "case": case, "shape": [B, S, W],
-                "tolerance": LRU_TOL,
-                "bitwise_equal_to_plain": bool(torch.equal(y, wy)
-                                               and torch.equal(h, wh))}
-        if case == "edge":
+                "plan": {"threads": ops.THREADS, "stages": ops.STAGES,
+                         "steps": ops.STEPS, "vec": ops.call_plan(a, b)},
+                "blocks": math.prod(ops.grid(B, W)),
+                "shared_bytes": ops.SHARED_BYTES, "tolerance": LRU_TOL,
+                "bitwise_equal_to_plain": True}
+        if case in ("edge", "ragged"):
             emit("hybrid_serve", **line, max_abs_err=err, ok=True)
             continue
 
         def call():
             rg_lru.lru_scan(a, b, h0)
 
+        cost = lru_scan_cost(a)
+        dev_ms = device_time(call, "lru_scan_kernel")["ms"]
+        timed = {"kernel_device_ms": dev_ms, "kernel_graph_ms": graph_ms(call),
+                 "device_GBps": (cost["bytes"] / (dev_ms * 1e-3) / 1e9
+                                 if dev_ms else None),
+                 "bound_share_by_device_ms": (cost["bound_ms"] / dev_ms
+                                              if dev_ms else None)}
+        if case == "window":
+            emit("hybrid_serve", **line, max_abs_err=err, **timed,
+                 ms=time_ms(call), **cost, note="a check shape, not timed "
+                 "on the main path", ok=True)
+            continue
         row = {"max_abs_err": err, "ms": time_ms(call),
                "plain_ms": time_ms(lambda: rg_lru.lru_scan_ref(a, b, h0),
                                    reps=2, samples=3),
-               "library_ms": None, **lru_scan_cost(a)}
+               "library_ms": None, **cost}
         results["lru_scan"] = row
-        emit("hybrid_serve", **line, **row,
+        emit("hybrid_serve", **line, **row, **timed,
              library="none: no PyTorch call computes a linear recurrence",
-             kernel_device_ms=device_time(call, "lru_scan_kernel")["ms"],
              achieved_GBps=row["bytes"] / (row["ms"] * 1e-3) / 1e9, ok=True)
     return results
 

@@ -26,12 +26,15 @@ the row's max |out| (the kernel and the plain version both sum bf16
 products in fp32, in another order, and round once), rows the ragged
 kernel masks exactly 0, two kernel runs bitwise equal; so at every K
 split S of the ``mma`` route, whose S = 1 is the unsplit kernel's bits.  The RG-LRU scan:
-1e-5 (``tests/test_kernels.py``'s), two kernel runs bitwise equal.
+bit for bit equal to ``lru_scan_ref`` at every shape, with either width
+of moves, with other blocks and rings compiled in, and in a CUDA graph,
+two kernel runs bitwise equal.
 """
 
 import dataclasses
 import json
 import os
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1121,25 +1124,34 @@ def test_moe_decoder_through_kernels_matches_plain(cuda, arch):
                            "grouped_matmul_splitk": 0}
 
 
-# B, S, W: tests/test_kernels.py's lru_scan sweep, and recurrentgemma-2b
-# prefill's shape on the serve path
+# B, S, W: tests/test_kernels.py's lru_scan sweep, ragged widths (a block
+# past W, a lone column) and lengths (a stage past S, one step),
+# recurrentgemma-2b prefill's shape on the serve path and its window wave's
 LRU_CASES = {"1x16x32": (1, 16, 32), "2x75x96": (2, 75, 96),
              "3x128x64": (3, 128, 64), "1x200x48": (1, 200, 48),
-             "prefill-4x1024x2560": (4, 1024, 2560)}
+             "W1": (3, 40, 1), "W33": (2, 70, 33), "W2576": (2, 90, 2576),
+             "S1": (2, 1, 96), "S31": (2, 31, 96), "S33": (2, 33, 96),
+             "S1025": (2, 1025, 160),
+             "prefill-4x1024x2560": (4, 1024, 2560),
+             "window-1x2304x2560": (1, 2304, 2560)}
+
+
+def lru_inputs(cuda, B, S, W, with_h0=True):
+    gen = torch.Generator(device=cuda).manual_seed(B * S * W)
+    a = torch.empty(B, S, W, device=cuda).uniform_(0.4, 0.999,
+                                                    generator=gen)
+    b = torch.randn(B, S, W, device=cuda, generator=gen)
+    h0 = torch.randn(B, W, device=cuda, generator=gen) if with_h0 else None
+    return a, b, h0
 
 
 @pytest.mark.parametrize("with_h0", [True, False], ids=["h0", "zero-state"])
 @pytest.mark.parametrize("name", sorted(LRU_CASES))
 def test_lru_scan_kernel_matches_plain(cuda, name, with_h0):
-    """y and h_last at 1e-5 (tests/test_kernels.py's tolerance); both do
-    a rounded multiply then a rounded add per step, so they agree bit for
-    bit in practice, which is not asserted.  Two runs bitwise equal."""
-    B, S, W = LRU_CASES[name]
-    gen = torch.Generator(device=cuda).manual_seed(S * W)
-    a = torch.empty(B, S, W, device=cuda).uniform_(0.4, 0.999,
-                                                    generator=gen)
-    b = torch.randn(B, S, W, device=cuda, generator=gen)
-    h0 = torch.randn(B, W, device=cuda, generator=gen) if with_h0 else None
+    """y and h_last bit for bit equal to lru_scan_ref: both do a rounded
+    multiply then a rounded add per step, in time order.  Two runs the
+    same bits, one launch each."""
+    a, b, h0 = lru_inputs(cuda, *LRU_CASES[name], with_h0)
     rg_lru.reset_launch_counts()
     y, h = rg_lru.lru_scan(a, b, h0)
     y2, h2 = rg_lru.lru_scan(a, b, h0)
@@ -1147,10 +1159,136 @@ def test_lru_scan_kernel_matches_plain(cuda, name, with_h0):
     torch.cuda.synchronize()
     assert rg_lru.LAUNCHES["lru_scan"] == 2
     assert torch.equal(y, y2) and torch.equal(h, h2)
-    for got, want in ((y, wy), (h, wh)):
-        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                                   atol=1e-5, rtol=1e-5)
+    assert torch.equal(y, wy) and torch.equal(h, wh)
     assert torch.equal(h, y[:, -1])
+
+
+def lru_scan_times():
+    """``tools/lru_scan_times.py`` as a module (its ``plan_variant``,
+    ``entry_call`` and ``build_all``)."""
+    import importlib
+    import sys
+    tools = str(Path(__file__).resolve().parents[1] / "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    return importlib.import_module("lru_scan_times")
+
+
+# blocks and rings other than the kernel's own (32 threads, 4 x 16), each
+# under 48 KB a block
+LRU_VARIANTS = [(64, 2, 32), (128, 2, 16), (32, 4, 32), (32, 2, 64)]
+
+
+@pytest.fixture(scope="module")
+def lru_variants(tmp_path_factory):
+    """A copy of the package compiled with each of LRU_VARIANTS, built
+    at once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tool = lru_scan_times()
+    from grouped_matmul_times import load_package
+    root = tmp_path_factory.mktemp("lru_variants")
+    src = str(Path(rg_lru.__file__).resolve().parents[3])
+    pkgs = {plan: load_package(tool.plan_variant(src, *plan, root=root),
+                               "lru_{}x{}x{}_repro_torch".format(*plan),
+                               kernel="rg_lru")
+            for plan in LRU_VARIANTS}
+    tool.build_all(list(pkgs.values()))
+    return pkgs
+
+
+@pytest.mark.parametrize("vec", [4, 1])
+@pytest.mark.parametrize("plan", LRU_VARIANTS, ids=str)
+@pytest.mark.parametrize("name", ["W2576", "S1025", "prefill-4x1024x2560"])
+def test_lru_scan_forced_plans_keep_the_bits(cuda, lru_variants, name, plan,
+                                             vec):
+    """A block and ring other than the kernel's own, compiled into a copy
+    of the package, gives lru_scan_ref's bits through its wrapper and with
+    either width of moves forced through the launch word."""
+    ops = lru_variants[plan].ops
+    assert (ops.THREADS, ops.STAGES, ops.STEPS) == plan != (
+        rg_lru.ops.THREADS, rg_lru.ops.STAGES, rg_lru.ops.STEPS)
+    a, b, h0 = lru_inputs(cuda, *LRU_CASES[name])
+    wy, wh = rg_lru.lru_scan_ref(a, b, h0)
+    y, h = lru_variants[plan].lru_scan(a, b, h0)
+    y1, h1 = lru_scan_times().entry_call(ops, a, b, h0, vec)
+    torch.cuda.synchronize()
+    assert torch.equal(y, wy) and torch.equal(h, wh)
+    assert torch.equal(y1, wy) and torch.equal(h1, wh)
+
+
+@pytest.mark.parametrize("name", ["W2576", "S1025", "prefill-4x1024x2560"])
+def test_lru_scan_4_byte_moves_keep_the_bits(cuda, name):
+    """The 4-byte moves, forced through the launch word where the plan
+    takes 16-byte ones, give lru_scan_ref's bits; not counted."""
+    a, b, h0 = lru_inputs(cuda, *LRU_CASES[name])
+    assert rg_lru.ops.call_plan(a, b) == 4
+    rg_lru.reset_launch_counts()
+    y, h = lru_scan_times().entry_call(rg_lru.ops, a, b, h0, 1)
+    wy, wh = rg_lru.lru_scan_ref(a, b, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(y, wy) and torch.equal(h, wh)
+    assert rg_lru.LAUNCHES["lru_scan"] == 0
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_lru_scan_unaligned_inputs_move_4_bytes(cuda, offset):
+    """a, b and h0 that start off 16 bytes (views into a larger buffer)
+    take 4-byte moves and keep the bits; 16-byte moves refuse them."""
+    B, S, W = 2, 300, 256
+    gen = torch.Generator(device=cuda).manual_seed(offset)
+    buf = torch.empty(2 * B * S * W + B * W + 8, device=cuda).uniform_(
+        0.4, 0.999, generator=gen)
+    a = buf[offset:offset + B * S * W].view(B, S, W)
+    b = buf[B * S * W + 4:2 * B * S * W + 4].view(B, S, W)
+    h0 = buf[2 * B * S * W + 4 + offset:][:B * W].view(B, W)
+    assert rg_lru.ops.call_plan(a, b) == 1
+    y, h = rg_lru.lru_scan(a, b, h0)
+    wy, wh = rg_lru.lru_scan_ref(a, b, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(y, wy) and torch.equal(h, wh)
+    with pytest.raises(RuntimeError, match="lru_scan kernel launch failed"):
+        lru_scan_times().entry_call(rg_lru.ops, a, b, h0, 4)
+
+
+@pytest.mark.parametrize("vec,width", [
+    (0, 64), (2, 64), (3, 64), (5, 64), (7, 64), (4, 66), (4, 33), (4, 1)])
+def test_lru_scan_entry_point_refuses_bad_plans(cuda, vec, width):
+    """A width of moves without an instance, or 16-byte moves where W is
+    not a multiple of 4: refused with cudaErrorInvalidValue before any
+    launch, and not counted."""
+    a, b, h0 = lru_inputs(cuda, 2, 40, width)
+    rg_lru.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="lru_scan kernel launch failed"):
+        lru_scan_times().entry_call(rg_lru.ops, a, b, h0, vec)
+    assert rg_lru.LAUNCHES["lru_scan"] == 0
+
+
+@pytest.mark.parametrize("name", ["S1", "W33", "prefill-4x1024x2560"])
+def test_lru_scan_kernel_in_cuda_graph(cuda, name):
+    """10 scans captured in one CUDA graph and replayed give the bits of
+    10 eager calls; capturing counts the 10 launches once."""
+    B, S, W = LRU_CASES[name]
+    ins = [lru_inputs(cuda, B + i, S, W) for i in range(10)]
+    eager = [rg_lru.lru_scan(*args) for args in ins]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rg_lru.lru_scan(*ins[0])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    rg_lru.reset_launch_counts()
+    with torch.cuda.graph(graph):
+        outs = [rg_lru.lru_scan(*args) for args in ins]
+    assert rg_lru.LAUNCHES["lru_scan"] == 10
+    for y, h in outs:
+        y.zero_()
+        h.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert rg_lru.LAUNCHES["lru_scan"] == 10
+    for (y, h), (wy, wh) in zip(outs, eager):
+        assert torch.equal(y, wy) and torch.equal(h, wh)
 
 
 def test_lru_scan_kernel_refuses_strided_inputs(cuda):

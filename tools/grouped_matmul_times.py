@@ -75,15 +75,16 @@ SWEEP = (1, 2, 4, 8)
 HOST_CALLS, HOST_SAMPLES = 50, 7
 
 
-def load_package(src: str, name: str = "parent_repro_torch"):
-    """The ``repro_torch.kernels.grouped_matmul`` package under ``src``,
-    imported as ``<name>.kernels.grouped_matmul`` (the kernels import
-    each other relatively, and the top package's own ``__init__`` is not
+def load_package(src: str, name: str = "parent_repro_torch",
+                 kernel: str = "grouped_matmul"):
+    """The ``repro_torch.kernels.<kernel>`` package under ``src``,
+    imported as ``<name>.kernels.<kernel>`` (the kernels import each
+    other relatively, and the top package's own ``__init__`` is not
     run)."""
     top = types.ModuleType(name)
     top.__path__ = [str(Path(src) / "repro_torch")]
     sys.modules[name] = top
-    return importlib.import_module(f"{name}.kernels.grouped_matmul")
+    return importlib.import_module(f"{name}.kernels.{kernel}")
 
 
 def tile_variant(src: str, bn: int, stages: int) -> str:
