@@ -27,10 +27,31 @@ nonzero:
    with the launch counts read around that run alone; then again with
    the plain versions on the card; every row must agree at 1e-9
    relative, integers exactly.
-5. ``golden``: the mphx-2p-8x8 cells and the staggered trace of
-   ``tests/golden/fairshare_golden.json`` on the card, with the exact
-   epoch count.
-6. ``model_kernel``: RMSNorm and flash attention against their plain
+5. ``golden``: the mphx-2p-8x8 array cells (``uniform`` and
+   ``neighbor_shift`` in minimal routing, ``hotspot_valiant`` in
+   valiant) and the staggered trace of
+   ``tests/golden/fairshare_golden.json`` on the card: exact incidence
+   sizes, rates, link loads and FCT columns at the golden's tolerances,
+   the trace's exact epoch count.
+6. ``sweep``: ``--suite sweep`` over mphx-2p-16x16 (the five synthetic
+   scenarios) and mphx-4p-86x9 (the same; ``transpose`` a skip record on
+   its non-square grid) in minimal, valiant and adaptive routing, loads
+   0.5 and 1.0, measured FCTs on the minimal rows, through the kernels
+   (launch counts read around that run alone), then again with the
+   plain versions: every row at 1e-9 relative, integers exact.  Then
+   each (topology, scenario, mode)'s route alone at full injection with
+   its wall, adaptive bit for bit equal to the plain path (the sum
+   kernel's ordered twin) and, for every mphx-2p-16x16 scenario and
+   mphx-4p-86x9 uniform, to the CPU's; mphx-4p-86x9 uniform adaptive
+   twice, bit for bit; the sum kernel at that route's load-update shape; the route
+   under the profiler (device idle share, ten longest device ops).
+7. ``valiant_sim``: the valiant incidence of mphx-4p-86x9 hotspot (its
+   wall, size and peak memory; the sum kernel at its coalescing shape,
+   both kernels at its water-filling shapes), then
+   ``load_sweep(mode="valiant", simulate=True)`` at loads 0.5 and 0.9
+   through the kernels (launch counts read around that run alone) and
+   on the plain path: rows at 1e-9 relative, integers exact.
+8. ``model_kernel``: RMSNorm and flash attention against their plain
    versions (edge cases: ragged sizes, decode, GQA and MQA, a window, a
    ring cache with empty and wrapped slots, float32 and bfloat16), at
    the serve path's shapes (float32 at 2e-5; bfloat16, and for
@@ -59,7 +80,7 @@ nonzero:
    shape 1), and each line carries its ``splits``; its device
    times come from the profiler and from CUDA graphs as attention's,
    beside ``torch.bmm``'s, with the SM clock around each timing.
-7. ``serve``: yi-9b at full width and depth (random bf16 weights drawn
+9. ``serve``: yi-9b at full width and depth (random bf16 weights drawn
    on the card from a seed) serves 8 requests of 1,024 prompt tokens and
    32 new tokens each in waves of 4 through the kernels, with the launch
    counts read around that run alone (97 RMSNorm and 48 attention
@@ -69,7 +90,7 @@ nonzero:
    Prefill and teacher-forced decode logits of the two paths must agree,
    and a float32 2-layer yi-9b must agree at 2e-5; a decode wave is
    profiled for the device's idle share.
-8. ``moe_serve``: mixtral-8x22b at full width and 12 of its 56 layers
+10. ``moe_serve``: mixtral-8x22b at full width and 12 of its 56 layers
    (60.9 GB of random bf16 weights drawn on the card after yi-9b's are
    freed) serves the same traffic through the kernels, with the launch
    counts read around that run alone (25 RMSNorm, 12 attention and 36
@@ -90,13 +111,13 @@ nonzero:
    runs through mixtral's 4,096-token window, a decode wave is profiled,
    and a float32 2-layer mixtral must agree at 2e-5 with no routing
    flipped.
-9. ``hybrid_serve``: the RG-LRU scan bit for bit equal to its plain
+11. ``hybrid_serve``: the RG-LRU scan bit for bit equal to its plain
    version, with each shape's plan, at ``tests/test_kernels.py``'s edge
    shapes, ragged widths and lengths, recurrentgemma-2b prefill's (4,
    1024, 2560) (timed: event, device and CUDA-graph ms, GB/s and the
    share of the bound by device ms) and its window wave's (1, 2304, 2560)
    (a check row), RMSNorm at d_model 2,560 and
-   attention at head dim 256 at the path's shapes (as phase 6); then
+   attention at head dim 256 at the path's shapes (as phase 8); then
    recurrentgemma-2b uncut (26 layers, 6.26 GB of random bf16 weights,
    the gates and conv taps float32) serves the same traffic through the
    kernels, with the launch counts read around that run alone (53
@@ -108,7 +129,7 @@ nonzero:
    wave is
    profiled, and a float32 model at full width and 5 of its 26 layers
    must agree at 2e-5.
-10. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
+12. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
@@ -146,7 +167,17 @@ MAIN_SCENARIOS = ["uniform", "neighbor_shift"]
 MAIN_LOADS = (0.5, 0.9)
 # wall clocks, and the size of round-off (each row's agrees_1e-6 flag
 # holds that one to its bound)
-UNCOMPARED_KEYS = ("sim_wall_s", "max_abs_util_diff")
+UNCOMPARED_KEYS = ("sim_wall_s", "sweep_wall_s", "max_abs_util_diff")
+# the sweep phase: every synthetic scenario (transpose a skip record on
+# the non-square Table-2 row) in the three routing modes, measured FCTs
+# on the minimal rows
+SWEEP_TOPOS = ["mphx-2p-16x16", MAIN_TOPO]
+SWEEP_SCENARIOS = ["uniform", "neighbor_shift", "bit_complement",
+                   "transpose", "hotspot"]
+SWEEP_LOADS = (0.5, 1.0)
+# the valiant sim phase: water-filling over the valiant incidence
+VALIANT_SCENARIO = "hotspot"
+VALIANT_LOADS = (0.5, 0.9)
 
 KERNELS = {
     "segment_sum": "src/repro/kernels/segment_fairshare/kernel.py:97",
@@ -310,21 +341,28 @@ def device_events(prof) -> "list[tuple[str, int, float]]":
                   key=lambda k: -k[2])
 
 
-def bound(nnz: int, n_seg: int, permuted: bool) -> dict:
-    """Least time for one segment reduction: each value (8 B), each
-    permutation entry (4 B), each CSR offset (4 B) read once and each
-    output (8 B) written once, or one float64 operation per entry.  With
-    a permutation, also the bytes at the card's 32-byte sectors when each
-    gathered value takes a sector of its own, and their time (beside the
-    bound, not in it)."""
-    n_bytes = 8 * nnz + (4 * nnz if permuted else 0) + 4 * (n_seg + 1) \
-        + 8 * n_seg
+def bound(nnz: int, n_seg: int, permuted: bool, id_bytes: int) -> dict:
+    """Least time for one segment reduction: each value (8 B) read once,
+    each output (8 B) written once and the index read once in the
+    smaller of its two forms, or one float64 operation per entry.  The
+    index is the function's own ids (``id_bytes`` each) or the kernel's
+    plan (a 4-byte permutation entry per value where permuted, and a
+    4-byte CSR offset per segment), whichever is fewer bytes: a sparse
+    sum into many segments needs no offset per segment.  Both forms'
+    bytes are reported beside the bound, and with a permutation also the
+    plan's bytes at the card's 32-byte sectors when each gathered value
+    takes a sector of its own, and their time (not in the bound)."""
+    ids = id_bytes * nnz
+    plan = (4 * nnz if permuted else 0) + 4 * (n_seg + 1)
+    n_bytes = 8 * nnz + min(ids, plan) + 8 * n_seg
     t_bytes = n_bytes / PEAK_BYTES_PER_S
     t_ops = nnz / PEAK_FP64_PER_S
     out = {"bytes": n_bytes, "bound_ms": max(t_bytes, t_ops) * 1e3,
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_index": "ids" if ids < plan else "plan",
+           "ids_bytes": ids, "plan_bytes": plan}
     if permuted:
-        sectors = n_bytes + 24 * nnz
+        sectors = 8 * nnz + plan + 8 * n_seg + 24 * nnz
         out.update(sector_bytes=sectors,
                    sector_ms=sectors / PEAK_BYTES_PER_S * 1e3)
     return out
@@ -381,10 +419,7 @@ def phase_kernels() -> dict:
     from repro_torch.core.netsim import make_router
     from repro_torch.core.routing_vec import uniform_demands
     from repro_torch.experiments.sweep import SWEEP_TOPOLOGIES
-    from repro_torch.kernels.segment_fairshare import (make_plan,
-                                                       segment_min_ref,
-                                                       segment_sum_ref)
-    from repro_torch.kernels.segment_fairshare import ops
+    from repro_torch.kernels.segment_fairshare import make_plan
     from repro_torch.sim.fairshare import SolveProblem, flow_incidence
 
     dev = torch.device("cuda")
@@ -429,47 +464,61 @@ def phase_kernels() -> dict:
         ("segment_min", "flow", bneck_vals, flow),
         ("segment_min", "edge", bneck_vals, edge),
     ]
-    refs = {"segment_sum": segment_sum_ref, "segment_min": segment_min_ref}
     results = {}
     for name, site, vals, (ids, n_seg, plan, permuted) in shapes:
-        err, lanes = check_kernel(name, vals, ids, n_seg, plan,
-                                  main_shape=True)
         check_kernel(name, rand, ids, n_seg, plan, main_shape=True)
-        kern, ref = getattr(ops, name), refs[name]
-        out = torch.empty(n_seg, dtype=torch.float64, device=dev)
-        if name == "segment_sum":
-            library = "index_add_"
-
-            def lib_call():
-                out.zero_().index_add_(0, ids, vals)
-        else:
-            library = "scatter_reduce_(amin)"
-
-            def lib_call():
-                out.fill_(math.inf).scatter_reduce_(0, ids, vals, "amin")
-
-        def call():
-            kern(vals, ids, n_seg, plan=plan)
-
-        ms = time_ms(call)
-        plain_ms = time_ms(lambda: ref(vals, ids, n_seg))
-        lib_ms = time_ms(lib_call)
-        b = bound(nnz, n_seg, permuted)
-        row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms, "lanes": lanes, **b}
+        row = kernel_row(name, f"{MAIN_TOPO} uniform", site, vals, ids,
+                         n_seg, plan, permuted, main_shape=True)
         results.setdefault(name, row)
-        emit("kernel", kernel=name, case=f"{MAIN_TOPO} uniform", site=site,
-             nnz=nnz, segments=n_seg, permuted=permuted, lanes=lanes,
-             max_abs_err=err, ms=ms, plain_ms=plain_ms, library=library,
-             library_ms=lib_ms,
-             # one template, segment_reduce_kernel<Op, G>: the name
-             # matches the instance of every Op and lanes count, and the
-             # call launches one of them
-             kernel_device_ms=device_time(call,
-                                          "segment_reduce_kernel")["ms"],
-             library_device_ms=device_time(lib_call, "")["ms"], **b,
-             achieved_GBps=b["bytes"] / (ms * 1e-3) / 1e9, ok=True)
     return results
+
+
+def kernel_row(name: str, case: str, site: str, vals, ids, n_seg: int,
+               plan, permuted: bool, main_shape: bool = False) -> dict:
+    """One main-path shape of a segment kernel: held to its plain
+    version (:func:`check_kernel`), then timed beside the plain version
+    and the one PyTorch call that computes the same function, with its
+    bound; emits a ``kernel`` line and returns its numbers."""
+    from repro_torch.kernels.segment_fairshare import (segment_min_ref,
+                                                       segment_sum_ref)
+    from repro_torch.kernels.segment_fairshare import ops
+
+    err, lanes = check_kernel(name, vals, ids, n_seg, plan,
+                              main_shape=main_shape)
+    kern = getattr(ops, name)
+    ref = {"segment_sum": segment_sum_ref,
+           "segment_min": segment_min_ref}[name]
+    out = torch.empty(n_seg, dtype=torch.float64, device=vals.device)
+    if name == "segment_sum":
+        library = "index_add_"
+
+        def lib_call():
+            out.zero_().index_add_(0, ids, vals)
+    else:
+        library = "scatter_reduce_(amin)"
+
+        def lib_call():
+            out.fill_(math.inf).scatter_reduce_(0, ids, vals, "amin")
+
+    def call():
+        kern(vals, ids, n_seg, plan=plan)
+
+    ms = time_ms(call)
+    plain_ms = time_ms(lambda: ref(vals, ids, n_seg))
+    lib_ms = time_ms(lib_call)
+    nnz = vals.numel()
+    b = bound(nnz, n_seg, permuted, ids.element_size())
+    emit("kernel", kernel=name, case=case, site=site, nnz=nnz,
+         segments=n_seg, permuted=permuted, lanes=lanes, max_abs_err=err,
+         ms=ms, plain_ms=plain_ms, library=library, library_ms=lib_ms,
+         # one template, segment_reduce_kernel<Op, G>: the name matches
+         # the instance of every Op and lanes count, and the call
+         # launches one of them
+         kernel_device_ms=device_time(call, "segment_reduce_kernel")["ms"],
+         library_device_ms=device_time(lib_call, "")["ms"], **b,
+         achieved_GBps=b["bytes"] / (ms * 1e-3) / 1e9, ok=True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "lanes": lanes, **b}
 
 
 def compare_rows(a: dict, b: dict, where: str) -> None:
@@ -557,7 +606,8 @@ def phase_main_path() -> dict:
 
 def phase_golden() -> None:
     from repro_torch.core.netsim import make_router
-    from repro_torch.core.routing_vec import (neighbor_shift_demands,
+    from repro_torch.core.routing_vec import (hotspot_demands,
+                                              neighbor_shift_demands,
                                               uniform_demands)
     from repro_torch.experiments.sweep import SWEEP_TOPOLOGIES
     from repro_torch.sim.events import simulate_demands, simulate_incidence
@@ -566,14 +616,17 @@ def phase_golden() -> None:
     fixture = json.loads(GOLDEN.read_text())
     topo = SWEEP_TOPOLOGIES["mphx-2p-8x8"]
     router = make_router(topo, device="cuda")
-    builders = {"uniform": uniform_demands,
-                "neighbor_shift": neighbor_shift_demands}
-    for scen, build in builders.items():
+    builders = {"uniform": (uniform_demands, "minimal"),
+                "neighbor_shift": (neighbor_shift_demands, "minimal"),
+                "hotspot_valiant": (hotspot_demands, "valiant")}
+    for scen, (build, mode) in builders.items():
         cell = fixture["cells"][f"array/mphx-2p-8x8/{scen}"]
+        if cell["mode"] != mode:
+            raise AssertionError(f"{scen}: golden mode {cell['mode']}")
         for load_key, want in cell["loads"].items():
             dem = build(topo, float(load_key) * topo.nic_bw_gbps,
                         device="cuda")
-            inc = flow_incidence(router, dem)
+            inc = flow_incidence(router, dem, mode)
             assert (inc.n_flows, inc.n_edges, inc.nnz) == (
                 want["n_flows"], want["n_edges"], want["nnz"])
             caps = dem.gbps
@@ -591,7 +644,7 @@ def phase_golden() -> None:
             if lerr > 1e-9 * scale:
                 raise AssertionError(f"{scen}@{load_key}: loads err {lerr}")
             row = simulate_demands(router, dem, fixture["flow_time_s"],
-                                   backend="cuda", inc=inc)
+                                   mode=mode, backend="cuda", inc=inc)
             for k, v in want["fct"].items():
                 got = row[k]
                 if isinstance(v, float) and v != 0:
@@ -601,7 +654,8 @@ def phase_golden() -> None:
                 elif got != v:
                     raise AssertionError(f"{scen}@{load_key}: {k} "
                                          f"{got} != {v}")
-            emit("golden", cell=f"mphx-2p-8x8/{scen}", load=load_key,
+            emit("golden", cell=f"mphx-2p-8x8/{scen}", mode=mode,
+                 load=load_key, n_flows=inc.n_flows, nnz=inc.nnz,
                  rates_max_abs_err=err, loads_max_abs_err=lerr,
                  epochs=row["sim_epochs"], ok=True)
     rec = fixture["staggered"]
@@ -629,6 +683,255 @@ def phase_golden() -> None:
         raise AssertionError(f"staggered: edge bytes err {berr.max()}")
     emit("golden", cell="staggered mphx-2p-8x8/neighbor_shift",
          epochs=res.n_epochs, finish_max_abs_err=ferr, ok=True)
+
+
+def timed(fn):
+    """``(fn(), wall seconds)``, the device synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def capture_sums(fn):
+    """``(fn(), calls)``: ``calls`` holds the ``(values, ids, n)`` of
+    each fixed-order sum of the router (``routing_vec.ordered_sum``) that
+    ``fn`` made, the shapes the sum kernel takes on that path."""
+    from repro_torch.core import routing_vec
+
+    calls = []
+    ordered_sum = routing_vec.ordered_sum
+
+    def spy(values, ids, n, backend):
+        calls.append((values, ids, n))
+        return ordered_sum(values, ids, n, backend)
+
+    routing_vec.ordered_sum = spy
+    try:
+        out = fn()
+    finally:
+        routing_vec.ordered_sum = ordered_sum
+    return out, calls
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.view(torch.int64), b.view(torch.int64))
+
+
+def run_sweep(backend: str, out: str) -> "tuple[dict, float]":
+    from repro_torch.experiments.sweep import run_sweep_suite
+
+    return timed(lambda: run_sweep_suite(
+        str(OUT_DIR / out), topo_names=SWEEP_TOPOS,
+        scenario_names=SWEEP_SCENARIOS, load_fractions=SWEEP_LOADS,
+        simulate=True, sim_backend=backend, device="cuda"))
+
+
+def phase_sweep() -> dict:
+    from repro_torch.core.netsim import make_router
+    from repro_torch.core.routing_vec import uniform_demands
+    from repro_torch.experiments.scenarios import get_scenario
+    from repro_torch.experiments.sweep import (ROUTING_MODES,
+                                               SWEEP_TOPOLOGIES,
+                                               run_sweep_suite)
+    from repro_torch.kernels.segment_fairshare import (LAUNCHES, make_plan,
+                                                       reset_launch_counts)
+
+    # a small run first, so that neither timed run pays the first use of
+    # torch's own kernels
+    run_sweep_suite(str(OUT_DIR / "sweep_warmup"),
+                    topo_names=["mphx-2p-8x8"], load_fractions=(1.0,),
+                    scenario_names=["hotspot"], simulate=True,
+                    device="cuda")
+    reset_launch_counts()
+    runs = {"cuda": run_sweep("cuda", "sweep_cuda")}
+    launches = dict(LAUNCHES)
+    runs["torch"] = run_sweep("torch", "sweep_torch")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"sweep launched no {missing} kernel")
+    rows = {b: p["rows"] for b, (p, _) in runs.items()}
+    if len(rows["cuda"]) != len(rows["torch"]):
+        raise AssertionError("the sweep's two runs have other rows")
+    skipped = [(r["topology"], r["scenario"]) for r in rows["cuda"]
+               if r.get("skipped")]
+    if skipped != [(SWEEP_TOPOLOGIES[MAIN_TOPO].name, "transpose")]:
+        raise AssertionError(f"unexpected skip records {skipped}")
+    routed = [r for r in rows["cuda"] if not r.get("skipped")]
+    want = (2 * len(SWEEP_SCENARIOS) - 1) * len(ROUTING_MODES) \
+        * len(SWEEP_LOADS)
+    if len(routed) != want:
+        raise AssertionError(f"{len(routed)} routed rows, not {want}")
+    for a, b in zip(rows["cuda"], rows["torch"]):
+        compare_rows(a, b, f"{a['topology']}/{a['scenario']}/"
+                           f"{a.get('mode')}")
+        for k, v in a.items():
+            if isinstance(v, float) and not math.isfinite(v):
+                raise AssertionError(f"{a['scenario']}: {k} = {v}")
+    for backend, (payload, wall) in runs.items():
+        cells = {}
+        for r in payload["rows"]:
+            if not r.get("skipped"):
+                cells.setdefault((r["topology"], r["scenario"], r["mode"]),
+                                 []).append(r)
+        for (topo, scen, mode), rs in cells.items():
+            emit("sweep", backend=backend, topology=topo, scenario=scen,
+                 mode=mode, max_util=[r["max_util"] for r in rs],
+                 fct_p99_us=[r.get("fct_p99_us") for r in rs],
+                 sweep_wall_s=rs[0]["sweep_wall_s"])
+        emit("sweep", backend=backend, suite_wall_s=wall,
+             device_name=payload["params"]["device_name"])
+    emit("sweep", launches=launches, rows_agree=True, routed_rows=want,
+         ok=True)
+
+    # each (topology, scenario, mode)'s route alone at full injection;
+    # adaptive also on the plain path, bit for bit, and on the CPU (every
+    # mphx-2p-16x16 scenario and the Table-2 row's uniform), bit for bit
+    for tn in SWEEP_TOPOS:
+        topo = SWEEP_TOPOLOGIES[tn]
+        router = make_router(topo, device="cuda")
+        for scen in SWEEP_SCENARIOS:
+            sc = get_scenario(scen)
+            if not sc.applicable(topo):
+                continue
+            dem = sc.build(topo, topo.nic_bw_gbps, device="cuda")
+            for mode in ROUTING_MODES:
+                ll, wall = timed(lambda: router.route(dem, mode))
+                line = {"route_wall_s": wall}
+                if mode == "adaptive":
+                    plain, pwall = timed(lambda: router.route(
+                        dem, mode, backend="torch"))
+                    if not same_bits(ll.loads, plain.loads):
+                        raise AssertionError(f"{tn}/{scen}: adaptive loads "
+                                             "differ from the plain path")
+                    line.update(plain_route_wall_s=pwall,
+                                bits_equal_plain=True)
+                if mode == "adaptive" and (tn != MAIN_TOPO
+                                           or scen == "uniform"):
+                    t0 = time.perf_counter()
+                    cpu = make_router(topo, device="cpu").route(
+                        sc.build(topo, topo.nic_bw_gbps, device="cpu"),
+                        mode)
+                    cwall = time.perf_counter() - t0
+                    if not same_bits(ll.loads.cpu(), cpu.loads):
+                        diff = (ll.loads.cpu() - cpu.loads).abs()
+                        raise AssertionError(
+                            f"{tn}/{scen}: adaptive loads differ from the "
+                            f"CPU's in {int((diff > 0).sum())} slots, "
+                            f"max {float(diff.max())}")
+                    line.update(cpu_route_wall_s=cwall, bits_equal_cpu=True)
+                emit("sweep", topology=tn, scenario=scen, mode=mode,
+                     demands=dem.n, max_util=ll.max_utilization(), **line)
+
+    # the Table-2 row, uniform, adaptive: repeatable, its load update's
+    # shape held and timed, and the route profiled
+    topo = SWEEP_TOPOLOGIES[MAIN_TOPO]
+    router = make_router(topo, device="cuda")
+    dem = uniform_demands(topo, topo.nic_bw_gbps, device="cuda")
+    first, calls = capture_sums(lambda: router.route(dem, "adaptive"))
+    again = router.route(dem, "adaptive")
+    if not same_bits(first.loads, again.loads):
+        raise AssertionError("adaptive: two kernel runs differ")
+    # the second round's first sub-batch (the loads no longer 0)
+    vals, ids, n = calls[len(calls) // 8]
+    kernel_row("segment_sum", f"{MAIN_TOPO} uniform", "adaptive update",
+               vals, ids, n, make_plan(ids, n), True)
+    emit("sweep", repeat=f"{MAIN_TOPO} uniform adaptive", bits_equal=True,
+         sums=len(calls), sum_nnz=[c[0].numel() for c in calls[:8]],
+         sum_segments=n)
+    del calls, vals, ids
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(lambda: router.route(dem, "adaptive"))
+    kernels = device_events(prof)
+    busy_ms = sum(k[2] for k in kernels) / 1e3
+    emit("sweep", profiled=f"{MAIN_TOPO} uniform adaptive route",
+         profiled_wall_s=wall, device_busy_ms=busy_ms,
+         device_idle_share=1.0 - busy_ms / (wall * 1e3),
+         top_device_ops=[{"name": n[:80], "count": c, "ms": t / 1e3}
+                         for n, c, t in kernels[:10]])
+    del first, again, dem, router, runs, rows, routed
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_valiant_sim() -> dict:
+    from repro_torch.core.netsim import load_sweep, make_router
+    from repro_torch.experiments.scenarios import get_scenario
+    from repro_torch.experiments.sweep import SWEEP_TOPOLOGIES
+    from repro_torch.kernels.segment_fairshare import (LAUNCHES, make_plan,
+                                                       reset_launch_counts)
+    from repro_torch.sim.fairshare import SolveProblem, flow_incidence
+
+    topo = SWEEP_TOPOLOGIES[MAIN_TOPO]
+    sc = get_scenario(VALIANT_SCENARIO)
+
+    def build(t, offered):
+        return sc.build(t, offered, device="cuda")
+
+    case = f"{MAIN_TOPO} {VALIANT_SCENARIO} valiant"
+    # the incidence alone: its wall, size and peak memory, and the
+    # shapes the kernels take on it
+    router = make_router(topo, device="cuda")
+    dem = build(topo, VALIANT_LOADS[0] * topo.nic_bw_gbps)
+    torch.cuda.reset_peak_memory_stats()
+    (inc, calls), wall = timed(lambda: capture_sums(
+        lambda: flow_incidence(router, dem, "valiant")))
+    emit("valiant_sim", incidence_wall_s=wall, flows=inc.n_flows,
+         raw_entries=calls[0][0].numel(), nnz=inc.nnz,
+         incidence_peak_bytes=torch.cuda.max_memory_allocated())
+    vals, ids, n = calls[0]
+    kernel_row("segment_sum", case, "coalescing", vals, ids, n,
+               make_plan(ids, n), True)
+    del calls, vals, ids
+    prob = SolveProblem.build(inc, "cuda")
+    kernel_row("segment_sum", case, "edge", inc.frac, prob.edge,
+               prob.n_edges, prob.edge_plan, True)
+    kernel_row("segment_sum", case, "flow", inc.frac, inc.flow,
+               inc.n_flows, prob.flow_plan, False)
+    kernel_row("segment_min", case, "flow", inc.capacity[inc.edge]
+               / inc.frac, inc.flow, inc.n_flows, prob.flow_plan, False)
+    del prob, inc, dem, router
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for backend in ("cuda", "torch"):
+        router = make_router(topo, device="cuda")
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        rows, wall = timed(lambda: load_sweep(
+            topo, build, mode="valiant", load_fractions=VALIANT_LOADS,
+            router=router, simulate=True, flow_time_s=200e-6,
+            sim_backend=backend))
+        if backend == "cuda":
+            launches = dict(LAUNCHES)
+        runs[backend] = rows
+        for r in rows:
+            emit("valiant_sim", backend=backend,
+                 offered_fraction=r["offered_fraction"],
+                 max_util=r["max_util"], flows=r["sim_flows"],
+                 sim_nnz=r["sim_nnz"], epochs=r["sim_epochs"],
+                 waterfill_rounds=r["sim_waterfill_rounds"],
+                 fct_p50_us=r["fct_p50_us"], fct_p99_us=r["fct_p99_us"],
+                 slowdown_p99=r["slowdown_p99"],
+                 delivered=r["sim_delivered_fraction"])
+        emit("valiant_sim", backend=backend, wall_s=wall,
+             peak_bytes=torch.cuda.max_memory_allocated())
+        del router
+        torch.cuda.empty_cache()
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"valiant sim launched no {missing} kernel")
+    for a, b in zip(runs["cuda"], runs["torch"]):
+        compare_rows(a, b, f"valiant/{a['offered_fraction']}")
+        for k, v in a.items():
+            if isinstance(v, float) and not math.isfinite(v):
+                raise AssertionError(f"valiant: {k} = {v}")
+    if len(runs["cuda"]) != len(VALIANT_LOADS):
+        raise AssertionError("valiant sim: missing rows")
+    emit("valiant_sim", launches=launches, rows_agree=True, ok=True)
+    return launches
 
 
 def phase_build() -> None:
@@ -1529,7 +1832,7 @@ def check_ragged(params, x_flat, top_i) -> dict:
             timed["library_ms"] = None
             lib_note = f"torch._grouped_mm unavailable: {e}"
             lib = None
-        # late in the process: a longer profiler session than phase 6's
+        # late in the process: a longer profiler session than phase 8's
         times = gmm_times(call, lib, True, reps=10)
         row.setdefault("ragged_grouped_matmul", timed)
         emit("moe_serve", kernel="ragged_grouped_matmul", case=case,
@@ -1920,6 +2223,9 @@ def main() -> int:
     # each path's launch counts, read around that path's own run
     by_path = {"sim mphx-4p-86x9": phase_main_path()}
     phase_golden()
+    by_path["sweep mphx-2p-16x16, mphx-4p-86x9"] = phase_sweep()
+    by_path[f"valiant sim {MAIN_TOPO} {VALIANT_SCENARIO}"] = \
+        phase_valiant_sim()
     kernel_results.update(phase_model_kernels())
     by_path[f"{SERVE_ARCH} serve"] = phase_serve(card)
     by_path[f"{MOE_ARCH} serve"], ragged = phase_moe_serve(card)

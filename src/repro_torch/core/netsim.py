@@ -50,8 +50,8 @@ def resolve_engine(topo: Topology, engine: str = "auto") -> str:
     if engine == "graph" or not isinstance(topo, MPHX):
         raise NotImplementedError(
             f"the graph routing engine (needed for {topo.name}) is not "
-            "ported to repro_torch yet (ROADMAP.md, queue 1: graph engine "
-            "and Dragonfly presets)")
+            "ported to repro_torch yet (ROADMAP.md, queue 1, item 2: graph "
+            "engine, Table-2 baselines)")
     return "array"
 
 
@@ -87,19 +87,26 @@ def load_sweep(topo: Topology, demand_builder, mode: str = "adaptive",
                sim_backend: "str | None" = None, device=None) -> "list[dict]":
     """Latency/throughput vs offered load for one traffic scenario.
 
-    ``demand_builder(topo, offered_per_nic_gbps) -> DemandArrays``.  With
-    a fixed path spread the utilizations scale linearly with offered load,
-    so only the first level is routed.  ``mode`` defaults to the
-    reference's ``adaptive``, which is not ported yet and raises
-    ``NotImplementedError``: pass ``mode="minimal"``.  ``simulate=True``
-    adds measured FCT columns per level
-    (:func:`repro_torch.sim.events.simulate_demands`): each demand pair
-    becomes one flow sized to transfer for ``flow_time_s`` at its offered
-    rate.  ``sim_backend`` is the
-    fair-share solver backend (``cuda`` or ``torch``).
+    ``demand_builder(topo, offered_per_nic_gbps) -> DemandArrays``.  The
+    per-link utilizations scale linearly with offered load for
+    ``minimal`` / ``valiant`` (a fixed path spread), so only their first
+    level is routed; ``adaptive`` (the default, as in the reference)
+    re-routes at every level.  ``simulate=True`` adds measured FCT
+    columns per level (:func:`repro_torch.sim.events.simulate_demands`):
+    each demand pair becomes one flow sized to transfer for
+    ``flow_time_s`` at its offered rate.  It needs a static path spread
+    (``minimal`` or ``valiant``); with ``adaptive`` it raises
+    ``ValueError`` before any routing.  ``sim_backend`` (``cuda`` or
+    ``torch``) is the backend of the fair-share solver and of the
+    router's fixed-order reductions (the adaptive load update, the
+    incidence's coalescing).
     """
     if router is None:
         router = make_router(topo, device=device)
+    if simulate and mode == "adaptive":
+        raise ValueError("simulate=True needs a static path spread "
+                         "(minimal, or valiant on the array engine); "
+                         "adaptive re-routes under load")
     rows = []
     base_ll = None
     sim_inc = None
@@ -108,10 +115,12 @@ def load_sweep(topo: Topology, demand_builder, mode: str = "adaptive",
         demands = None
         if frac == 0:
             max_util = 0.0
-        elif base_ll is None:
+        elif mode == "adaptive" or base_ll is None:
             demands = demand_builder(topo, offered)
-            base_ll, base_frac = router.route(demands, mode), frac
-            max_util = base_ll.max_utilization()
+            ll = router.route(demands, mode, backend=sim_backend)
+            if mode != "adaptive":
+                base_ll, base_frac = ll, frac
+            max_util = ll.max_utilization()
         else:
             max_util = base_ll.max_utilization() * frac / base_frac
         row = {
@@ -136,7 +145,8 @@ def load_sweep(topo: Topology, demand_builder, mode: str = "adaptive",
             if sim_inc is None:
                 # a static spread does not depend on the offered load —
                 # one extraction serves every level of the sweep
-                sim_inc = flow_incidence(router, demands, mode)
+                sim_inc = flow_incidence(router, demands, mode,
+                                         backend=sim_backend)
             row.update(simulate_demands(router, demands, flow_time_s,
                                         mode=mode, net=net, inc=sim_inc,
                                         backend=sim_backend))

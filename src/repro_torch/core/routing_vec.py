@@ -1,15 +1,29 @@
 """Vectorized HyperX routing on torch tensors (port of
-``repro/core/routing_vec.py``, minimal mode).
+``repro/core/routing_vec.py``).
 
 A demand matrix is three parallel tensors ``(src, dst, gbps)``; the
 directed links of one plane live in a flat *edge-slot* tensor indexed by
-``(switch, dimension, target coordinate)`` (:class:`EdgeIndex`); minimal
-path enumeration is a walk over the D! dimension orderings shared by all
-demands, and link-load accounting is an ``index_add_`` over edge slots
-(the reference's ``np.bincount`` / ``.at[].add``).
+``(switch, dimension, target coordinate)`` (:class:`EdgeIndex`).  Three
+routing modes, the reference's:
 
-The reference's ``valiant`` and ``adaptive`` modes are not ported yet
-(ROADMAP, queue 1).
+* ``minimal``: ECMP over the D! dimension orderings shared by all
+  demands;
+* ``valiant``: the minimal paths plus every single-deroute DAL path, the
+  load split equally over them;
+* ``adaptive``: parallel UGAL/DAL, ``granularity`` quantum rounds in
+  which ``sub_batches`` interleaved groups of demands each place one
+  quantum on their least-bottlenecked candidate, the loads refreshed
+  between groups.
+
+Static link loads are an ``index_add_`` over edge slots (the reference's
+``np.bincount``).  The two reductions whose order decides a result, the
+adaptive router's load update (a flipped last bit can move a quantum
+onto another path) and the coalescing of an incidence's duplicate
+``(flow, slot)`` entries, add in a fixed order (:func:`ordered_sum`):
+on the CPU in entry order, which is the reference's numpy order bit for
+bit; on the card through the segment-sum kernel over a stable sort
+(``backend="cuda"``) or its ordered twin (``backend="torch"``), which
+agree bit for bit.  Neither uses float64 atomics.
 """
 
 from __future__ import annotations
@@ -18,22 +32,35 @@ import itertools
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import resolve_device, resolve_sim_backend
+from ..kernels.segment_fairshare import (make_plan, segment_sum,
+                                         segment_sum_ordered_ref,
+                                         segment_sum_ref)
 from .hyperx import MPHX
 
 F64 = torch.float64
 I64 = torch.int64
 
-NOT_PORTED_MODES = ("valiant", "adaptive")
 
+def ordered_sum(values: torch.Tensor, ids: torch.Tensor, n: int,
+                backend: str) -> torch.Tensor:
+    """(n,) sums of ``values`` by ``ids`` in a fixed order.
 
-def _mode_not_ported(mode: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"routing mode {mode!r} is not ported to repro_torch yet "
-        "(ROADMAP.md, queue 1: valiant and adaptive routing); use "
-        "mode='minimal'")
+    On the CPU every bin adds its entries one by one in entry order from
+    +0.0 (``index_add_`` into zeros: the bits of the reference's
+    ``np.bincount`` and ``np.add.at``), whatever the backend.  On the
+    card the entries go in the order of a stable sort of ``ids``: the
+    segment-sum kernel (``cuda``) or its ordered twin on the same plan
+    (``torch``), which give the same bits.
+    """
+    if backend == "cuda":
+        return segment_sum(values, ids, n)
+    if values.is_cuda:
+        return segment_sum_ordered_ref(values, make_plan(ids, n))
+    return segment_sum_ref(values, ids, n)
 
 
 @dataclass
@@ -160,8 +187,68 @@ def neighbor_shift_demands(topo: MPHX, offered_per_nic_gbps: float,
     return DemandArrays(src, dst, g)
 
 
+def bit_complement_demands(topo: MPHX, offered_per_nic_gbps: float,
+                           device=None) -> DemandArrays:
+    """Coordinate-complement permutation (every demand crosses the whole
+    fabric); switches that are their own complement send nothing."""
+    dev = resolve_device(device)
+    idx = EdgeIndex(topo, dev)
+    src = torch.arange(topo.switches_per_plane, dtype=I64, device=dev)
+    c = idx.ids_to_coords(src)
+    top = torch.tensor(topo.dims, dtype=I64, device=dev) - 1
+    dst = idx.coords_to_ids(top[None, :] - c)
+    keep = dst != src
+    g = torch.full(src.shape, _per_switch_out(topo, offered_per_nic_gbps),
+                   dtype=F64, device=dev)
+    return DemandArrays(src[keep], dst[keep], g[keep])
+
+
+def transpose_demands(topo: MPHX, offered_per_nic_gbps: float,
+                      device=None) -> DemandArrays:
+    """Matrix-transpose permutation: swap the first two (equal) dims.
+    Defined when the topology has >= 2 dimensions and ``dims[0] ==
+    dims[1]``; ``ValueError`` otherwise."""
+    if topo.D < 2 or topo.dims[0] != topo.dims[1]:
+        raise ValueError(f"transpose undefined for dims={topo.dims}")
+    dev = resolve_device(device)
+    idx = EdgeIndex(topo, dev)
+    src = torch.arange(topo.switches_per_plane, dtype=I64, device=dev)
+    c = idx.ids_to_coords(src)
+    ct = c.clone()
+    ct[:, 0], ct[:, 1] = c[:, 1], c[:, 0]
+    dst = idx.coords_to_ids(ct)
+    keep = dst != src
+    g = torch.full(src.shape, _per_switch_out(topo, offered_per_nic_gbps),
+                   dtype=F64, device=dev)
+    return DemandArrays(src[keep], dst[keep], g[keep])
+
+
+def hotspot_demands(topo: MPHX, offered_per_nic_gbps: float, hot: int = 0,
+                    hot_fraction: float = 0.5, device=None) -> DemandArrays:
+    """Every switch sends ``hot_fraction`` of its load to one hot switch and
+    sprays the rest uniformly: the uniform rows, then the hot rows, so a
+    ``(src, hot)`` pair appears twice."""
+    dev = resolve_device(device)
+    uni = uniform_demands(topo, offered_per_nic_gbps * (1 - hot_fraction),
+                          device=dev)
+    src = torch.arange(topo.switches_per_plane, dtype=I64, device=dev)
+    keep = src != hot
+    g = torch.full(src.shape, _per_switch_out(topo, offered_per_nic_gbps)
+                   * hot_fraction, dtype=F64, device=dev)
+    return DemandArrays(
+        torch.cat([uni.src, src[keep]]),
+        torch.cat([uni.dst, torch.full((int(keep.sum()),), hot, dtype=I64,
+                                       device=dev)]),
+        torch.cat([uni.gbps, g[keep]]))
+
+
 class VectorizedHyperXRouter:
-    """Array engine for routing whole demand matrices over one MPHX plane."""
+    """Array engine for routing whole demand matrices over one MPHX plane.
+
+    ``route`` and ``incidence`` take the ``backend`` of their fixed-order
+    sums (:func:`ordered_sum`): ``cuda`` (the segment-sum kernel on the
+    card, the default) or ``torch`` (its ordered twin).
+    """
 
     def __init__(self, topo: MPHX, device=None):
         self.topo = topo
@@ -175,10 +262,13 @@ class VectorizedHyperXRouter:
         return (src, dst, gbps, self.index.ids_to_coords(src),
                 self.index.ids_to_coords(dst))
 
+    def _zeros(self) -> torch.Tensor:
+        return torch.zeros(self.index.n_slots, dtype=F64, device=self.device)
+
     def _iter_minimal_hops(self, src, cs, cd):
         """Yield ``(slots, mask)`` per hop of every D! full-dimension
-        ordering — the one minimal walk behind both :meth:`route_minimal`
-        and :meth:`incidence`."""
+        ordering: the one minimal walk behind :meth:`route_minimal`,
+        :meth:`route_valiant` and :meth:`incidence`."""
         idx = self.index
         for perm in itertools.permutations(range(idx.D)):
             cur_id = src.clone()
@@ -190,12 +280,62 @@ class VectorizedHyperXRouter:
                 cur_id = cur_id + (cd[:, i] - cur[:, i]) * idx.stride[i]
                 cur[:, i] = cd[:, i]
 
-    def route(self, demands: DemandArrays, mode: str = "minimal"
+    def _iter_deroute_hops(self, src, cs, cd, mism):
+        """Yield ``(slots, mask)`` per hop of every single-deroute DAL path
+        (src -> dim ``i`` := ``via`` -> fix dims in index order), shared by
+        :meth:`route_valiant` and :meth:`incidence`."""
+        idx = self.index
+        for i in range(idx.D):
+            for via in range(self.topo.dims[i]):
+                mask = mism[:, i] & (cs[:, i] != via) & (cd[:, i] != via)
+                if not bool(mask.any()):
+                    continue
+                yield idx.slots(src, i, torch.full_like(src, via)), mask
+                cur_id = src + (via - cs[:, i]) * idx.stride[i]
+                cur = cs.clone()
+                cur[:, i] = via
+                for j in range(idx.D):
+                    step = mask & (cur[:, j] != cd[:, j])
+                    if bool(step.any()):
+                        yield idx.slots(cur_id, j, cd[:, j]), step
+                    cur_id = cur_id + (cd[:, j] - cur[:, j]) * idx.stride[j]
+                    cur[:, j] = cd[:, j]
+
+    def _mismatch_stats(self, cs, cd):
+        """Per demand: mismatched dims (M, D), their count m, the m!
+        minimal paths and the single deroutes."""
+        mism = cs != cd
+        m = mism.sum(dim=1)
+        fact = torch.tensor([math.factorial(k)
+                             for k in range(self.index.D + 1)],
+                            dtype=I64, device=cs.device)
+        n_minimal = fact[m]
+        spare = torch.tensor([max(d - 2, 0) for d in self.topo.dims],
+                             dtype=I64, device=cs.device)
+        n_deroute = (mism * spare[None, :]).sum(dim=1)
+        return mism, m, n_minimal, n_deroute
+
+    def _valiant_weights(self, src, dst, cs, cd):
+        """The valiant split: ``(mism, n_minimal, n_paths)`` with
+        ``n_paths`` float64; ``ValueError`` on a ``src == dst`` demand."""
+        if bool((src == dst).any()):
+            raise ValueError("valiant routing expects src != dst demands")
+        mism, _, n_minimal, n_deroute = self._mismatch_stats(cs, cd)
+        return mism, n_minimal.to(F64), (n_minimal + n_deroute).to(F64)
+
+    # ------------------------------------------------------------- modes ----
+
+    def route(self, demands: DemandArrays, mode: str = "minimal",
+              granularity: int = 8, backend: "str | None" = None
               ) -> ArrayLinkLoads:
+        """Link loads of ``demands`` in ``mode``; ``backend`` is the
+        adaptive router's reduction backend."""
         if mode == "minimal":
             return self.route_minimal(demands)
-        if mode in NOT_PORTED_MODES:
-            raise _mode_not_ported(mode)
+        if mode == "valiant":
+            return self.route_valiant(demands)
+        if mode == "adaptive":
+            return self.route_adaptive(demands, granularity, backend=backend)
         raise ValueError(f"unknown mode {mode}")
 
     def route_minimal(self, demands: DemandArrays) -> ArrayLinkLoads:
@@ -204,43 +344,78 @@ class VectorizedHyperXRouter:
         orderings, so it carries ``gbps / m!``)."""
         src, _, gbps, cs, cd = self._prep(demands)
         w = gbps / math.factorial(self.index.D)
-        loads = torch.zeros(self.index.n_slots, dtype=F64, device=self.device)
+        loads = self._zeros()
         for slots, mask in self._iter_minimal_hops(src, cs, cd):
             loads.index_add_(0, slots[mask], w[mask])
         return ArrayLinkLoads(self.index, loads)
 
-    def incidence(self, demands: DemandArrays, mode: str = "minimal"):
+    def route_valiant(self, demands: DemandArrays) -> ArrayLinkLoads:
+        """Minimal + all single-deroute DAL paths, the load split equally
+        over them (each of the m! minimal paths and each deroute carries
+        ``gbps / n_paths``)."""
+        src, dst, gbps, cs, cd = self._prep(demands)
+        mism, n_minimal, n_paths = self._valiant_weights(src, dst, cs, cd)
+        per_path = gbps / n_paths
+        w = per_path * n_minimal / math.factorial(self.index.D)
+        loads = self._zeros()
+        for slots, mask in self._iter_minimal_hops(src, cs, cd):
+            loads.index_add_(0, slots[mask], w[mask])
+        for slots, mask in self._iter_deroute_hops(src, cs, cd, mism):
+            loads.index_add_(0, slots[mask], per_path[mask])
+        return ArrayLinkLoads(self.index, loads)
+
+    # ------------------------------------------------- per-flow incidence ----
+
+    def incidence(self, demands: DemandArrays, mode: str = "minimal",
+                  backend: "str | None" = None):
         """Per-flow edge incidence ``(flow, slot, frac)`` (int64, int64,
-        float64 tensors): ``frac`` is the fraction of flow ``flow``'s rate
+        float64 tensors) of a fixed-spread mode, ``minimal`` or
+        ``valiant``: ``frac`` is the fraction of flow ``flow``'s rate
         carried on edge slot ``slot``.
 
-        Entries are coalesced to one per (flow, slot) and sorted by
-        ``flow * n_slots + slot`` — the reference's order, which is the
-        summation order of every reduction downstream.
+        Entries are coalesced to one per (flow, slot), their fractions
+        summed in a fixed order (:func:`ordered_sum` with ``backend``),
+        and sorted by ``flow * n_slots + slot``:
+        the reference's order, which is the summation order of every
+        reduction downstream.
         """
-        if mode == "valiant":
-            raise _mode_not_ported(mode)
-        if mode != "minimal":
+        if mode not in ("minimal", "valiant"):
             raise ValueError(
                 f"no static per-flow incidence for mode {mode!r} "
-                "(adaptive re-routes under load); use minimal")
-        src, _, _, cs, cd = self._prep(demands)
-        w = 1.0 / math.factorial(self.index.D)
-        flows, slots_l = [], []
-        for slots, mask in self._iter_minimal_hops(src, cs, cd):
+                "(adaptive re-routes under load); use minimal or valiant")
+        backend = resolve_sim_backend(backend)
+        src, dst, _, cs, cd = self._prep(demands)
+        n_full = math.factorial(self.index.D)
+        flows, slots_l, fracs = [], [], []
+
+        def emit(slots, mask, w):
             flows.append(mask.nonzero().squeeze(1))
             slots_l.append(slots[mask])
+            fracs.append(w[mask] if torch.is_tensor(w)
+                         else torch.full((flows[-1].numel(),), w, dtype=F64,
+                                         device=self.device))
+
+        if mode == "minimal":
+            for slots, mask in self._iter_minimal_hops(src, cs, cd):
+                emit(slots, mask, 1.0 / n_full)
+        else:
+            mism, n_minimal, n_paths = self._valiant_weights(src, dst, cs, cd)
+            w_min = n_minimal / (n_paths * n_full)
+            w_der = 1.0 / n_paths
+            for slots, mask in self._iter_minimal_hops(src, cs, cd):
+                emit(slots, mask, w_min)
+            for slots, mask in self._iter_deroute_hops(src, cs, cd, mism):
+                emit(slots, mask, w_der)
         if not flows:
             z = torch.zeros(0, dtype=I64, device=self.device)
             return z, z.clone(), torch.zeros(0, dtype=F64, device=self.device)
-        flow = torch.cat(flows)
-        slot = torch.cat(slots_l)
         n_slots = self.index.n_slots
-        uniq, inv = torch.unique(flow * n_slots + slot, sorted=True,
-                                 return_inverse=True)
-        frac = torch.zeros(uniq.numel(), dtype=F64, device=self.device)
-        frac.index_add_(0, inv, torch.full(inv.shape, w, dtype=F64,
-                                           device=self.device))
+        key = torch.cat(flows) * n_slots + torch.cat(slots_l)
+        frac = torch.cat(fracs)
+        del flows, slots_l, fracs
+        uniq, inv = torch.unique(key, sorted=True, return_inverse=True)
+        del key
+        frac = ordered_sum(frac, inv, uniq.numel(), backend)
         return uniq // n_slots, uniq % n_slots, frac
 
     def mean_switch_hops(self) -> float:
@@ -250,3 +425,111 @@ class VectorizedHyperXRouter:
     def edge_capacity(self) -> torch.Tensor:
         """(n_slots,) per-edge-slot capacity in Gbps."""
         return self.index.capacity
+
+    # ------------------------------------------------- parallel UGAL/DAL ----
+
+    def _candidate_paths(self, src, cs, cd):
+        """Every demand's candidate paths, stacked: ``slots`` (K, M, D+1)
+        edge slots (meaningful where the hop is valid), ``valid`` (K, M,
+        D+1) hop masks and ``ok`` (K, M), whether candidate ``k`` can
+        carry demand ``m``.  The candidates are the reference's, in its
+        order: the D! minimal orderings (D hops and an invalid pad; ok
+        where a hop is valid), then each (dim, via) single deroute that
+        some demand can use (ok where usable)."""
+        idx = self.index
+        pad_slot = torch.zeros_like(src)
+        pad_hop = torch.zeros(src.shape, dtype=torch.bool, device=src.device)
+        slots, valid, ok = [], [], []
+        for perm in itertools.permutations(range(idx.D)):
+            cur_id = src.clone()
+            cur = cs.clone()
+            s, v = [], []
+            for i in perm:
+                v.append(cur[:, i] != cd[:, i])
+                s.append(idx.slots(cur_id, i, cd[:, i]))
+                cur_id = cur_id + (cd[:, i] - cur[:, i]) * idx.stride[i]
+                cur[:, i] = cd[:, i]
+            slots.append(torch.stack(s + [pad_slot], 1))
+            valid.append(torch.stack(v + [pad_hop], 1))
+            ok.append(valid[-1].any(dim=1))
+        mism = cs != cd
+        for i in range(idx.D):
+            for via in range(self.topo.dims[i]):
+                usable = mism[:, i] & (cs[:, i] != via) & (cd[:, i] != via)
+                if not bool(usable.any()):
+                    continue
+                s = [idx.slots(src, i, torch.full_like(src, via))]
+                v = [usable]
+                cur_id = src + (via - cs[:, i]) * idx.stride[i]
+                cur = cs.clone()
+                cur[:, i] = via
+                for j in range(idx.D):
+                    v.append(usable & (cur[:, j] != cd[:, j]))
+                    s.append(idx.slots(cur_id, j, cd[:, j]))
+                    cur_id = cur_id + (cd[:, j] - cur[:, j]) * idx.stride[j]
+                    cur[:, j] = cd[:, j]
+                slots.append(torch.stack(s, 1))
+                valid.append(torch.stack(v, 1))
+                ok.append(usable)
+        return torch.stack(slots), torch.stack(valid), torch.stack(ok)
+
+    def route_adaptive(self, demands: DemandArrays, granularity: int = 8,
+                       sub_batches: int = 8, backend: "str | None" = None
+                       ) -> ArrayLinkLoads:
+        """Parallel UGAL/DAL, the reference's order of operations.
+
+        ``granularity`` quantum rounds; in each, the interleaved groups
+        ``arange(b, M, sub_batches)`` in turn place one quantum of every
+        demand on its cheapest candidate: cost ``max(util over valid
+        hops) + 0.01 * hops``, util ``(load + quantum) / capacity``
+        (capacity 0 reads as inf), the first index of ``argmin(cost +
+        jitter)`` where the jitter is the reference's own draw
+        (``np.random.default_rng(0).random((M, K)) * 1e-5``, made with
+        numpy), and only where that cost is finite.  Then for each
+        candidate ``k`` in order, ``loads += `` the per-slot sum of the
+        quanta its chosen demands put on their valid hops, row-major, in
+        a fixed order (:func:`ordered_sum` with ``backend``): on the CPU
+        the bits of the reference's numpy backend.
+        """
+        backend = resolve_sim_backend(backend)
+        src, _, gbps, cs, cd = self._prep(demands)
+        idx, dev = self.index, self.device
+        M = src.shape[0]
+        loads = self._zeros()
+        if M == 0:
+            return ArrayLinkLoads(idx, loads)
+        # lay the sub-batches out one after another (each keeps its rows'
+        # ascending order), so that each is a slice
+        groups = [torch.arange(b, M, sub_batches, device=dev)
+                  for b in range(min(sub_batches, M))]
+        order = torch.cat(groups)
+        src, cs, cd = src[order], cs[order], cd[order]
+        quantum = gbps[order] / granularity
+        slots, valid, ok = self._candidate_paths(src, cs, cd)
+        K, n_slots = slots.shape[0], idx.n_slots
+        penalty = 0.01 * valid.sum(dim=2).to(F64)
+        safe_cap = torch.where(idx.capacity > 0, idx.capacity, torch.inf)
+        jitter = np.random.default_rng(0).random((M, K)) * 1e-5
+        jitter = torch.from_numpy(jitter).to(dev)[order]
+        spans, lo = [], 0
+        for g in groups:
+            spans.append((lo, lo + g.numel()))
+            lo += g.numel()
+        for _ in range(granularity):
+            for lo, hi in spans:
+                q = quantum[lo:hi]
+                sl = slots[:, lo:hi]
+                util = (loads[sl] + q[:, None]) / safe_cap[sl]
+                util = torch.where(valid[:, lo:hi], util, -torch.inf)
+                cost = util.amax(dim=2) + penalty[:, lo:hi]
+                costs = torch.where(ok[:, lo:hi], cost, torch.inf)
+                choice = (costs.T + jitter[lo:hi]).argmin(dim=1)
+                rows = torch.arange(lo, hi, device=dev)
+                placeable = torch.isfinite(costs[choice, rows - lo])
+                hops = valid[choice, rows] & placeable[:, None]
+                keys = (choice[:, None] * n_slots + slots[choice, rows])[hops]
+                w = q[:, None].expand(hops.shape)[hops]
+                per_cand = ordered_sum(w, keys, K * n_slots, backend)
+                for part in per_cand.view(K, n_slots):
+                    loads = loads + part
+        return ArrayLinkLoads(idx, loads)

@@ -1,2 +1,2 @@
-"""Experiment suites of the port (``--suite sim``): scenario registry,
-topology presets, artifact writers and the CLI."""
+"""Experiment suites of the port (``--suite sim`` and ``--suite sweep``):
+scenario registry, topology presets, artifact writers and the CLI."""

@@ -1,14 +1,22 @@
-"""CLI of the port's experiment suites.
+"""CLI of the port's experiment suites: ``sim`` (measured flow-completion
+times from the event loop) and ``sweep`` (routed latency/throughput vs
+offered load in the three routing modes).
 
-Example::
+Examples::
 
     PYTHONPATH=src python -m repro_torch.experiments.run --suite sim \\
         --topos mphx-4p-86x9 --scenarios uniform neighbor_shift \\
         --loads 0.5 0.9 --device cuda --out results/experiments_torch
+    PYTHONPATH=src python -m repro_torch.experiments.run --suite sweep \\
+        --topos mphx-2p-16x16 --modes minimal valiant adaptive \\
+        --loads 0.5 1.0 --simulate --out results/experiments_torch
 
 ``--device`` defaults to ``cuda``; on a machine without a GPU pass
-``--device cpu``.  Artifacts: ``<out>/sim.json`` and ``<out>/sim.md``
-(schema v7 rows, see :mod:`repro_torch.experiments.artifacts`).
+``--device cpu``.  ``--sim-backend`` picks the fair-share solver's and
+the router's reductions (``cuda``: the hand-written kernels; ``torch``:
+the plain versions).  Artifacts: ``<out>/<suite>.json`` and
+``<out>/<suite>.md`` (schema v7 rows, see
+:mod:`repro_torch.experiments.artifacts`).
 """
 
 from __future__ import annotations
@@ -19,32 +27,46 @@ import sys
 from .._device import SIM_BACKENDS
 from .scenarios import SCENARIOS
 from .simsuite import DEFAULT_SIM_SCENARIOS, DEFAULT_SIM_TOPOS, run_sim_suite
-from .sweep import DEFAULT_OUTDIR, SWEEP_TOPOLOGIES
+from .sweep import (DEFAULT_OUTDIR, DEFAULT_SWEEP_TOPOS, ROUTING_MODES,
+                    SWEEP_TOPOLOGIES, run_sweep_suite)
 
-SUITES = ["sim"]
+SUITES = ["sim", "sweep"]
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m repro_torch.experiments.run",
-        description="MPHX flow-simulator suites on PyTorch/CUDA")
+        description="MPHX flow-simulator and routing suites on "
+                    "PyTorch/CUDA")
     p.add_argument("--suite", choices=SUITES, default="sim")
     p.add_argument("--out", default=DEFAULT_OUTDIR,
                    help=f"artifact directory (default {DEFAULT_OUTDIR})")
     p.add_argument("--topos", nargs="+", choices=sorted(SWEEP_TOPOLOGIES),
                    default=None,
-                   help=f"topologies (default: {' '.join(DEFAULT_SIM_TOPOS)})")
+                   help=f"topologies (default: sim {' '.join(DEFAULT_SIM_TOPOS)}"
+                   f"; sweep {' '.join(DEFAULT_SWEEP_TOPOS)}, the graph "
+                   "presets recorded as skipped)")
     p.add_argument("--scenarios", nargs="+", choices=sorted(SCENARIOS),
-                   default=None, help="scenarios (default: "
-                   f"{' '.join(DEFAULT_SIM_SCENARIOS)})")
-    p.add_argument("--loads", nargs="+", type=float, default=[0.5, 0.9],
-                   help="offered load fractions of NIC bandwidth")
+                   default=None, help="scenarios (default: sim "
+                   f"{' '.join(DEFAULT_SIM_SCENARIOS)}; sweep all, "
+                   "inapplicable and collective ones recorded as skipped)")
+    p.add_argument("--modes", nargs="+", choices=list(ROUTING_MODES),
+                   default=None,
+                   help="sweep: routing modes (default: all three; the sim "
+                   "suite always routes minimal)")
+    p.add_argument("--loads", nargs="+", type=float, default=None,
+                   help="offered load fractions of NIC bandwidth (default: "
+                   "0.5 0.9 for sim, 0.1..1.0 for sweep)")
+    p.add_argument("--simulate", action="store_true",
+                   help="sweep: add measured-FCT columns from the flow "
+                   "simulator (minimal mode only)")
     p.add_argument("--msg-bytes", type=float, default=4096)
     p.add_argument("--flow-time-us", type=float, default=200.0,
                    help="flow size as transfer time at the offered rate")
     p.add_argument("--sim-backend", choices=SIM_BACKENDS, default="cuda",
-                   help="fair-share solver: cuda (hand-written kernels) or "
-                   "torch (plain PyTorch versions)")
+                   help="fair-share solver and router reductions: cuda "
+                   "(hand-written kernels) or torch (plain PyTorch "
+                   "versions)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; pass cpu "
                    "on a machine without a GPU)")
@@ -52,10 +74,25 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: "list[str] | None" = None) -> int:
-    args = build_parser().parse_args(argv)
+    p = build_parser()
+    args = p.parse_args(argv)
+    if args.suite == "sweep":
+        payload = run_sweep_suite(
+            args.out, topo_names=args.topos, scenario_names=args.scenarios,
+            modes=args.modes,
+            load_fractions=tuple(args.loads) if args.loads
+            else (0.1, 0.25, 0.5, 0.75, 0.9, 1.0),
+            msg_bytes=args.msg_bytes, simulate=args.simulate,
+            flow_time_s=args.flow_time_us * 1e-6,
+            sim_backend=args.sim_backend, device=args.device)
+        print(f"sweep: {payload['params']['n_routed_rows']} routed rows, "
+              f"{payload['params']['n_skipped']} skipped on "
+              f"{payload['params']['device_name']} -> {args.out}/sweep.json, "
+              f"{args.out}/sweep.md")
+        return 0
     payload = run_sim_suite(
         args.out, topo_names=args.topos, scenario_names=args.scenarios,
-        load_fractions=tuple(args.loads),
+        load_fractions=tuple(args.loads) if args.loads else (0.5, 0.9),
         flow_time_s=args.flow_time_us * 1e-6, msg_bytes=args.msg_bytes,
         sim_backend=args.sim_backend, device=args.device)
     agree = payload["params"]["all_steady_checks_agree_1e-6"]

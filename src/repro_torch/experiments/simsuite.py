@@ -47,7 +47,7 @@ def _sim_topo_rows(topo, scenario_names, load_fractions, flow_time_s,
         # steady-state cross-validation at full injection
         dem = build(topo, topo.nic_bw_gbps)
         ll = router.route(dem, SIM_MODE)
-        inc = flow_incidence(router, dem, SIM_MODE)
+        inc = flow_incidence(router, dem, SIM_MODE, backend=sim_backend)
         u_sim = inc.utilization(dem.gbps, sim_backend)
         diff = float((u_sim - ll.utilization_array()).abs().max()) \
             if u_sim.numel() else 0.0

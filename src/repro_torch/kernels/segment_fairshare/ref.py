@@ -8,8 +8,10 @@ one spare bin past the end, which is cut off.
 ``segment_sum_ordered_ref`` is the kernel's ordered twin: the same sums
 in the CUDA kernel's order of additions, read from a segment plan, so
 the kernel can be held to it bit for bit (``index_add_`` adds in no
-fixed order on the card).  The tests and ``chip_smoke.py`` use it; the
-main path never does.  A min is the same in any order, so
+fixed order on the card).  It is also the plain path
+(``backend="torch"``) of the router's fixed-order sums on the card
+(``repro_torch.core.routing_vec.ordered_sum``: the adaptive load update
+and the incidence's coalescing).  A min is the same in any order, so
 ``segment_min_ref`` is the min kernel's yardstick as it is.
 """
 

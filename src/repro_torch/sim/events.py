@@ -212,7 +212,7 @@ def simulate_demands(router, demands, flow_time_s: float,
     """
     gbps = demands.gbps.to(router.device, F64)
     if inc is None:
-        inc = flow_incidence(router, demands, mode)
+        inc = flow_incidence(router, demands, mode, backend=backend)
     res = simulate_incidence(inc, gbps_to_Bps(gbps) * flow_time_s, gbps,
                              start_s=start_s, net=net, backend=backend,
                              device=router.device)

@@ -133,10 +133,13 @@ class FlowIncidence:
                         self.flow_plan(backend))
 
 
-def flow_incidence(router, demands, mode: str = "minimal") -> FlowIncidence:
+def flow_incidence(router, demands, mode: str = "minimal",
+                   backend: "str | None" = None) -> FlowIncidence:
     """The per-flow incidence tensor of ``demands`` on ``router`` (a
-    :func:`repro_torch.core.netsim.make_router` product)."""
-    flow, edge, frac = router.incidence(demands, mode)
+    :func:`repro_torch.core.netsim.make_router` product) in ``mode``
+    (``minimal`` or ``valiant``); ``backend`` (``cuda`` or ``torch``) is
+    the router's reduction backend for the coalescing."""
+    flow, edge, frac = router.incidence(demands, mode, backend=backend)
     return FlowIncidence(flow, edge, frac, demands.n,
                          router.edge_capacity().to(F64))
 

@@ -4,8 +4,9 @@ The staggered golden trace of ``tests/golden/fairshare_golden.json`` with
 the exact epoch count (as ``tests/test_fairshare_golden.py`` holds the
 reference to it), ``simulate_demands`` rows against the reference's
 jitted loop (``backend="jax"``) at 1e-9 relative with integers exact, and
-the stalled-flow and uncontended cases against the reference's numpy
-loop.
+the stalled-flow and uncontended cases and staggered starts over random
+flows on 1-D and 3-D fabrics, in minimal and valiant routing, against
+the reference's numpy loop.
 """
 
 import json
@@ -85,6 +86,56 @@ def test_staggered_trace_matches_golden(backend):
         golden_bytes[int(e)] = v
     np.testing.assert_allclose(res.edge_bytes.numpy(), golden_bytes,
                                rtol=tight, atol=tight * size.sum())
+
+
+# staggered-start cases: (topology, mode, seed); 1-D and 3-D fabrics
+STAGGERED_TOPOS = {"1d": dict(n=2, p=4, dims=(8,)),
+                   "3d": dict(n=1, p=4, dims=(4, 3, 5))}
+STAGGERED = [(t, m, seed) for t in sorted(STAGGERED_TOPOS)
+             for m in ("minimal", "valiant") for seed in range(2)]
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("topo_name,mode,seed", STAGGERED)
+def test_staggered_starts_match_the_reference_loop(topo_name, mode, seed,
+                                                   backend):
+    """Random (src, dst) pairs (some repeated), sizes, rate caps and start
+    times from a numpy seed, routed on both packages' routers, through
+    the reference's numpy event loop and the port's: the exact epoch
+    count, finish times within 1e-9 relative, edge bytes within 1e-9 of
+    the bytes sent."""
+    from repro.core.routing_vec import DemandArrays as RefDemands
+    from repro.sim.fairshare import flow_incidence as ref_flow_incidence
+    from repro_torch.convert import demands_from_arrays
+
+    kw = STAGGERED_TOPOS[topo_name]
+    rng = np.random.default_rng(100 + seed)
+    S = RefMPHX(**kw).switches_per_plane
+    F = 48
+    src = rng.integers(0, S, F)
+    dst = (src + rng.integers(1, S, F)) % S
+    gbps = np.ones(F)
+    size = rng.uniform(1e4, 2e6, F)
+    caps = rng.uniform(20.0, 400.0, F)
+    start = np.where(rng.random(F) < 0.3, 0.0, rng.uniform(0.0, 2e-4, F))
+    ref_inc = ref_flow_incidence(
+        ref_make_router(RefMPHX(**kw), backend="numpy"),
+        RefDemands(src, dst, gbps), mode)
+    want = ref_sim_incidence(ref_inc, size, caps, start_s=start,
+                             backend="numpy")
+    inc = flow_incidence(make_router(MPHX(**kw), device="cpu"),
+                         demands_from_arrays(src, dst, gbps, device="cpu"),
+                         mode)
+    np.testing.assert_array_equal(inc.edge.numpy(), ref_inc.edge)
+    got = simulate_incidence(inc, size, caps, start_s=start,
+                             backend=backend, device="cpu")
+    assert got.n_epochs == want.n_epochs
+    assert want.n_epochs > 2
+    np.testing.assert_allclose(got.finish_s.numpy(), want.finish_s,
+                               rtol=1e-9, atol=0)
+    assert abs(got.makespan_s - want.makespan_s) <= 1e-9 * want.makespan_s
+    np.testing.assert_allclose(got.edge_bytes.numpy(), want.edge_bytes,
+                               rtol=0, atol=1e-9 * size.sum())
 
 
 def assert_rows_match(got: dict, want: dict):

@@ -5,7 +5,9 @@ the plain versions, and ``backend="cuda"``, whose wrappers take the plain
 versions for CPU tensors) against the reference's ``numpy``, ``jax`` and
 ``pallas`` backends (Pallas in interpret mode, on the small cells only, as
 ``tests/test_fairshare_golden.py`` runs it), against
-``tests/golden/fairshare_golden.json``, all at ``1e-9 * scale``.
+``tests/golden/fairshare_golden.json`` (its three array cells, the
+valiant ``hotspot_valiant`` among them, with their measured-FCT rows at
+1e-9 relative), all at ``1e-9 * scale``.
 """
 
 import json
@@ -29,8 +31,9 @@ from repro_torch.convert import incidence_from_arrays  # noqa: E402
 from repro_torch.core.hyperx import MPHX  # noqa: E402
 from repro_torch.core.netsim import make_router  # noqa: E402
 from repro_torch.core.routing_vec import (  # noqa: E402
-    neighbor_shift_demands, uniform_demands)
+    hotspot_demands, neighbor_shift_demands, uniform_demands)
 from repro_torch.kernels.segment_fairshare import make_plan  # noqa: E402
+from repro_torch.sim.events import simulate_demands  # noqa: E402
 from repro_torch.sim.fairshare import (  # noqa: E402
     SolveProblem, _compress_edges, flow_incidence, max_min_rates)
 
@@ -114,16 +117,27 @@ def golden():
         return json.load(f)
 
 
-@pytest.mark.parametrize("scenario", sorted(SCENARIOS))
+# the golden's array cells: builder and routing mode
+GOLDEN_CELLS = {"uniform": (uniform_demands, "minimal"),
+                "neighbor_shift": (neighbor_shift_demands, "minimal"),
+                "hotspot_valiant": (hotspot_demands, "valiant")}
+
+
+@pytest.mark.parametrize("scenario", sorted(GOLDEN_CELLS))
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_golden_cells(golden, scenario, backend):
+    """Each array cell of the golden at both loads: exact incidence
+    sizes, rates and link loads at ``1e-9 * scale``, and the measured-FCT
+    row through the event loop (floats at 1e-9 relative, integers
+    exact)."""
     cell_rec = golden["cells"][f"array/mphx-2p-8x8/{scenario}"]
+    build, mode = GOLDEN_CELLS[scenario]
+    assert cell_rec["mode"] == mode
     topo = MPHX(**TOPOS["mphx-2p-8x8"])
     router = make_router(topo, device="cpu")
     for load_key, want in cell_rec["loads"].items():
-        dem = SCENARIOS[scenario][1](topo, float(load_key) * topo.nic_bw_gbps,
-                                     device="cpu")
-        inc = flow_incidence(router, dem)
+        dem = build(topo, float(load_key) * topo.nic_bw_gbps, device="cpu")
+        inc = flow_incidence(router, dem, mode, backend)
         assert (inc.n_flows, inc.n_edges, inc.nnz) == (
             want["n_flows"], want["n_edges"], want["nnz"])
         scale = max(float(dem.gbps.max()), 1.0)
@@ -135,6 +149,13 @@ def test_golden_cells(golden, scenario, backend):
             golden_loads[int(e)] = v
         np.testing.assert_allclose(inc.loads(rates, backend).numpy(),
                                    golden_loads, rtol=0, atol=1e-9 * scale)
+        row = simulate_demands(router, dem, golden["flow_time_s"], mode=mode,
+                               backend=backend, inc=inc)
+        for k, v in want["fct"].items():
+            if isinstance(v, float) and v != 0:
+                assert abs(row[k] - v) <= 1e-9 * abs(v), (k, row[k], v)
+            else:
+                assert row[k] == v, (k, row[k], v)
 
 
 def random_incidence(seed: int, fixed_shape: bool = False):

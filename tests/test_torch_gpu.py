@@ -12,6 +12,10 @@ Tolerances: sum within ``1e-12 * max|value| * NNZ`` of ``index_add_``
 (which adds in no fixed order) and bit for bit equal to its ordered twin
 ``segment_sum_ordered_ref`` at every lanes count, min exact, two kernel
 runs bitwise equal; suite rows at 1e-9 relative with integers exact.
+The adaptive router's load update through the sum kernel bit for bit
+equal to the plain path's (the ordered twin) and repeatable; the
+valiant incidence coalesced on the card equal to the CPU's, ``frac``
+within 1e-15.
 RMSNorm and attention: 2e-5 for float32 and 5e-2 for bfloat16
 (``tests/test_kernels.py``'s tolerances; the attention kernel keeps its
 softmax weights in fp32 where the plain version rounds them to v's
@@ -44,8 +48,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.hyperx import MPHX  # noqa: E402
 from repro_torch.core.netsim import make_router  # noqa: E402
 from repro_torch.core.routing_vec import (  # noqa: E402
-    neighbor_shift_demands, uniform_demands)
+    hotspot_demands, neighbor_shift_demands, uniform_demands)
 from repro_torch.experiments.simsuite import run_sim_suite  # noqa: E402
+from repro_torch.experiments.scenarios import (  # noqa: E402
+    SCENARIOS, get_scenario)
+from repro_torch.experiments.sweep import (  # noqa: E402
+    SWEEP_TOPOLOGIES, run_sweep_suite)
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import grouped_matmul as gm  # noqa: E402
 from repro_torch.kernels import rg_lru  # noqa: E402
@@ -270,6 +278,98 @@ def test_segment_kernels_in_cuda_graph(cuda, kernel):
     assert LAUNCHES[kernel] == 20
     for got, want in zip(outs, eager):
         assert torch.equal(got, want)
+
+
+ROUTING_TOPOS = {"2d": dict(n=2, p=8, dims=(8, 8)),
+                 "3d": dict(n=1, p=4, dims=(4, 3, 5)),
+                 "1d": dict(n=2, p=4, dims=(8,))}
+
+
+@pytest.mark.parametrize("build", [uniform_demands, hotspot_demands],
+                         ids=["uniform", "hotspot"])
+@pytest.mark.parametrize("topo_name", sorted(ROUTING_TOPOS))
+def test_adaptive_route_kernel_equals_ordered_twin(cuda, topo_name, build):
+    """The adaptive router on the card: its load update through the
+    segment-sum kernel (one launch a sub-batch and round) gives the bits
+    of the plain path (the kernel's ordered twin), twice, and the bits of
+    the CPU's router (which equal the reference's)."""
+    topo = MPHX(**ROUTING_TOPOS[topo_name])
+    dem = build(topo, 1100.0, device=cuda)
+    router = make_router(topo, device=cuda)
+    reset_launch_counts()
+    first = router.route(dem, "adaptive").loads
+    assert LAUNCHES["segment_sum"] == 8 * 8
+    again = router.route(dem, "adaptive", backend="cuda").loads
+    plain = router.route(dem, "adaptive", backend="torch").loads
+    assert LAUNCHES["segment_sum"] == 2 * 8 * 8
+    cpu = make_router(topo, device="cpu").route(
+        build(topo, 1100.0, device="cpu"), "adaptive").loads
+    for other in (again, plain, cpu):
+        assert torch.equal(first.cpu().view(torch.int64),
+                           other.cpu().view(torch.int64))
+    assert float(first.sum()) > 0
+
+
+@pytest.mark.parametrize("topo_name", sorted(ROUTING_TOPOS))
+def test_valiant_incidence_on_the_card_matches_the_cpu(cuda, topo_name):
+    """The valiant incidence's coalescing on the card (kernel and ordered
+    twin, bitwise equal): the CPU's columns, ``frac`` within 1e-15."""
+    topo = MPHX(**ROUTING_TOPOS[topo_name])
+    want = make_router(topo, device="cpu").incidence(
+        hotspot_demands(topo, 800.0, device="cpu"), "valiant")
+    dem = hotspot_demands(topo, 800.0, device=cuda)
+    router = make_router(topo, device=cuda)
+    reset_launch_counts()
+    got = router.incidence(dem, "valiant")
+    assert LAUNCHES["segment_sum"] == 1
+    plain = router.incidence(dem, "valiant", backend="torch")
+    assert LAUNCHES["segment_sum"] == 1
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].numpy())
+    np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].numpy())
+    np.testing.assert_allclose(got[2].cpu().numpy(), want[2].numpy(),
+                               rtol=0, atol=1e-15)
+
+
+def test_sweep_suite_through_kernels_matches_plain(cuda, tmp_path):
+    """``--suite sweep`` on the card: kernel and plain paths give the
+    same rows (floats at 1e-9 relative, adaptive's bit for bit), and the
+    CPU's rows (the same tolerances; adaptive's ``max_util`` bit for
+    bit).  Each scenario's adaptive loads at full injection: the CPU's
+    bits."""
+    kw = dict(topo_names=["mphx-2p-8x8"], load_fractions=(0.5, 1.0),
+              simulate=True)
+    reset_launch_counts()
+    runs = {"cuda": run_sweep_suite(str(tmp_path / "a"), sim_backend="cuda",
+                                    device=cuda, **kw)}
+    assert LAUNCHES["segment_sum"] > 0 and LAUNCHES["segment_min"] > 0
+    runs["torch"] = run_sweep_suite(str(tmp_path / "b"), sim_backend="torch",
+                                    device=cuda, **kw)
+    runs["cpu"] = run_sweep_suite(str(tmp_path / "c"), sim_backend="torch",
+                                  device="cpu", **kw)
+    for other in ("torch", "cpu"):
+        assert len(runs["cuda"]["rows"]) == len(runs[other]["rows"])
+        for a, b in zip(runs["cuda"]["rows"], runs[other]["rows"]):
+            for k, v in a.items():
+                if k in ("sweep_wall_s", "device", "device_name"):
+                    continue
+                if a.get("mode") == "adaptive" and (other == "torch"
+                                                    or k == "max_util"):
+                    assert b[k] == v, (other, k)
+                elif isinstance(v, float) and v != 0:
+                    assert abs(b[k] - v) <= 1e-9 * abs(v), (other, k)
+                else:
+                    assert b[k] == v, (other, k)
+    topo = SWEEP_TOPOLOGIES["mphx-2p-8x8"]
+    router = {d: make_router(topo, device=d) for d in (cuda, "cpu")}
+    for name in SCENARIOS:
+        sc = get_scenario(name)
+        got, want = (router[d].route(sc.build(topo, topo.nic_bw_gbps,
+                                              device=d), "adaptive").loads
+                     for d in (cuda, "cpu"))
+        assert torch.equal(got.cpu().view(torch.int64),
+                           want.view(torch.int64)), name
 
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 5e-2}

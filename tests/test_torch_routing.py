@@ -1,5 +1,7 @@
 """The port's MPHX and minimal router against the JAX package's.
 
+(Valiant and adaptive routing: ``tests/test_torch_routing_modes.py``.)
+
 Same topology parameters on both sides; the reference routes with its
 numpy backend.  Demand arrays and edge capacities must be equal, the
 incidence's ``flow`` and ``edge`` columns equal (the same COO order, which
@@ -91,25 +93,13 @@ def test_route_minimal_loads_match(topo_name, scenario):
                                atol=1e-12)
 
 
-def test_unported_modes_raise():
-    _, _, router, dem = setup("mphx-2p-8x8", "uniform")
-    for mode in ("valiant", "adaptive"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            router.route(dem, mode)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        router.incidence(dem, "valiant")
-    with pytest.raises(ValueError, match="no static per-flow incidence"):
-        router.incidence(dem, "adaptive")
-    with pytest.raises(ValueError, match="unknown mode"):
-        router.route(dem, "bogus")
-
-
 def test_load_sweep_defaults_match_the_reference():
     """Every parameter the port's ``load_sweep`` shares with the
     reference's has the reference's default (``net``, each package's own
-    ``NetParams``, by its fields).  So a call without ``mode`` asks for
-    the reference's adaptive routing, which the port has not ported: it
-    raises, where it once returned minimal-routing rows."""
+    ``NetParams``, by its fields).  So a call without ``mode`` routes
+    adaptively, as the reference does, and returns the reference's rows
+    (floats at 1e-9 relative, the rest exactly; the adaptive loads
+    themselves are bit-equal, ``tests/test_torch_routing_modes.py``)."""
     import dataclasses
     import inspect
 
@@ -127,8 +117,20 @@ def test_load_sweep_defaults_match_the_reference():
             assert dataclasses.asdict(got) == dataclasses.asdict(want)
         else:
             assert got == want, name
-    topo = MPHX(**TOPOS["mphx-2p-8x8"])
-    router = make_router(topo, device="cpu")
-    with pytest.raises(NotImplementedError, match="adaptive"):
-        load_sweep(topo, lambda t, g: uniform_demands(t, g, device="cpu"),
-                   router=router)
+    kw = TOPOS["mphx-2p-8x8"]
+    topo = MPHX(**kw)
+    want = ref_load_sweep(RefMPHX(**kw), ref_shift, backend="numpy")
+    got = load_sweep(topo, lambda t, g: neighbor_shift_demands(
+        t, g, device="cpu"), router=make_router(topo, device="cpu"))
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        for k, v in w.items():
+            if isinstance(v, float) and v != 0:
+                assert abs(g[k] - v) <= 1e-9 * abs(v), k
+            else:
+                assert g[k] == v, k
+    # adaptive re-routes every level: the rows do not scale linearly
+    minimal = ref_load_sweep(RefMPHX(**kw), ref_shift, mode="minimal",
+                             backend="numpy")
+    assert [r["max_util"] for r in got] != [r["max_util"] for r in minimal]

@@ -1,0 +1,145 @@
+"""The port's ``sweep`` suite against the JAX package's, on the CPU.
+
+``run_sweep_suite`` over ``mphx-2p-8x8`` and a 1-D MPHX (all synthetic
+scenarios, the three routing modes, two loads, measured FCT columns on
+the minimal rows) against the reference's with its numpy backends:
+every routed row the reference writes for a ported scenario has a port
+row in the same place, with every key both write equal (floats at 1e-9
+relative, the rest exactly; the wall clocks left out).  The reference's
+graph-engine presets and its collective scenarios are skip records with
+a reason in the port.  The CLI's ``--suite sweep`` runs on the CPU.
+"""
+
+import json
+
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.experimental  # noqa: E402
+
+from repro.core.hyperx import MPHX as RefMPHX  # noqa: E402
+from repro.experiments import sweep as ref_sweep  # noqa: E402
+from repro_torch.core.hyperx import MPHX  # noqa: E402
+from repro_torch.experiments import sweep  # noqa: E402
+from repro_torch.experiments.run import SUITES  # noqa: E402
+from repro_torch.experiments.run import main as cli_main  # noqa: E402
+from repro_torch.experiments.scenarios import (  # noqa: E402
+    COLLECTIVE_SCENARIOS, SCENARIOS)
+
+ONE_D = ("mphx-2p-8", dict(n=2, p=4, dims=(8,)))
+LOADS = (0.5, 1.0)
+UNCOMPARED = ("sweep_wall_s",)
+
+
+@pytest.fixture(autouse=True)
+def jax_x64_shim(monkeypatch):
+    """jax 0.9 moved ``enable_x64`` out of ``jax.experimental``, where the
+    reference imports it from; undone after each test."""
+    monkeypatch.setattr(jax.experimental, "enable_x64", jax.enable_x64,
+                        raising=False)
+
+
+@pytest.fixture
+def one_d(monkeypatch):
+    """A small 1-D preset on both sides (the 1-D Table-2 row, 65,536
+    NICs, is too large for the CPU reference)."""
+    name, kw = ONE_D
+    monkeypatch.setitem(ref_sweep.SWEEP_TOPOLOGIES, name, RefMPHX(**kw))
+    monkeypatch.setitem(sweep.SWEEP_TOPOLOGIES, name, MPHX(**kw))
+    return name
+
+
+def routed(payload):
+    return [r for r in payload["rows"] if not r.get("skipped")]
+
+
+@pytest.mark.parametrize("simulate", (True, False))
+@pytest.mark.parametrize("topo", ["mphx-2p-8x8", "1d"])
+def test_sweep_suite_matches_the_reference(tmp_path, one_d, topo, simulate):
+    name = one_d if topo == "1d" else topo
+    want = ref_sweep.run_sweep_suite(
+        str(tmp_path / "ref"), topo_names=[name], load_fractions=LOADS,
+        backend="numpy", simulate=simulate, sim_backend="numpy")
+    got = sweep.run_sweep_suite(
+        str(tmp_path / "port"), topo_names=[name], load_fractions=LOADS,
+        simulate=simulate, sim_backend="torch", device="cpu")
+    want_rows = [r for r in routed(want) if r["scenario"] in SCENARIOS]
+    got_rows = routed(got)
+    assert len(got_rows) == len(want_rows) > 0
+    n_shared = 0
+    for g, w in zip(got_rows, want_rows):
+        shared = (set(g) & set(w)) - set(UNCOMPARED)
+        assert {"scenario", "mode", "max_util", "latency_us"} <= shared
+        for k in sorted(shared):
+            v = w[k]
+            if isinstance(v, float) and v != 0:
+                assert abs(g[k] - v) <= 1e-9 * abs(v), (g["scenario"],
+                                                        g["mode"], k)
+            else:
+                assert g[k] == v, (g["scenario"], g["mode"], k, g[k], v)
+        n_shared += 1
+        assert ("fct_p99_us" in g) == (simulate and g["mode"] == "minimal")
+    assert n_shared == len(want_rows)
+    skips = {r["scenario"]: r for r in got["rows"] if r.get("skipped")}
+    want_skips = {r["scenario"] for r in want["rows"] if r.get("skipped")}
+    assert set(skips) == want_skips | set(COLLECTIVE_SCENARIOS)
+    for scen in COLLECTIVE_SCENARIOS:
+        assert "ROADMAP" in skips[scen]["reason"]
+        assert skips[scen]["kind"] == "collective"
+    for scen in want_skips:
+        assert skips[scen]["reason"] == next(
+            r["reason"] for r in want["rows"]
+            if r.get("skipped") and r["scenario"] == scen)
+
+
+def test_default_sweep_skips_the_graph_presets(tmp_path):
+    payload = sweep.run_sweep_suite(str(tmp_path), load_fractions=(1.0,),
+                                    modes=["minimal"], device="cpu")
+    assert payload["params"]["topologies"] == ref_sweep.DEFAULT_SWEEP_TOPOS
+    whole = [r for r in payload["rows"] if r["scenario"] == "*"]
+    assert [r["topology"] for r in whole] == [
+        ref_sweep.SWEEP_TOPOLOGIES[n].name
+        for n in ref_sweep.DEFAULT_SWEEP_TOPOS[1:]]
+    for r in whole:
+        assert r["skipped"] and "queue 1, item 2" in r["reason"]
+    assert payload["params"]["n_skipped"] == len(whole) + len(
+        COLLECTIVE_SCENARIOS)
+    assert len(routed(payload)) == len(SCENARIOS)
+    md = (tmp_path / "sweep.md").read_text()
+    assert all(f"| {r['topology']} | * |" in md for r in whole)
+
+
+def test_sweep_transpose_is_a_skip_record_on_a_non_square_grid(tmp_path):
+    payload = sweep.run_sweep_suite(
+        str(tmp_path), topo_names=["mphx-4p-86x9"],
+        scenario_names=["transpose"], device="cpu")
+    (row,) = payload["rows"]
+    assert row["skipped"] and "square" in row["reason"]
+    assert row["reason"] == ref_sweep.get_scenario("transpose").skip_reason(
+        ref_sweep.SWEEP_TOPOLOGIES["mphx-4p-86x9"])
+
+
+def test_cli_sweep_suite_on_the_cpu(tmp_path, capsys):
+    assert SUITES == ["sim", "sweep"]
+    rc = cli_main(["--suite", "sweep", "--topos", "mphx-2p-8x8",
+                   "--scenarios", "neighbor_shift", "transpose",
+                   "--modes", "minimal", "adaptive", "--loads", "0.5",
+                   "1.0", "--simulate", "--sim-backend", "torch",
+                   "--device", "cpu", "--out", str(tmp_path)])
+    assert rc == 0
+    assert "8 routed rows, 0 skipped" in capsys.readouterr().out
+    payload = json.loads((tmp_path / "sweep.json").read_text())
+    assert payload["params"]["sim_backend"] == "torch"
+    assert payload["params"]["device"] == "cpu"
+    rows = payload["rows"]
+    assert [r["mode"] for r in rows] == ["minimal"] * 2 + ["adaptive"] * 2 \
+        + ["minimal"] * 2 + ["adaptive"] * 2
+    assert all("fct_p50_us" in r for r in rows if r["mode"] == "minimal")
+    assert (tmp_path / "sweep.md").exists()
+
+
+def test_cli_sim_suite_refuses_unported_cells(tmp_path):
+    with pytest.raises(SystemExit):
+        cli_main(["--suite", "sim", "--topos", "ft3-small", "--device",
+                  "cpu", "--out", str(tmp_path)])
