@@ -29,10 +29,10 @@ nonzero:
    relative, integers exactly.
 5. ``golden``: the mphx-2p-8x8 array cells (``uniform`` and
    ``neighbor_shift`` in minimal routing, ``hotspot_valiant`` in
-   valiant) and the staggered trace of
-   ``tests/golden/fairshare_golden.json`` on the card: exact incidence
-   sizes, rates, link loads and FCT columns at the golden's tolerances,
-   the trace's exact epoch count.
+   valiant), the graph engine's ``dragonfly-small/uniform`` cell and the
+   staggered trace of ``tests/golden/fairshare_golden.json`` on the
+   card: exact incidence sizes, rates, link loads and FCT columns at the
+   golden's tolerances, the trace's exact epoch count.
 6. ``sweep``: ``--suite sweep`` over mphx-2p-16x16 (the five synthetic
    scenarios) and mphx-4p-86x9 (the same; ``transpose`` a skip record on
    its non-square grid) in minimal, valiant and adaptive routing, loads
@@ -51,7 +51,22 @@ nonzero:
    ``load_sweep(mode="valiant", simulate=True)`` at loads 0.5 and 0.9
    through the kernels (launch counts read around that run alone) and
    on the plain path: rows at 1e-9 relative, integers exact.
-8. ``model_kernel``: RMSNorm and flash attention against their plain
+8. ``graph``: the Table-2 baselines on the graph engine.  ``--suite
+   sim``'s defaults (mphx-2p-8x8, dragonfly-small), then ``--suite sim
+   --topos mpft-8p-65536`` (uniform, 16,711,680 incidence entries, and
+   neighbor_shift, loads 0.5 and 0.9, uncut); ``--suite sweep`` over
+   the four ``*-small`` presets (every scenario, three modes, loads 0.5
+   and 1.0, measured FCTs) and the four ``*-65536`` presets (uniform and
+   neighbor_shift, three modes, loads 0.5 and 1.0): each through the
+   kernels (launch counts read around that run alone), then on the plain
+   path (at 65K uniform alone: reduced), every row at 1e-9 relative,
+   integers exact; the small presets' rows also against the CPU's.  Each
+   65K preset's uniform route alone in each mode with its wall, adaptive
+   twice and on the plain path, bit for bit; the dragonfly-65536 uniform
+   adaptive route under the profiler; the segment kernels at the graph's
+   shapes (ft3-65536's pull, ECMP denominators and bottleneck max, one
+   lane a segment) and at mpft-8p-65536's water-filling shapes.
+9. ``model_kernel``: RMSNorm and flash attention against their plain
    versions (edge cases: ragged sizes, decode, GQA and MQA, a window, a
    ring cache with empty and wrapped slots, float32 and bfloat16), at
    the serve path's shapes (float32 at 2e-5; bfloat16, and for
@@ -80,7 +95,7 @@ nonzero:
    shape 1), and each line carries its ``splits``; its device
    times come from the profiler and from CUDA graphs as attention's,
    beside ``torch.bmm``'s, with the SM clock around each timing.
-9. ``serve``: yi-9b at full width and depth (random bf16 weights drawn
+10. ``serve``: yi-9b at full width and depth (random bf16 weights drawn
    on the card from a seed) serves 8 requests of 1,024 prompt tokens and
    32 new tokens each in waves of 4 through the kernels, with the launch
    counts read around that run alone (97 RMSNorm and 48 attention
@@ -90,7 +105,7 @@ nonzero:
    Prefill and teacher-forced decode logits of the two paths must agree,
    and a float32 2-layer yi-9b must agree at 2e-5; a decode wave is
    profiled for the device's idle share.
-10. ``moe_serve``: mixtral-8x22b at full width and 12 of its 56 layers
+11. ``moe_serve``: mixtral-8x22b at full width and 12 of its 56 layers
    (60.9 GB of random bf16 weights drawn on the card after yi-9b's are
    freed) serves the same traffic through the kernels, with the launch
    counts read around that run alone (25 RMSNorm, 12 attention and 36
@@ -111,7 +126,7 @@ nonzero:
    runs through mixtral's 4,096-token window, a decode wave is profiled,
    and a float32 2-layer mixtral must agree at 2e-5 with no routing
    flipped.
-11. ``hybrid_serve``: the RG-LRU scan bit for bit equal to its plain
+12. ``hybrid_serve``: the RG-LRU scan bit for bit equal to its plain
    version, with each shape's plan, at ``tests/test_kernels.py``'s edge
    shapes, ragged widths and lengths, recurrentgemma-2b prefill's (4,
    1024, 2560) (timed: event, device and CUDA-graph ms, GB/s and the
@@ -129,7 +144,7 @@ nonzero:
    wave is
    profiled, and a float32 model at full width and 5 of its 26 layers
    must agree at 2e-5.
-12. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
+13. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
@@ -178,6 +193,19 @@ SWEEP_LOADS = (0.5, 1.0)
 # the valiant sim phase: water-filling over the valiant incidence
 VALIANT_SCENARIO = "hotspot"
 VALIANT_LOADS = (0.5, 0.9)
+
+# the graph phase: the Table-2 baselines on the graph engine
+GRAPH_SMALL = ["ft3-small", "mpft-2p-small", "dragonfly-small",
+               "dfplus-small"]
+GRAPH_BIG = ["ft3-65536", "mpft-8p-65536", "dragonfly-65536",
+             "dfplus-65536"]
+GRAPH_SIM_TOPO = "mpft-8p-65536"
+GRAPH_BIG_SCENARIOS = ["uniform", "neighbor_shift"]
+# reduced: the plain pass of the 65K sweep runs uniform alone
+GRAPH_PLAIN_BIG_SCENARIOS = ["uniform"]
+GRAPH_PROFILED = "dragonfly-65536"
+# the row-scatter kernel lines: the largest pull
+GRAPH_KERNEL_TOPO = "ft3-65536"
 
 KERNELS = {
     "segment_sum": "src/repro/kernels/segment_fairshare/kernel.py:97",
@@ -333,11 +361,18 @@ def graph_ms(fn, calls: int = 20, samples: int = 5) -> float:
 
 def device_events(prof) -> "list[tuple[str, int, float]]":
     """(name, count, total microseconds) of the work the profiler saw on
-    the device (kernels, copies, fills), longest first."""
+    the device (kernels, copies, fills), longest first, summed from its
+    raw event list.  ``key_averages()`` costs time that grows with the
+    events (tens of seconds for a graph route's ~10^5 launches), and late
+    in this script it kept fewer kernel records than the raw list (24
+    rows without device ms against 7 in one H100 run each)."""
     cuda = torch.autograd.DeviceType.CUDA
-    return sorted(((e.key, e.count, e.self_device_time_total)
-                   for e in prof.key_averages()
-                   if e.device_type == cuda and e.self_device_time_total > 0),
+    acc = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda and e.duration_ns() > 0:
+            count, us = acc.get(e.name(), (0, 0.0))
+            acc[e.name()] = (count + 1, us + e.duration_ns() / 1e3)
+    return sorted(((n, c, t) for n, (c, t) in acc.items()),
                   key=lambda k: -k[2])
 
 
@@ -604,14 +639,54 @@ def phase_main_path() -> dict:
     return launches
 
 
+def check_golden_cell(router, dem, mode: str, want: dict, flow_time_s,
+                      cell: str, load_key: str) -> None:
+    """One load of a golden cell on the card: exact incidence sizes,
+    rates and link loads within 1e-9 of the scale, FCT columns within
+    1e-9 relative, integers exact."""
+    from repro_torch.sim.events import simulate_demands
+    from repro_torch.sim.fairshare import flow_incidence, max_min_rates
+
+    inc = flow_incidence(router, dem, mode)
+    assert (inc.n_flows, inc.n_edges, inc.nnz) == (
+        want["n_flows"], want["n_edges"], want["nnz"])
+    caps = dem.gbps
+    scale = max(float(caps.max()), 1.0)
+    rates = max_min_rates(inc, caps, backend="cuda",
+                          device="cuda").cpu().numpy()
+    err = float(np.abs(rates - np.asarray(want["rates_gbps"])).max())
+    if err > 1e-9 * scale:
+        raise AssertionError(f"{cell}@{load_key}: rates err {err}")
+    loads = inc.loads(rates, "cuda").cpu().numpy()
+    golden = np.zeros(inc.n_edges)
+    for e, v in want["link_loads_gbps_nonzero"].items():
+        golden[int(e)] = v
+    lerr = float(np.abs(loads - golden).max())
+    if lerr > 1e-9 * scale:
+        raise AssertionError(f"{cell}@{load_key}: loads err {lerr}")
+    row = simulate_demands(router, dem, flow_time_s, mode=mode,
+                           backend="cuda", inc=inc)
+    for k, v in want["fct"].items():
+        got = row[k]
+        if isinstance(v, float) and v != 0:
+            if abs(got - v) > 1e-9 * abs(v) + 1e-12:
+                raise AssertionError(f"{cell}@{load_key}: {k} {got} != {v}")
+        elif got != v:
+            raise AssertionError(f"{cell}@{load_key}: {k} {got} != {v}")
+    emit("golden", cell=cell, mode=mode, load=load_key, n_flows=inc.n_flows,
+         nnz=inc.nnz, rates_max_abs_err=err, loads_max_abs_err=lerr,
+         epochs=row["sim_epochs"], ok=True)
+
+
 def phase_golden() -> None:
     from repro_torch.core.netsim import make_router
+    from repro_torch.core.routing_graph import graph_uniform_demands
     from repro_torch.core.routing_vec import (hotspot_demands,
                                               neighbor_shift_demands,
                                               uniform_demands)
     from repro_torch.experiments.sweep import SWEEP_TOPOLOGIES
-    from repro_torch.sim.events import simulate_demands, simulate_incidence
-    from repro_torch.sim.fairshare import flow_incidence, max_min_rates
+    from repro_torch.sim.events import simulate_incidence
+    from repro_torch.sim.fairshare import flow_incidence
 
     fixture = json.loads(GOLDEN.read_text())
     topo = SWEEP_TOPOLOGIES["mphx-2p-8x8"]
@@ -626,38 +701,20 @@ def phase_golden() -> None:
         for load_key, want in cell["loads"].items():
             dem = build(topo, float(load_key) * topo.nic_bw_gbps,
                         device="cuda")
-            inc = flow_incidence(router, dem, mode)
-            assert (inc.n_flows, inc.n_edges, inc.nnz) == (
-                want["n_flows"], want["n_edges"], want["nnz"])
-            caps = dem.gbps
-            scale = max(float(caps.max()), 1.0)
-            rates = max_min_rates(inc, caps, backend="cuda",
-                                  device="cuda").cpu().numpy()
-            err = float(np.abs(rates - np.asarray(want["rates_gbps"])).max())
-            if err > 1e-9 * scale:
-                raise AssertionError(f"{scen}@{load_key}: rates err {err}")
-            loads = inc.loads(rates, "cuda").cpu().numpy()
-            golden = np.zeros(inc.n_edges)
-            for e, v in want["link_loads_gbps_nonzero"].items():
-                golden[int(e)] = v
-            lerr = float(np.abs(loads - golden).max())
-            if lerr > 1e-9 * scale:
-                raise AssertionError(f"{scen}@{load_key}: loads err {lerr}")
-            row = simulate_demands(router, dem, fixture["flow_time_s"],
-                                   mode=mode, backend="cuda", inc=inc)
-            for k, v in want["fct"].items():
-                got = row[k]
-                if isinstance(v, float) and v != 0:
-                    if abs(got - v) > 1e-9 * abs(v) + 1e-12:
-                        raise AssertionError(f"{scen}@{load_key}: {k} "
-                                             f"{got} != {v}")
-                elif got != v:
-                    raise AssertionError(f"{scen}@{load_key}: {k} "
-                                         f"{got} != {v}")
-            emit("golden", cell=f"mphx-2p-8x8/{scen}", mode=mode,
-                 load=load_key, n_flows=inc.n_flows, nnz=inc.nnz,
-                 rates_max_abs_err=err, loads_max_abs_err=lerr,
-                 epochs=row["sim_epochs"], ok=True)
+            check_golden_cell(router, dem, mode, want, fixture["flow_time_s"],
+                              f"mphx-2p-8x8/{scen}", load_key)
+    # the graph engine's cell: dragonfly-small, uniform, minimal
+    topo = SWEEP_TOPOLOGIES["dragonfly-small"]
+    router = make_router(topo, device="cuda")
+    cell = fixture["cells"]["graph/dragonfly-small/uniform"]
+    for load_key, want in cell["loads"].items():
+        dem = graph_uniform_demands(topo, float(load_key) * topo.nic_bw_gbps,
+                                    graph=router.graph, device="cuda")
+        check_golden_cell(router, dem, cell["mode"], want,
+                          fixture["flow_time_s"], "dragonfly-small/uniform",
+                          load_key)
+    topo = SWEEP_TOPOLOGIES["mphx-2p-8x8"]
+    router = make_router(topo, device="cuda")
     rec = fixture["staggered"]
     inc = flow_incidence(router, neighbor_shift_demands(topo, 800.0,
                                                         device="cuda"))
@@ -703,9 +760,9 @@ def capture_sums(fn):
     calls = []
     ordered_sum = routing_vec.ordered_sum
 
-    def spy(values, ids, n, backend):
+    def spy(values, ids, n, backend, plan=None):
         calls.append((values, ids, n))
-        return ordered_sum(values, ids, n, backend)
+        return ordered_sum(values, ids, n, backend, plan=plan)
 
     routing_vec.ordered_sum = spy
     try:
@@ -932,6 +989,254 @@ def phase_valiant_sim() -> dict:
         raise AssertionError("valiant sim: missing rows")
     emit("valiant_sim", launches=launches, rows_agree=True, ok=True)
     return launches
+
+
+def graph_suite(kind: str, backend: str, out: str, **kw):
+    """``(payload, wall s)`` of one graph-phase suite run on the card."""
+    from repro_torch.experiments.simsuite import run_sim_suite
+    from repro_torch.experiments.sweep import run_sweep_suite
+
+    run = run_sim_suite if kind == "sim" else run_sweep_suite
+    return timed(lambda: run(str(OUT_DIR / out), sim_backend=backend,
+                             device="cuda", **kw))
+
+
+def check_rows(got: "list[dict]", want: "list[dict]", where: str) -> int:
+    """Row for row (:func:`compare_rows`), every float finite where it is
+    not a skip record; returns the count of routed rows."""
+    if len(got) != len(want):
+        raise AssertionError(f"{where}: {len(got)} rows, not {len(want)}")
+    routed = 0
+    for a, b in zip(got, want):
+        compare_rows(a, b, f"{where} {a['topology']}/{a['scenario']}/"
+                           f"{a.get('mode')}")
+        if a.get("skipped"):
+            continue
+        routed += 1
+        for k, v in a.items():
+            if isinstance(v, float) and not math.isfinite(v) \
+                    and k != "latency_us":
+                raise AssertionError(f"{where}: {a['scenario']}: {k} = {v}")
+    return routed
+
+
+def phase_graph() -> dict:
+    """The graph engine on the card: the sim and sweep suites over the
+    Table-2 baselines through the kernels and on the plain path, each
+    65K preset's uniform route alone, the small presets against the
+    CPU, a profiled route and the kernel lines at the graph's shapes.
+    Returns each path's launch counts."""
+    from repro_torch.core.netsim import make_router
+    from repro_torch.experiments.scenarios import get_scenario
+    from repro_torch.experiments.sweep import (ROUTING_MODES,
+                                               SWEEP_TOPOLOGIES,
+                                               run_sweep_suite)
+    from repro_torch.kernels.segment_fairshare import (LAUNCHES,
+                                                       reset_launch_counts)
+    from repro_torch.sim.fairshare import SolveProblem, flow_incidence
+
+    t_phase = time.perf_counter()
+
+    def emit_graph(**fields):
+        emit("graph", phase_s=time.perf_counter() - t_phase, **fields)
+
+    # a small run first, so that no timed run pays the first use of the
+    # graph engine's torch kernels
+    graph_suite("sim", "cuda", "graph_warmup", topo_names=["dragonfly-small"])
+    by_path = {}
+
+    def kernel_then_plain(path, kind, out, plain_kw=None, **kw):
+        reset_launch_counts()
+        got, wall = graph_suite(kind, "cuda", f"{out}_cuda", **kw)
+        by_path[path] = dict(LAUNCHES)
+        missing = [k for k, n in by_path[path].items() if n == 0]
+        if missing:
+            raise AssertionError(f"{path} launched no {missing} kernel")
+        plain, pwall = graph_suite(kind, "torch", f"{out}_torch",
+                                   **{**kw, **(plain_kw or {})})
+        emit_graph(path=path, suite_wall_s=wall, plain_suite_wall_s=pwall,
+             launches=by_path[path],
+             device_name=got["params"]["device_name"])
+        return got, plain
+
+    # --suite sim: its defaults (mphx-2p-8x8, dragonfly-small), then the
+    # multi-plane Fat-Tree row at 65,536 NICs, uncut
+    for path, topo_names in (("graph sim default", None),
+                             (f"graph sim {GRAPH_SIM_TOPO}",
+                              [GRAPH_SIM_TOPO])):
+        torch.cuda.reset_peak_memory_stats()
+        got, plain = kernel_then_plain(path, "sim", path.replace(" ", "_"),
+                                       topo_names=topo_names,
+                                       scenario_names=MAIN_SCENARIOS,
+                                       load_fractions=MAIN_LOADS)
+        check_rows(got["rows"], plain["rows"], path)
+        if not got["params"]["all_steady_checks_agree_1e-6"]:
+            raise AssertionError(f"{path}: steady-state loads diverge")
+        for r in got["rows"]:
+            if r.get("kind") == "fct":
+                emit_graph(path=path, topology=r["topology"],
+                     engine=r["engine"], scenario=r["scenario"],
+                     offered_fraction=r["offered_fraction"],
+                     max_util=r["max_util"], flows=r["sim_flows"],
+                     nnz=r["sim_nnz"], epochs=r["sim_epochs"],
+                     waterfill_rounds=r["sim_waterfill_rounds"],
+                     fct_p50_us=r["fct_p50_us"], fct_p99_us=r["fct_p99_us"],
+                     delivered=r["sim_delivered_fraction"],
+                     sim_wall_s=r["sim_wall_s"])
+        emit_graph(path=path, peak_bytes=torch.cuda.max_memory_allocated())
+
+    # --suite sweep over the small presets: every scenario, three modes,
+    # measured FCTs on the minimal rows; then against the CPU's rows
+    path = "graph sweep small"
+    sweep_kw = dict(topo_names=GRAPH_SMALL, load_fractions=SWEEP_LOADS,
+                    simulate=True)
+    got, plain = kernel_then_plain(path, "sweep", "graph_sweep_small",
+                                   **sweep_kw)
+    routed = check_rows(got["rows"], plain["rows"], path)
+    cpu, cwall = timed(lambda: run_sweep_suite(
+        str(OUT_DIR / "graph_sweep_small_cpu"), sim_backend="torch",
+        device="cpu", **sweep_kw))
+    check_rows(got["rows"], cpu["rows"], f"{path} vs cpu")
+    emit_graph(path=path, routed_rows=routed, rows_agree=True,
+         rows_agree_cpu=True, cpu_suite_wall_s=cwall)
+
+    # --suite sweep at 65,536 NICs: uniform and neighbor_shift, three
+    # modes, loads 0.5 / 1.0; the plain pass runs uniform alone (reduced)
+    path = "graph sweep 65536"
+    got, plain = kernel_then_plain(
+        path, "sweep", "graph_sweep_65536",
+        plain_kw={"scenario_names": GRAPH_PLAIN_BIG_SCENARIOS},
+        topo_names=GRAPH_BIG, scenario_names=GRAPH_BIG_SCENARIOS,
+        load_fractions=SWEEP_LOADS)
+    same = [r for r in got["rows"]
+            if r["scenario"] in GRAPH_PLAIN_BIG_SCENARIOS]
+    check_rows(same, plain["rows"], path)
+    routed = check_rows(got["rows"], got["rows"], path)
+    want = len(GRAPH_BIG) * len(GRAPH_BIG_SCENARIOS) * len(ROUTING_MODES) \
+        * len(SWEEP_LOADS)
+    if routed != want:
+        raise AssertionError(f"{path}: {routed} routed rows, not {want}")
+    cells = {}
+    for r in got["rows"]:
+        cells.setdefault((r["topology"], r["scenario"], r["mode"]),
+                         []).append(r)
+    for (topo, scen, mode), rs in cells.items():
+        emit_graph(path=path, topology=topo, scenario=scen, mode=mode,
+             max_util=[r["max_util"] for r in rs],
+             latency_us=[r["latency_us"] for r in rs],
+             sweep_wall_s=rs[0]["sweep_wall_s"])
+    emit_graph(path=path, routed_rows=routed, rows_agree=True)
+
+    # each 65K preset's uniform route alone in each mode; adaptive twice
+    # (bit for bit) and on the plain path (bit for bit)
+    for tn in GRAPH_BIG:
+        topo = SWEEP_TOPOLOGIES[tn]
+        router, build_s = timed(lambda: make_router(topo, device="cuda"))
+        _, hops_s = timed(lambda: router.hops)
+        dem = get_scenario("uniform").build(topo, topo.nic_bw_gbps,
+                                            graph=router.graph, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        line = {"switches": router.csr.n_switches,
+                "edges": router.csr.n_edges, "demands": dem.n,
+                "dst_chunk": router.dst_chunk, "router_s": build_s,
+                "hops_s": hops_s}
+        for mode in ROUTING_MODES:
+            reset_launch_counts()
+            ll, wall = timed(lambda: router.route(dem, mode))
+            line[f"{mode}_wall_s"] = wall
+            line[f"{mode}_launches"] = dict(LAUNCHES)
+            line[f"{mode}_max_util"] = ll.max_utilization()
+        again, wall2 = timed(lambda: router.route(dem, "adaptive"))
+        plain, pwall = timed(lambda: router.route(dem, "adaptive",
+                                                  backend="torch"))
+        if not (same_bits(ll.loads, again.loads)
+                and same_bits(ll.loads, plain.loads)):
+            raise AssertionError(f"{tn}: adaptive loads differ between "
+                                 "runs or from the plain path")
+        emit_graph(route=tn, scenario="uniform", adaptive_again_s=wall2,
+             adaptive_plain_s=pwall, bits_equal=True, bits_equal_plain=True,
+             peak_bytes=torch.cuda.max_memory_allocated(), **line)
+        del router, dem, ll, again, plain
+        torch.cuda.empty_cache()
+
+    # the dragonfly-65536 uniform adaptive route under the profiler
+    topo = SWEEP_TOPOLOGIES[GRAPH_PROFILED]
+    router = make_router(topo, device="cuda")
+    dem = get_scenario("uniform").build(topo, topo.nic_bw_gbps,
+                                        graph=router.graph, device="cuda")
+    router.route(dem, "minimal")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(lambda: router.route(dem, "adaptive"))
+    kernels = device_events(prof)
+    busy_ms = sum(k[2] for k in kernels) / 1e3
+    emit_graph(profiled=f"{GRAPH_PROFILED} uniform adaptive route",
+         profiled_wall_s=wall, device_busy_ms=busy_ms,
+         device_idle_share=1.0 - busy_ms / (wall * 1e3),
+         top_device_ops=[{"name": n[:80], "count": c, "ms": t / 1e3}
+                         for n, c, t in kernels[:10]])
+    del router, dem, prof
+    torch.cuda.empty_cache()
+
+    # #1 and #2 at the graph's shapes: the pull's row scatter, the ECMP
+    # denominators and the bottleneck max of ft3-65536's first chunk
+    topo = SWEEP_TOPOLOGIES[GRAPH_KERNEL_TOPO]
+    router = make_router(topo, device="cuda")
+    S, E, C = router.csr.n_switches, router.csr.n_edges, router.dst_chunk
+    dests = torch.nonzero(router.csr.nic_counts).squeeze(1)[:C]
+    ll = router.route(get_scenario("uniform").build(
+        topo, topo.nic_bw_gbps, graph=router.graph, device="cuda"),
+        "minimal")
+    inject = torch.zeros((S, C), dtype=torch.float64, device="cuda")
+    inject[torch.nonzero(router.csr.nic_counts).squeeze(1)] = 1.0
+    contribs = []
+
+    def keep(contrib):
+        contribs.append(contrib)
+        return contrib
+
+    _, calls = capture_sums(lambda: [keep(c) for c in router._pull(
+        dests, inject, "cuda", router._levels(dests.tolist()))])
+    case = f"{GRAPH_KERNEL_TOPO} uniform, {C} destinations"
+    dst_ids, dst_plan = router._block("dst", C)
+    src_ids, src_plan = router._block("src", C)
+    pull = next(c for c in calls if c[1] is dst_ids)
+    denom = next(c for c in calls if c[1] is src_ids)
+    results = {"pull": kernel_row("segment_sum", case, "pull (dst rows)",
+                                  pull[0], dst_ids, S * C, dst_plan, True),
+               "denom": kernel_row("segment_sum", case, "ECMP denominators",
+                                   denom[0], src_ids, S * C, src_plan,
+                                   True)}
+    dist_to, frac = router._downhill(dests, "cuda")
+    util = ll.utilization_array()
+    cand = torch.where(frac > 0, util[:, None].expand(E, C), -torch.inf)
+    results["bottleneck"] = kernel_row(
+        "segment_min", case, "bottleneck max (as -min(-x))",
+        (-cand).reshape(-1), src_ids, S * C, src_plan, True)
+    del router, ll, inject, contribs, calls, pull, denom, dist_to, frac, cand
+    torch.cuda.empty_cache()
+
+    # mpft-8p-65536's water-filling shapes: the uniform incidence
+    topo = SWEEP_TOPOLOGIES[GRAPH_SIM_TOPO]
+    router = make_router(topo, device="cuda")
+    dem = get_scenario("uniform").build(topo, topo.nic_bw_gbps,
+                                        graph=router.graph, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    inc, wall = timed(lambda: flow_incidence(router, dem))
+    emit_graph(incidence=f"{GRAPH_SIM_TOPO} uniform", wall_s=wall,
+         flows=inc.n_flows, nnz=inc.nnz,
+         peak_bytes=torch.cuda.max_memory_allocated())
+    prob = SolveProblem.build(inc, "cuda")
+    case = f"{GRAPH_SIM_TOPO} uniform"
+    kernel_row("segment_sum", case, "edge", inc.frac, prob.edge,
+               prob.n_edges, prob.edge_plan, True)
+    kernel_row("segment_sum", case, "flow", inc.frac, inc.flow, inc.n_flows,
+               prob.flow_plan, False)
+    kernel_row("segment_min", case, "flow", inc.capacity[inc.edge]
+               / inc.frac, inc.flow, inc.n_flows, prob.flow_plan, False)
+    del prob, inc, dem, router
+    torch.cuda.empty_cache()
+    emit_graph(launches=by_path, ok=True)
+    return by_path
 
 
 def phase_build() -> None:
@@ -2226,6 +2531,7 @@ def main() -> int:
     by_path["sweep mphx-2p-16x16, mphx-4p-86x9"] = phase_sweep()
     by_path[f"valiant sim {MAIN_TOPO} {VALIANT_SCENARIO}"] = \
         phase_valiant_sim()
+    by_path.update(phase_graph())
     kernel_results.update(phase_model_kernels())
     by_path[f"{SERVE_ARCH} serve"] = phase_serve(card)
     by_path[f"{MOE_ARCH} serve"], ragged = phase_moe_serve(card)

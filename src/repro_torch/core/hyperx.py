@@ -1,7 +1,8 @@
 """Multi-Plane HyperX (MPHX) topology — the paper's contribution (§3).
 
-Copy of ``repro/core/hyperx.py::MPHX`` (the explicit switch graph of the
-reference's graph engine is not part of this port yet).
+Copy of ``repro/core/hyperx.py::MPHX``, with its explicit switch graph
+(:meth:`MPHX.build_graph`, which the graph routing engine routes for the
+graph-vs-array cross-check).
 
 ``MPHX(n, p, D_1, ..., D_D)``: ``n`` planes (NIC ports of B/n each),
 ``p`` NIC ports per switch per plane, ``D_i`` fully meshed switches
@@ -14,8 +15,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-from .topology import DEFAULT_SWITCH, LinkClass, SwitchModel, Topology, \
-    product
+from .topology import (DEFAULT_SWITCH, LinkClass, SwitchGraph,
+                       SwitchModel, Topology, product)
 
 
 @dataclass
@@ -129,3 +130,22 @@ class MPHX(Topology):
             coord.append(idx % d)
             idx //= d
         return tuple(reversed(coord))
+
+    def build_graph(self) -> SwitchGraph:
+        """One plane's switch graph (all n planes are identical copies);
+        a dimension's ``links_per_dim`` spread evenly over its
+        ``D_i - 1`` neighbours."""
+        g = SwitchGraph(self.switches_per_plane, self.p, self.port_gbps,
+                        name=self.name)
+        for idx in range(self.switches_per_plane):
+            coord = self.id_to_coord(idx)
+            for i, (d, l) in enumerate(zip(self.dims, self.links_per_dim)):
+                if d <= 1:
+                    continue
+                mult = l / (d - 1)
+                for c in range(coord[i] + 1, d):
+                    other = list(coord)
+                    other[i] = c
+                    g.add_edge(idx, self.coord_to_id(tuple(other)), mult,
+                               tier=f"dim{i}")
+        return g

@@ -43,21 +43,28 @@ def avg_latency(topo: Topology, msg_bytes: float = 4096,
 
 
 def resolve_engine(topo: Topology, engine: str = "auto") -> str:
-    """Routing engine for ``topo``.  Only the MPHX array engine is
-    ported; the generic graph engine raises."""
-    if engine not in ("auto", "array", "graph"):
+    """Routing engine for ``topo``: the MPHX array engine where it
+    applies (coordinate arithmetic), the generic graph engine
+    otherwise."""
+    if engine == "auto":
+        return "array" if isinstance(topo, MPHX) else "graph"
+    if engine not in ("array", "graph"):
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "graph" or not isinstance(topo, MPHX):
-        raise NotImplementedError(
-            f"the graph routing engine (needed for {topo.name}) is not "
-            "ported to repro_torch yet (ROADMAP.md, queue 1, item 2: graph "
-            "engine, Table-2 baselines)")
-    return "array"
+    if engine == "array" and not isinstance(topo, MPHX):
+        raise ValueError(f"array engine is MPHX-only, got {topo.name}")
+    return engine
 
 
 def make_router(topo: Topology, engine: str = "auto", device=None):
-    """The batched router for ``topo`` on ``device`` (default ``cuda``)."""
-    resolve_engine(topo, engine)
+    """The batched router for ``topo`` on ``device`` (default ``cuda``):
+    a :class:`~.routing_vec.VectorizedHyperXRouter` or a
+    :class:`~.routing_graph.GraphRouter`, which share ``route(demands,
+    mode, backend=)``, ``incidence``, ``edge_capacity`` and
+    ``mean_switch_hops``."""
+    if resolve_engine(topo, engine) == "graph":
+        from .routing_graph import GraphRouter
+
+        return GraphRouter(topo, device=device)
     from .routing_vec import VectorizedHyperXRouter
 
     return VectorizedHyperXRouter(topo, device=device)
@@ -91,15 +98,16 @@ def load_sweep(topo: Topology, demand_builder, mode: str = "adaptive",
     per-link utilizations scale linearly with offered load for
     ``minimal`` / ``valiant`` (a fixed path spread), so only their first
     level is routed; ``adaptive`` (the default, as in the reference)
-    re-routes at every level.  ``simulate=True`` adds measured FCT
+    re-routes at every level.  ``router`` defaults to
+    :func:`make_router`'s for ``topo`` (the array engine on MPHX, the
+    graph engine otherwise).  ``simulate=True`` adds measured FCT
     columns per level (:func:`repro_torch.sim.events.simulate_demands`):
     each demand pair becomes one flow sized to transfer for
     ``flow_time_s`` at its offered rate.  It needs a static path spread
-    (``minimal`` or ``valiant``); with ``adaptive`` it raises
-    ``ValueError`` before any routing.  ``sim_backend`` (``cuda`` or
-    ``torch``) is the backend of the fair-share solver and of the
-    router's fixed-order reductions (the adaptive load update, the
-    incidence's coalescing).
+    (``minimal``, or ``valiant`` on the array engine); with ``adaptive``
+    it raises ``ValueError`` before any routing.  ``sim_backend``
+    (``cuda`` or ``torch``) is the backend of the fair-share solver and
+    of the router's fixed-order reductions.
     """
     if router is None:
         router = make_router(topo, device=device)

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import itertools
 import math
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -39,6 +40,7 @@ from .._device import resolve_device, resolve_sim_backend
 from ..kernels.segment_fairshare import (make_plan, segment_sum,
                                          segment_sum_ordered_ref,
                                          segment_sum_ref)
+from ..telemetry import MetricsRegistry, get_metrics
 from .hyperx import MPHX
 
 F64 = torch.float64
@@ -46,7 +48,7 @@ I64 = torch.int64
 
 
 def ordered_sum(values: torch.Tensor, ids: torch.Tensor, n: int,
-                backend: str) -> torch.Tensor:
+                backend: str, plan=None) -> torch.Tensor:
     """(n,) sums of ``values`` by ``ids`` in a fixed order.
 
     On the CPU every bin adds its entries one by one in entry order from
@@ -54,12 +56,17 @@ def ordered_sum(values: torch.Tensor, ids: torch.Tensor, n: int,
     ``np.bincount`` and ``np.add.at``), whatever the backend.  On the
     card the entries go in the order of a stable sort of ``ids``: the
     segment-sum kernel (``cuda``) or its ordered twin on the same plan
-    (``torch``), which give the same bits.
+    (``torch``), which give the same bits.  ``plan`` (a
+    :class:`~repro_torch.kernels.segment_fairshare.SegmentPlan` of
+    ``ids``, card only) replaces the one built for the call; at one lane
+    a segment it adds each bin's entries one by one in entry order, the
+    CPU's bits.
     """
     if backend == "cuda":
-        return segment_sum(values, ids, n)
+        return segment_sum(values, ids, n, plan=plan)
     if values.is_cuda:
-        return segment_sum_ordered_ref(values, make_plan(ids, n))
+        return segment_sum_ordered_ref(values, make_plan(ids, n)
+                                       if plan is None else plan)
     return segment_sum_ref(values, ids, n)
 
 
@@ -112,8 +119,34 @@ class EdgeIndex:
     def slots(self, u_ids, dim: int, c_target):
         return self.dim_base[dim] + u_ids * self.topo.dims[dim] + c_target
 
+    def slot_to_edge(self, slot: int) -> "tuple[int, int]":
+        """Flat slot -> directed (u, v) switch pair."""
+        dim = max(i for i, b in enumerate(self.dim_base) if b <= slot)
+        u, c = divmod(slot - self.dim_base[dim], self.topo.dims[dim])
+        coord = list(self.topo.id_to_coord(u))
+        coord[dim] = c
+        return u, self.topo.coord_to_id(tuple(coord))
 
-class ArrayLinkLoads:
+
+class BaseLinkLoads:
+    """Result API shared by the routing engines: per-link ``loads``
+    (offered Gbps) and :meth:`capacity_array` (Gbps) on one device."""
+
+    loads: torch.Tensor
+
+    def capacity_array(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def utilization_array(self) -> torch.Tensor:
+        cap = self.capacity_array()
+        return torch.where(cap > 0, self.loads / cap, 0.0)
+
+    def max_utilization(self) -> float:
+        u = self.utilization_array()
+        return float(u.max()) if u.numel() else 0.0
+
+
+class ArrayLinkLoads(BaseLinkLoads):
     """Per-slot offered Gbps of one routed demand matrix."""
 
     def __init__(self, index: EdgeIndex, loads: torch.Tensor):
@@ -124,14 +157,11 @@ class ArrayLinkLoads:
     def capacity_array(self) -> torch.Tensor:
         return self.index.capacity
 
-    def utilization_array(self) -> torch.Tensor:
-        cap = self.capacity_array()
-        return torch.where(cap > 0, self.loads / cap, 0.0)
-
-    def max_utilization(self) -> float:
-        u = self.utilization_array()
-        return float(u.max()) if u.numel() else 0.0
-
+    def to_dict(self) -> "dict[tuple[int, int], float]":
+        """Nonzero loads as ``{(u, v): gbps}``."""
+        nz = torch.nonzero(self.loads).squeeze(1)
+        return {self.index.slot_to_edge(s): float(self.loads[s])
+                for s in nz.tolist()}
 
 
 @dataclass(frozen=True)
@@ -242,7 +272,108 @@ def hotspot_demands(topo: MPHX, offered_per_nic_gbps: float, hot: int = 0,
         torch.cat([uni.gbps, g[keep]]))
 
 
-class VectorizedHyperXRouter:
+class IncidenceCacheMixin:
+    """Pair-level cache of per-flow incidence extraction.
+
+    A fixed path spread depends only on the (src, dst) switch pair and
+    the mode, not on the offered Gbps, so a pair's ``(edges, fracs)``
+    rows can be replayed across flow sets: :meth:`incidence_cached`
+    walks only pairs never seen before.  The cache's tensors stay on the
+    router's device.
+
+    Counters, in the router's own registry (``router.metrics``) and
+    mirrored into the ambient one (:func:`repro_torch.telemetry.
+    get_metrics`): ``incidence.walks`` counts engine walks (full
+    :meth:`incidence` calls), ``incidence.cache_hits`` /
+    ``incidence.cache_misses`` the pairs served from / added to the
+    cache.  ``incidence_calls`` is a deprecated alias of the walk
+    counter.  :meth:`reset_incidence_cache` empties the cache.
+    """
+
+    @property
+    def metrics(self):
+        """This router's private metrics registry (lazy)."""
+        m = getattr(self, "_metrics", None)
+        if m is None:
+            m = self._metrics = MetricsRegistry()
+        return m
+
+    @metrics.setter
+    def metrics(self, registry) -> None:
+        self._metrics = registry
+
+    @property
+    def incidence_calls(self) -> int:
+        """Deprecated alias of ``metrics.value("incidence.walks")``."""
+        return int(self.metrics.value("incidence.walks"))
+
+    @incidence_calls.setter
+    def incidence_calls(self, value: int) -> None:
+        warnings.warn(
+            "incidence_calls is deprecated; use "
+            "router.metrics.value('incidence.walks')",
+            DeprecationWarning, stacklevel=2)
+        self.metrics.set_counter("incidence.walks", int(value))
+
+    def _count_walk(self) -> None:
+        self.metrics.inc("incidence.walks")
+        get_metrics().inc("incidence.walks")
+
+    def _count_cache(self, hits: int, misses: int) -> None:
+        for reg in (self.metrics, get_metrics()):
+            reg.inc("incidence.cache_hits", hits)
+            reg.inc("incidence.cache_misses", misses)
+
+    def _pair_cache(self, mode: str) -> dict:
+        if not hasattr(self, "_inc_cache"):
+            self._inc_cache: dict = {}
+        return self._inc_cache.setdefault(mode, {})
+
+    def reset_incidence_cache(self) -> None:
+        self._inc_cache = {}
+
+    def incidence_cached(self, demands: "DemandArrays", mode: str = "minimal",
+                         backend: "str | None" = None):
+        """:meth:`incidence`, walking only the (src, dst) pairs not in the
+        cache; cached pairs' rows are replayed.  Rows grouped by flow in
+        flow order, each flow's rows in its pair's order."""
+        cache = self._pair_cache(mode)
+        dev = self.device
+        src = demands.src.to(dev, I64)
+        dst = demands.dst.to(dev, I64)
+        n = int(src.shape[0])
+        uniq, inv = torch.unique(torch.stack([src, dst], 1), dim=0,
+                                 return_inverse=True)
+        pairs = [tuple(p) for p in uniq.tolist()]
+        miss = [p for p in pairs if p not in cache]
+        self._count_cache(hits=len(pairs) - len(miss), misses=len(miss))
+        if miss:
+            ma = torch.tensor(miss, dtype=I64, device=dev)
+            sub = DemandArrays(ma[:, 0], ma[:, 1],
+                               torch.ones(len(miss), dtype=F64, device=dev))
+            f, s, fr = self.incidence(sub, mode, backend=backend)
+            order = torch.sort(f, stable=True).indices
+            f, s, fr = f[order], s[order], fr[order]
+            bounds = torch.searchsorted(
+                f, torch.arange(len(miss) + 1, device=dev)).tolist()
+            for j, p in enumerate(miss):
+                cache[p] = (s[bounds[j]:bounds[j + 1]],
+                            fr[bounds[j]:bounds[j + 1]])
+        per_pair = [cache[p] for p in pairs]
+        counts = torch.tensor([e.numel() for e, _ in per_pair], dtype=I64,
+                              device=dev)
+        if n == 0 or int(counts[inv].sum()) == 0:
+            z = torch.zeros(0, dtype=I64, device=dev)
+            return z, z.clone(), torch.zeros(0, dtype=F64, device=dev)
+        flow = torch.repeat_interleave(torch.arange(n, device=dev),
+                                       counts[inv])
+        rows = inv.tolist()
+        edge = torch.cat([per_pair[j][0] for j in rows])
+        frac = torch.cat([per_pair[j][1] for j in rows])
+        return flow, edge, frac
+
+
+class VectorizedHyperXRouter(IncidenceCacheMixin):
     """Array engine for routing whole demand matrices over one MPHX plane.
 
     ``route`` and ``incidence`` take the ``backend`` of their fixed-order
@@ -384,6 +515,7 @@ class VectorizedHyperXRouter:
                 f"no static per-flow incidence for mode {mode!r} "
                 "(adaptive re-routes under load); use minimal or valiant")
         backend = resolve_sim_backend(backend)
+        self._count_walk()
         src, dst, _, cs, cd = self._prep(demands)
         n_full = math.factorial(self.index.D)
         flows, slots_l, fracs = [], [], []

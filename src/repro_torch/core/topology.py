@@ -1,15 +1,18 @@
 """Base abstractions for network topologies (paper §3, Table 1).
 
-Copy of the parts of ``repro/core/topology.py`` that :class:`MPHX`
-needs: the link inventory, the switch model and the abstract
-:class:`Topology`.  Bandwidths are Gbps; a "hop" is one traversed link,
-counting the NIC-switch access links (NIC -> sw -> sw -> NIC is 3 hops).
+Copy of ``repro/core/topology.py``'s link inventory, switch model,
+abstract :class:`Topology` (with ``build_graph``'s default) and the
+explicit switch-level multigraph :class:`SwitchGraph` that the graph
+routing engine routes over.  Bandwidths are Gbps; a "hop" is one
+traversed link, counting the NIC-switch access links (NIC -> sw -> sw ->
+NIC is 3 hops).
 """
 
 from __future__ import annotations
 
 import abc
 import math
+import random
 from dataclasses import dataclass
 from typing import Iterable, Sequence
 
@@ -114,6 +117,114 @@ class Topology(abc.ABC):
     def feasibility(self, switch: SwitchModel) -> list[tuple[bool, str]]:
         return []
 
+    def build_graph(self) -> "SwitchGraph":
+        raise NotImplementedError(f"{self.name} has no explicit graph builder")
+
+
+class SwitchGraph:
+    """Switch-level multigraph of ONE network plane.
+
+    Nodes are integers 0..S-1.  Edges carry a multiplicity (parallel
+    physical links: Table 2's MPHX(4,86,86,9) trunks 85 links over 8
+    neighbours in dim 2) and a tier label.  ``nics_per_switch`` NIC ports
+    hang off every *NIC-bearing* node: every node by default (HyperX,
+    Dragonfly), or only ``nic_nodes`` where the upper tiers are
+    transit-only (fat-tree spines and cores, Dragonfly+ spines).
+    """
+
+    def __init__(self, n_switches: int, nics_per_switch: int,
+                 link_gbps: float, name: str = "plane",
+                 nic_nodes: "Sequence[int] | None" = None):
+        self.name = name
+        self.n_switches = n_switches
+        self.nics_per_switch = nics_per_switch
+        self.link_gbps = link_gbps
+        self.nic_nodes: list[int] = (list(range(n_switches))
+                                     if nic_nodes is None else list(nic_nodes))
+        # adjacency: adj[node][neighbor] = multiplicity (float ok)
+        self.adj: list[dict[int, float]] = [dict() for _ in range(n_switches)]
+        self.tier: dict[tuple[int, int], str] = {}
+
+    def add_edge(self, u: int, v: int, multiplicity: float = 1.0,
+                 tier: str = "") -> None:
+        if u == v:
+            raise ValueError("self-loop")
+        self.adj[u][v] = self.adj[u].get(v, 0.0) + multiplicity
+        self.adj[v][u] = self.adj[v].get(u, 0.0) + multiplicity
+        self.tier[(min(u, v), max(u, v))] = tier
+
+    @property
+    def n_edges(self) -> int:
+        return sum(len(a) for a in self.adj) // 2
+
+    def total_links(self) -> float:
+        return sum(sum(a.values()) for a in self.adj) / 2.0
+
+    def nic_counts(self) -> list[int]:
+        """Per-node NIC port counts (0 for transit-only switches)."""
+        out = [0] * self.n_switches
+        for u in self.nic_nodes:
+            out[u] = self.nics_per_switch
+        return out
+
+    @property
+    def total_nics(self) -> int:
+        return self.nics_per_switch * len(self.nic_nodes)
+
+    def directed_edge_arrays(self):
+        """All directed edges as parallel lists ``(u, v, multiplicity)``,
+        in adjacency order."""
+        us, vs, mult = [], [], []
+        for u, nbrs in enumerate(self.adj):
+            for v, m in nbrs.items():
+                us.append(u)
+                vs.append(v)
+                mult.append(m)
+        return us, vs, mult
+
+    def bfs_dist(self, src: int) -> list[int]:
+        dist = [-1] * self.n_switches
+        dist[src] = 0
+        frontier = [src]
+        while frontier:
+            nxt = []
+            for u in frontier:
+                for v in self.adj[u]:
+                    if dist[v] < 0:
+                        dist[v] = dist[u] + 1
+                        nxt.append(v)
+            frontier = nxt
+        return dist
+
+    def switch_diameter(self, sample: "int | None" = None) -> int:
+        """Worst-case switch-to-switch distance (exact, or over a sample
+        of ``sample`` sources drawn with ``random.Random(0)``)."""
+        nodes = range(self.n_switches)
+        if sample is not None and self.n_switches > sample:
+            nodes = random.Random(0).sample(range(self.n_switches), sample)
+        best = 0
+        for s in nodes:
+            m = max(self.bfs_dist(s))
+            if m < 0:
+                raise ValueError("graph is disconnected")
+            best = max(best, m)
+        return best
+
+    def avg_switch_hops(self, sample: "int | None" = None) -> float:
+        nodes = list(range(self.n_switches))
+        if sample is not None and self.n_switches > sample:
+            nodes = random.Random(0).sample(nodes, sample)
+        tot, cnt = 0, 0
+        for s in nodes:
+            tot += sum(self.bfs_dist(s))
+            cnt += self.n_switches - 1
+        return tot / max(cnt, 1)
+
 
 def product(xs: Sequence[int]) -> int:
     return math.prod(xs)
+
+
+def check_even_split(n: int, what: str) -> None:
+    if n % 2:
+        raise ValueError(f"{what} must be even for bisection, got {n}")

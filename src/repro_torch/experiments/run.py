@@ -11,6 +11,10 @@ Examples::
         --topos mphx-2p-16x16 --modes minimal valiant adaptive \\
         --loads 0.5 1.0 --simulate --out results/experiments_torch
 
+MPHX presets route on the array engine and the Table-2 baselines
+(``ft3-*``, ``mpft-*``, ``dragonfly-*``, ``dfplus-*``) on the graph
+engine; ``--engine graph`` routes MPHX on the graph engine too, and
+``--engine array`` turns the baselines into skip records.
 ``--device`` defaults to ``cuda``; on a machine without a GPU pass
 ``--device cpu``.  ``--sim-backend`` picks the fair-share solver's and
 the router's reductions (``cuda``: the hand-written kernels; ``torch``:
@@ -44,8 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--topos", nargs="+", choices=sorted(SWEEP_TOPOLOGIES),
                    default=None,
                    help=f"topologies (default: sim {' '.join(DEFAULT_SIM_TOPOS)}"
-                   f"; sweep {' '.join(DEFAULT_SWEEP_TOPOS)}, the graph "
-                   "presets recorded as skipped)")
+                   f"; sweep {' '.join(DEFAULT_SWEEP_TOPOS)})")
     p.add_argument("--scenarios", nargs="+", choices=sorted(SCENARIOS),
                    default=None, help="scenarios (default: sim "
                    f"{' '.join(DEFAULT_SIM_SCENARIOS)}; sweep all, "
@@ -54,6 +57,11 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None,
                    help="sweep: routing modes (default: all three; the sim "
                    "suite always routes minimal)")
+    p.add_argument("--engine", choices=["auto", "array", "graph"],
+                   default="auto",
+                   help="routing engine (auto: array for MPHX, graph for "
+                   "the baseline topologies; a topology the forced engine "
+                   "cannot route is recorded as skipped)")
     p.add_argument("--loads", nargs="+", type=float, default=None,
                    help="offered load fractions of NIC bandwidth (default: "
                    "0.5 0.9 for sim, 0.1..1.0 for sweep)")
@@ -82,8 +90,8 @@ def main(argv: "list[str] | None" = None) -> int:
             modes=args.modes,
             load_fractions=tuple(args.loads) if args.loads
             else (0.1, 0.25, 0.5, 0.75, 0.9, 1.0),
-            msg_bytes=args.msg_bytes, simulate=args.simulate,
-            flow_time_s=args.flow_time_us * 1e-6,
+            msg_bytes=args.msg_bytes, engine=args.engine,
+            simulate=args.simulate, flow_time_s=args.flow_time_us * 1e-6,
             sim_backend=args.sim_backend, device=args.device)
         print(f"sweep: {payload['params']['n_routed_rows']} routed rows, "
               f"{payload['params']['n_skipped']} skipped on "
@@ -94,7 +102,8 @@ def main(argv: "list[str] | None" = None) -> int:
         args.out, topo_names=args.topos, scenario_names=args.scenarios,
         load_fractions=tuple(args.loads) if args.loads else (0.5, 0.9),
         flow_time_s=args.flow_time_us * 1e-6, msg_bytes=args.msg_bytes,
-        sim_backend=args.sim_backend, device=args.device)
+        sim_backend=args.sim_backend, engine=args.engine,
+        device=args.device)
     agree = payload["params"]["all_steady_checks_agree_1e-6"]
     print(f"sim: {len(payload['rows'])} rows on "
           f"{payload['params']['device_name']} (steady-state agreement: "

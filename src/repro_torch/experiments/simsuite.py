@@ -1,11 +1,14 @@
 """The ``sim`` suite: measured flow-completion times (port of
-``repro/experiments/simsuite.py::run_sim_suite``, MPHX array engine).
+``repro/experiments/simsuite.py::run_sim_suite``).
 
 For each (topology, scenario): a steady-state cross-validation row
 (simulator load accounting vs the analytic routing engine) and one
-measured-FCT row per offered load from the event loop.  The reference's
-measured-collective rows become explicit skip records until
-collective_sim, spray and planes are ported.
+measured-FCT row per offered load from the event loop, on the array
+engine for MPHX and on the graph engine for the Table-2 baselines.  The
+reference's measured-collective rows become explicit skip records until
+collective_sim, spray and planes are ported; so does a scenario that
+does not apply to a topology, and a topology that a forced ``engine``
+cannot route.
 """
 
 from __future__ import annotations
@@ -17,14 +20,14 @@ import time
 import torch
 
 from .._device import resolve_device, resolve_sim_backend
-from ..core.netsim import load_sweep, make_router
+from ..core.netsim import load_sweep, make_router, resolve_engine
 from ..sim.fairshare import flow_incidence
 from .artifacts import (artifact_payload, markdown_table, write_json,
                         write_markdown)
 from .scenarios import get_scenario
 from .sweep import DEFAULT_OUTDIR, SWEEP_TOPOLOGIES
 
-DEFAULT_SIM_TOPOS = ["mphx-2p-8x8"]
+DEFAULT_SIM_TOPOS = ["mphx-2p-8x8", "dragonfly-small"]
 DEFAULT_SIM_SCENARIOS = ["uniform", "neighbor_shift"]
 SIM_MODE = "minimal"
 SIM_COLLECTIVES = ("allreduce_ring", "allgather_ring", "alltoall")
@@ -35,25 +38,35 @@ COLLECTIVE_SKIP_REASON = (
 
 
 def _sim_topo_rows(topo, scenario_names, load_fractions, flow_time_s,
-                   msg_bytes, sim_backend, device) -> "list[dict]":
-    router = make_router(topo, device=device)
+                   msg_bytes, sim_backend, engine, device) -> "list[dict]":
+    engine_name = resolve_engine(topo, engine)
+    router = make_router(topo, engine, device=device)
+    graph = getattr(router, "graph", None)
     rows = []
     for name in scenario_names:
         sc = get_scenario(name)
+        reason = sc.skip_reason(topo)
+        if reason is not None:
+            print(f"sim: skipping scenario {name!r} on {topo.name!r}: "
+                  f"{reason}", file=sys.stderr)
+            rows.append({"topology": topo.name, "scenario": name,
+                         "kind": "skip", "engine": engine_name,
+                         "skipped": True, "reason": reason})
+            continue
 
         def build(t, o, sc=sc):
-            return sc.build(t, o, device=device)
+            return sc.build(t, o, graph=graph, device=device)
 
         # steady-state cross-validation at full injection
         dem = build(topo, topo.nic_bw_gbps)
-        ll = router.route(dem, SIM_MODE)
+        ll = router.route(dem, SIM_MODE, backend=sim_backend)
         inc = flow_incidence(router, dem, SIM_MODE, backend=sim_backend)
         u_sim = inc.utilization(dem.gbps, sim_backend)
         diff = float((u_sim - ll.utilization_array()).abs().max()) \
             if u_sim.numel() else 0.0
         rows.append({"topology": topo.name, "scenario": name,
                      "kind": "steady_check", "mode": SIM_MODE,
-                     "engine": "array",
+                     "engine": engine_name,
                      "max_util_analytic": round(ll.max_utilization(), 6),
                      "max_util_sim": round(float(u_sim.max()), 6)
                      if u_sim.numel() else 0.0,
@@ -70,13 +83,14 @@ def _sim_topo_rows(topo, scenario_names, load_fractions, flow_time_s,
         dt = time.perf_counter() - t0
         for r in sweep:
             rows.append({"topology": topo.name, "scenario": name,
-                         "kind": "fct", "mode": SIM_MODE, "engine": "array",
-                         **r, "sim_wall_s": round(dt, 4)})
+                         "kind": "fct", "mode": SIM_MODE,
+                         "engine": engine_name, **r,
+                         "sim_wall_s": round(dt, 4)})
     for kind in SIM_COLLECTIVES:
         print(f"sim: skipping collective {kind!r} on {topo.name!r}: "
               f"{COLLECTIVE_SKIP_REASON}", file=sys.stderr)
         rows.append({"topology": topo.name, "scenario": kind,
-                     "kind": "skip", "engine": "array", "skipped": True,
+                     "kind": "skip", "engine": engine_name, "skipped": True,
                      "reason": COLLECTIVE_SKIP_REASON})
     return rows
 
@@ -96,28 +110,40 @@ def run_sim_suite(outdir: str = DEFAULT_OUTDIR,
                   load_fractions=(0.5, 0.9),
                   flow_time_s: float = 200e-6,
                   msg_bytes: float = 4096,
-                  sim_backend: "str | None" = None,
+                  sim_backend: "str | None" = None, engine: str = "auto",
                   device=None) -> dict:
     """Run the flow simulator over (topology, scenario, load) cells on
     ``device`` (default ``cuda``) and write ``sim.json`` / ``sim.md``.
-    ``sim_backend`` is the fair-share solver backend (``cuda``: the
-    hand-written kernels, the default; ``torch``: the plain versions)."""
+    ``sim_backend`` is the fair-share solver's and the router's backend
+    (``cuda``: the hand-written kernels, the default; ``torch``: the
+    plain versions); ``engine`` (``auto``, ``array`` or ``graph``) picks
+    the router."""
     sim_backend = resolve_sim_backend(sim_backend)
     dev = resolve_device(device)
     names = topo_names or list(DEFAULT_SIM_TOPOS)
     scenario_names = scenario_names or list(DEFAULT_SIM_SCENARIOS)
     all_rows = []
     for tn in names:
-        all_rows += _sim_topo_rows(SWEEP_TOPOLOGIES[tn], scenario_names,
-                                   load_fractions, flow_time_s, msg_bytes,
-                                   sim_backend, dev)
+        topo = SWEEP_TOPOLOGIES[tn]
+        try:
+            resolve_engine(topo, engine)
+        except ValueError as e:
+            print(f"sim: skipping topology {topo.name!r}: {e}",
+                  file=sys.stderr)
+            all_rows.append({"topology": topo.name, "scenario": "*",
+                             "engine": engine, "skipped": True,
+                             "reason": str(e)})
+            continue
+        all_rows += _sim_topo_rows(topo, scenario_names, load_fractions,
+                                   flow_time_s, msg_bytes, sim_backend,
+                                   engine, dev)
     checks = [r for r in all_rows if r.get("kind") == "steady_check"]
     payload = artifact_payload(
         "sim",
         {"topologies": names, "scenarios": scenario_names,
          "mode": SIM_MODE, "load_fractions": list(load_fractions),
          "flow_time_s": flow_time_s, "msg_bytes": msg_bytes,
-         "engine": "array", "sim_backend": sim_backend,
+         "engine": engine, "sim_backend": sim_backend,
          **device_params(dev),
          "n_steady_checks": len(checks),
          "all_steady_checks_agree_1e-6":

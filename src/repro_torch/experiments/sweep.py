@@ -1,15 +1,14 @@
 """Topology presets and the ``sweep`` suite (port of
-``repro/experiments/sweep.py``'s load sweeps, MPHX array engine).
+``repro/experiments/sweep.py``'s load sweeps).
 
 :func:`run_sweep_suite` routes every (topology, scenario, mode, load)
 cell with :func:`repro_torch.core.netsim.load_sweep` and writes
-``sweep.json`` / ``sweep.md``.  Nothing is dropped silently: a scenario
-that does not apply to a topology, a collective scenario and a topology
-that needs the graph routing engine each give a skip record with its
-reason (and a note on stderr).  The reference's default topologies
-include four graph-engine baselines (:data:`GRAPH_PRESETS`); the port
-has their names only, so each is one skip record whose reason comes from
-:func:`repro_torch.core.netsim.resolve_engine`.
+``sweep.json`` / ``sweep.md``.  MPHX presets route on the array engine,
+the Table-2 baselines on the graph engine over their switch graphs;
+every row records its ``engine``.  Nothing is dropped silently: a
+scenario that does not apply to a topology, a collective scenario, and a
+topology that a forced ``engine`` cannot route each give a skip record
+with its reason (and a note on stderr).
 """
 
 from __future__ import annotations
@@ -17,13 +16,15 @@ from __future__ import annotations
 import os
 import sys
 import time
-from dataclasses import dataclass
 
 import torch
 
 from .._device import resolve_device, resolve_sim_backend
+from ..core.dragonfly import Dragonfly, DragonflyPlus
+from ..core.fattree import MultiPlaneFatTree, ThreeTierFatTree
 from ..core.hyperx import MPHX
 from ..core.netsim import load_sweep, make_router, resolve_engine
+from ..core.topology import Topology
 from .artifacts import (artifact_payload, markdown_table, write_json,
                         write_markdown)
 from .scenarios import (COLLECTIVE_SCENARIOS, COLLECTIVE_SKIP_REASON,
@@ -33,7 +34,11 @@ DEFAULT_OUTDIR = os.path.join("results", "experiments_torch")
 
 ROUTING_MODES = ("minimal", "valiant", "adaptive")
 
-SWEEP_TOPOLOGIES: "dict[str, MPHX]" = {
+# The reference's presets.  The ``*-small`` baselines are scaled-down
+# instances of the Table-2 rows for fast default sweeps; the ``*-65536``
+# presets are the Table-2 rows themselves.
+SWEEP_TOPOLOGIES: "dict[str, Topology]" = {
+    # -- MPHX (array engine) --
     # small — fast, and exactly comparable against the reference
     "mphx-2p-8x8": MPHX(n=2, p=8, dims=(8, 8)),
     # medium — 4k NICs
@@ -43,27 +48,26 @@ SWEEP_TOPOLOGIES: "dict[str, MPHX]" = {
                          name="4-Plane 2D HyperX"),
     # Table 2 row: 65,536 NICs, single full-mesh dimension
     "mphx-8p-256": MPHX(n=8, p=256, dims=(256,), name="8-Plane 1D HyperX"),
-}
-
-
-@dataclass(frozen=True)
-class GraphPreset:
-    """A Table-2 baseline preset of the reference's sweep, by its name
-    alone: it routes on the graph engine, which is not ported, so
-    :func:`resolve_engine` refuses it."""
-
-    name: str
-
-
-GRAPH_PRESETS: "dict[str, GraphPreset]" = {
-    "ft3-small": GraphPreset("3-layer Fat-Tree (small)"),
-    "mpft-2p-small": GraphPreset("2-Plane 2-layer Fat-Tree (small)"),
-    "dragonfly-small": GraphPreset("Dragonfly (small)"),
-    "dfplus-small": GraphPreset("Dragonfly+ (small)"),
+    # -- Table-2 baselines, small presets (graph engine) --
+    "ft3-small": ThreeTierFatTree(radix=8, nics=128,
+                                  name="3-layer Fat-Tree (small)"),
+    "mpft-2p-small": MultiPlaneFatTree(n=2, nics=32, base_radix=4,
+                                       name="2-Plane 2-layer Fat-Tree "
+                                            "(small)"),
+    "dragonfly-small": Dragonfly(p=2, a=4, h=2, groups=9,
+                                 name="Dragonfly (small)"),
+    "dfplus-small": DragonflyPlus(p=2, leaves=4, spines=4, groups=8,
+                                  global_per_spine=7,
+                                  name="Dragonfly+ (small)"),
+    # -- Table-2 baselines, paper-scale rows (graph engine) --
+    "ft3-65536": ThreeTierFatTree(radix=64, nics=65_536),
+    "mpft-8p-65536": MultiPlaneFatTree(n=8, nics=65_536),
+    "dragonfly-65536": Dragonfly(p=16, a=32, h=16, groups=128),
+    "dfplus-65536": DragonflyPlus(),
 }
 
 # the reference's default sweep: the small MPHX preset and the four
-# baseline classes
+# baseline classes, so a bare ``--suite sweep`` runs both engines
 DEFAULT_SWEEP_TOPOS = ["mphx-2p-8x8", "ft3-small", "mpft-2p-small",
                        "dragonfly-small", "dfplus-small"]
 
@@ -80,20 +84,23 @@ def sweep_topology(topo, scenario_names: "list[str] | None" = None,
 
     Routed rows, plus one skip record (``{"skipped": True, "reason":
     ...}``) for every requested scenario that does not apply to
-    ``topo``, and one for the whole topology where the engine cannot
-    route it.  Measured FCT columns (``simulate``) ride only the minimal
-    rows, as in the reference.  ``sim_backend`` is the solver's and the
-    router's reduction backend (``cuda`` or ``torch``).
+    ``topo``, and one for the whole topology where a forced ``engine``
+    cannot route it.  One router serves every cell (the graph engine's
+    switch graph and all-pairs BFS are shared).  Measured FCT columns
+    (``simulate``) ride only the minimal rows, as in the reference.
+    ``sim_backend`` is the solver's and the router's reduction backend
+    (``cuda`` or ``torch``).
     """
     try:
         engine_name = resolve_engine(topo, engine)
-    except (NotImplementedError, ValueError) as e:
+    except ValueError as e:
         print(f"sweep: skipping topology {topo.name!r}: {e}",
               file=sys.stderr)
         return [{"topology": topo.name, "scenario": "*", "engine": engine,
                  "skipped": True, "reason": str(e)}]
     dev = resolve_device(device)
     router = make_router(topo, engine, device=dev)
+    graph = getattr(router, "graph", None)
     rows = []
     names = scenario_names or sorted([*SCENARIOS, *COLLECTIVE_SCENARIOS])
     for name in names:
@@ -111,7 +118,7 @@ def sweep_topology(topo, scenario_names: "list[str] | None" = None,
             continue
 
         def build(t, o, sc=sc):
-            return sc.build(t, o, device=dev)
+            return sc.build(t, o, graph=graph, device=dev)
 
         for mode in modes if modes is not None else list(ROUTING_MODES):
             t0 = time.perf_counter()
@@ -148,12 +155,10 @@ def run_sweep_suite(outdir: str = DEFAULT_OUTDIR,
     sim_backend = resolve_sim_backend(sim_backend)
     dev = resolve_device(device)
     names = topo_names or list(DEFAULT_SWEEP_TOPOS)
-    topos = {tn: SWEEP_TOPOLOGIES.get(tn) or GRAPH_PRESETS[tn]
-             for tn in names}
     all_rows = []
     for tn in names:
-        all_rows += sweep_topology(topos[tn], scenario_names, modes,
-                                   load_fractions, msg_bytes, engine,
+        all_rows += sweep_topology(SWEEP_TOPOLOGIES[tn], scenario_names,
+                                   modes, load_fractions, msg_bytes, engine,
                                    simulate, flow_time_s, sim_backend, dev)
     routed = [r for r in all_rows if not r.get("skipped")]
     skipped = [r for r in all_rows if r.get("skipped")]
@@ -169,13 +174,11 @@ def run_sweep_suite(outdir: str = DEFAULT_OUTDIR,
          "n_routed_rows": len(routed), "n_skipped": len(skipped)},
         all_rows)
     write_json(os.path.join(outdir, "sweep.json"), payload)
-    # markdown: one table per routed topology at the highest swept load
+    # markdown: one table per topology at the highest swept load
     top_load = max(load_fractions)
     sections = []
     for tn in names:
-        topo = topos[tn]
-        if not isinstance(topo, MPHX):
-            continue
+        topo = SWEEP_TOPOLOGIES[tn]
         full = [r for r in routed if r["topology"] == topo.name
                 and r["offered_fraction"] == top_load]
         cols = ["scenario", "mode", "engine", "max_util",

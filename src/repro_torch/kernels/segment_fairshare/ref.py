@@ -10,8 +10,9 @@ in the CUDA kernel's order of additions, read from a segment plan, so
 the kernel can be held to it bit for bit (``index_add_`` adds in no
 fixed order on the card).  It is also the plain path
 (``backend="torch"``) of the router's fixed-order sums on the card
-(``repro_torch.core.routing_vec.ordered_sum``: the adaptive load update
-and the incidence's coalescing).  A min is the same in any order, so
+(``repro_torch.core.routing_vec.ordered_sum``: the array router's
+adaptive load update and incidence coalescing, the graph router's
+scatter-adds).  A min is the same in any order, so
 ``segment_min_ref`` is the min kernel's yardstick as it is.
 """
 
@@ -64,12 +65,29 @@ def segment_sum_ordered_ref(values: torch.Tensor, plan,
     ordered = values if plan.perm is None else values[plan.perm.long()]
     acc = torch.zeros((n, G), dtype=values.dtype, device=values.device)
     longest = int((hi - lo).max()) if n else 0
-    lane = torch.arange(G, device=values.device)
-    for step in range(0, longest, G):
-        idx = lo + step + lane
-        live = idx < hi
-        acc = torch.where(live, acc + ordered[torch.where(live, idx, 0)],
-                          acc)
+    steps = -(-longest // G)
+    if steps * n * G <= 4 * ordered.numel() + (1 << 20):
+        # the entries laid out (step, segment, lane), +0.0 where a lane
+        # has none: one add a step.  Adding +0.0 keeps a partial's bits
+        # (a partial that starts at +0.0 is never -0.0), so these are
+        # the bits of the masked loop below.
+        seg = torch.repeat_interleave(
+            torch.arange(n, device=values.device), (hi - lo).squeeze(1))
+        # the entries the segments own (ids out of range sort outside)
+        idx = offsets[0] + torch.arange(seg.numel(), device=values.device)
+        pos = idx - offsets[:-1][seg]
+        grid = torch.zeros((steps, n, G), dtype=values.dtype,
+                           device=values.device)
+        grid[pos // G, seg, pos % G] = ordered[idx]
+        for step in range(steps):
+            acc = acc + grid[step]
+    else:
+        lane = torch.arange(G, device=values.device)
+        for step in range(0, longest, G):
+            idx = lo + step + lane
+            live = idx < hi
+            acc = torch.where(live, acc + ordered[torch.where(live, idx, 0)],
+                              acc)
     off = G // 2
     while off:
         acc = acc[:, :off] + acc[:, off:2 * off]

@@ -12,10 +12,19 @@ flows whose fair share is 0, and per-flow ``start_s`` offsets.
 Sizes are bytes, rates Gbps, times seconds.  A flow's FCT is its
 transfer time plus the path alpha term
 ``t_nic + sw_hops * t_switch + (sw_hops + 2) * t_prop``.
+
+Flows may carry opaque tags (:class:`FlowSpec`), which ride into the
+results (``FlowSimResult.tags``, ``simulate_demands``'s ``per_tag``
+row).  :func:`simulate_flows` and :func:`simulate_flow_batches` run
+:class:`FlowSpec` lists, the latter through the router's pair-level
+incidence cache.  Each run adds to the ambient metrics
+(:func:`repro_torch.telemetry.get_metrics`): ``sim.runs``,
+``sim.flows``, ``sim.epochs`` and the ``sim.wall_s`` timer.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -23,6 +32,8 @@ import torch
 
 from .._device import resolve_device, resolve_sim_backend
 from ..core.netsim import DEFAULT_NET, NetParams, gbps_to_Bps
+from ..core.routing_vec import DemandArrays
+from ..telemetry import get_metrics
 from .fairshare import (FlowIncidence, SolveProblem, _waterfill_scale,
                         flow_incidence, waterfill)
 
@@ -31,12 +42,26 @@ F64 = torch.float64
 
 @dataclass(frozen=True)
 class FlowSpec:
-    """One finite flow: ``size_bytes`` from switch ``src`` to ``dst``."""
+    """One finite flow: ``size_bytes`` from switch ``src`` to ``dst``.
+    ``tag`` is an opaque attribution handle (a tenant id, a ``(tenant,
+    request)`` tuple) carried into the per-flow results; it does not
+    change the simulation."""
 
     src: int
     dst: int
     size_bytes: float
     start_s: float = 0.0
+    tag: object = None
+
+
+def flows_to_demands(flows: "list[FlowSpec]", device=None) -> DemandArrays:
+    """The (src, dst) rows of ``flows`` as a demand matrix on ``device``
+    (default ``cuda``), 1 Gbps each."""
+    dev = resolve_device(device)
+    return DemandArrays(
+        torch.tensor([f.src for f in flows], dtype=torch.int64, device=dev),
+        torch.tensor([f.dst for f in flows], dtype=torch.int64, device=dev),
+        torch.ones(len(flows), dtype=F64, device=dev))
 
 
 @dataclass
@@ -55,10 +80,30 @@ class FlowSimResult:
     makespan_s: float = 0.0      # last finish (stalled flows excluded)
     n_epochs: int = 0
     waterfill_rounds: int = 0    # water-filling rounds over all epochs
+    tags: "np.ndarray | None" = None   # (F,) object: opaque flow tags
 
     @property
     def stalled(self) -> torch.Tensor:
         return ~torch.isfinite(self.finish_s)
+
+    def tag_mask(self, tag) -> np.ndarray:
+        """(F,) bool: the flows whose tag equals ``tag``."""
+        if self.tags is None:
+            raise ValueError("simulation was run without flow tags")
+        return np.array([t == tag for t in self.tags], dtype=bool)
+
+    def flow_records(self) -> "list[dict]":
+        """Per-flow records (start, finish, FCT, size, tag, stalled)."""
+        n = int(self.size_bytes.shape[0])
+        tags = self.tags if self.tags is not None \
+            else np.full(n, None, dtype=object)
+        start, finish, fct, size = (t.cpu().numpy() for t in (
+            self.start_s, self.finish_s, self.fct_s, self.size_bytes))
+        return [{"flow": f, "tag": tags[f], "start_s": float(start[f]),
+                 "finish_s": float(finish[f]), "fct_s": float(fct[f]),
+                 "size_bytes": float(size[f]),
+                 "stalled": bool(~np.isfinite(finish[f]))}
+                for f in range(n)]
 
     def transfer_s(self) -> torch.Tensor:
         return self.finish_s - self.start_s
@@ -89,6 +134,18 @@ class FlowSimResult:
         total = self.size_bytes.cpu().numpy()[done].sum()
         return float(total * 8 / 1e9 / self.makespan_s) \
             if self.makespan_s > 0 else 0.0
+
+
+def _normalize_tags(tags, F: int) -> "np.ndarray | None":
+    """(F,) object array of opaque flow tags, or None when absent."""
+    if tags is None:
+        return None
+    tag_list = list(tags)
+    if len(tag_list) != F:
+        raise ValueError(f"expected {F} tags, got {len(tag_list)}")
+    out = np.empty(F, dtype=object)
+    out[:] = tag_list
+    return out
 
 
 def path_latency(inc: FlowIncidence, net: NetParams = DEFAULT_NET,
@@ -154,18 +211,21 @@ def _event_loop(prob: SolveProblem, size, caps, start, tol: float):
 def simulate_incidence(inc: FlowIncidence, size_bytes, rate_caps_gbps,
                        start_s=None, net: NetParams = DEFAULT_NET,
                        backend: "str | None" = None,
-                       device=None) -> FlowSimResult:
+                       device=None, tags=None) -> FlowSimResult:
     """Run the event loop over a prebuilt incidence tensor.
 
     ``size_bytes`` / ``rate_caps_gbps`` / ``start_s`` broadcast to (F,).
     Active flows whose fair share is 0 (every path crosses a
     zero-capacity edge) are marked stalled (``finish_s = inf``).
-    ``inc`` is moved to ``device`` (default ``cuda``).
+    ``inc`` is moved to ``device`` (default ``cuda``).  ``tags``
+    (length F, opaque) ride into ``FlowSimResult.tags``.
     """
     backend = resolve_sim_backend(backend)
     dev = resolve_device(device)
     inc = inc.to(dev)
     F = inc.n_flows
+    tag_arr = _normalize_tags(tags, F)
+    t0_wall = time.perf_counter()
 
     def vec(x):
         return torch.as_tensor(x, dtype=F64, device=dev).broadcast_to(
@@ -189,18 +249,23 @@ def simulate_incidence(inc: FlowIncidence, size_bytes, rate_caps_gbps,
     done = torch.isfinite(finish)
     makespan = float((finish[done] - start.min()).max()) \
         if bool(done.any()) else 0.0
+    mx = get_metrics()
+    mx.inc("sim.runs")
+    mx.inc("sim.flows", F)
+    mx.inc("sim.epochs", n_epochs)
+    mx.observe("sim.wall_s", time.perf_counter() - t0_wall)
     return FlowSimResult(
         start_s=start, finish_s=finish, fct_s=finish - start + lat,
         latency_s=lat, size_bytes=size, edge_bytes=edge_bytes,
         incidence=inc, backend=backend, makespan_s=makespan,
-        n_epochs=n_epochs, waterfill_rounds=rounds)
+        n_epochs=n_epochs, waterfill_rounds=rounds, tags=tag_arr)
 
 
 def simulate_demands(router, demands, flow_time_s: float,
                      mode: str = "minimal", net: NetParams = DEFAULT_NET,
                      backend: "str | None" = None,
                      inc: "FlowIncidence | None" = None,
-                     start_s=None) -> dict:
+                     start_s=None, tags=None) -> dict:
     """Measured-FCT summary of one traffic matrix at its offered rates.
 
     Each demand row becomes one flow sized to transfer for exactly
@@ -208,14 +273,16 @@ def simulate_demands(router, demands, flow_time_s: float,
     ``flow_time_s + alpha`` and the slowdown is 1.0).  ``inc`` may come
     from a demand matrix with the same (src, dst) rows.  Runs on the
     router's device.  Returns the flat row the sim suite writes: the
-    reference's columns plus ``sim_nnz`` and ``sim_waterfill_rounds``.
+    reference's columns plus ``sim_nnz`` and ``sim_waterfill_rounds``;
+    with ``tags`` (length F, opaque) also the reference's ``per_tag``
+    breakdown (flow counts and FCT percentiles keyed by ``str(tag)``).
     """
     gbps = demands.gbps.to(router.device, F64)
     if inc is None:
         inc = flow_incidence(router, demands, mode, backend=backend)
     res = simulate_incidence(inc, gbps_to_Bps(gbps) * flow_time_s, gbps,
                              start_s=start_s, net=net, backend=backend,
-                             device=router.device)
+                             device=router.device, tags=tags)
     pct = res.fct_percentiles()
     slow = res.slowdown(gbps).cpu().numpy()
     ok = np.isfinite(res.finish_s.cpu().numpy())
@@ -224,7 +291,7 @@ def simulate_demands(router, demands, flow_time_s: float,
     def us(p):
         return round(p * 1e6, 3) if p is not None else None
 
-    return {
+    row = {
         "sim_flows": int(inc.n_flows),
         "sim_epochs": res.n_epochs,
         "sim_stalled": int((~ok).sum()),
@@ -240,3 +307,103 @@ def simulate_demands(router, demands, flow_time_s: float,
         "sim_nnz": inc.nnz,
         "sim_waterfill_rounds": res.waterfill_rounds,
     }
+    if res.tags is not None:
+        fct_all = res.fct_s.cpu().numpy()
+        per_tag: dict = {}
+        for tag in dict.fromkeys(res.tags.tolist()):   # stable order
+            mine = res.tag_mask(tag)
+            fct = fct_all[mine & ok]
+            per_tag[str(tag)] = {
+                "flows": int(mine.sum()),
+                "stalled": int((mine & ~ok).sum()),
+                "fct_p50_us": round(float(np.percentile(fct, 50)) * 1e6, 3)
+                if fct.size else None,
+                "fct_p99_us": round(float(np.percentile(fct, 99)) * 1e6, 3)
+                if fct.size else None,
+            }
+        row["per_tag"] = per_tag
+    return row
+
+
+def _default_rate_cap(router) -> float:
+    """One NIC port's bandwidth on this plane."""
+    return router.topo.port_gbps if hasattr(router, "topo") \
+        else router.graph.link_gbps
+
+
+def _flow_tags(flows: "list[FlowSpec]"):
+    tags = [f.tag for f in flows]
+    return tags if any(t is not None for t in tags) else None
+
+
+def simulate_flows(router, flows: "list[FlowSpec]", mode: str = "minimal",
+                   rate_cap_gbps=None, net: NetParams = DEFAULT_NET,
+                   backend: "str | None" = None) -> FlowSimResult:
+    """Simulate a list of :class:`FlowSpec` on one plane's fabric, on the
+    router's device.  Routes come from the router's ``mode`` path
+    spread; ``rate_cap_gbps`` defaults to the plane's port bandwidth."""
+    dem = flows_to_demands(flows, device=router.device)
+    inc = flow_incidence(router, dem, mode, backend=backend)
+    if rate_cap_gbps is None:
+        rate_cap_gbps = _default_rate_cap(router)
+    return simulate_incidence(
+        inc, np.array([f.size_bytes for f in flows]), rate_cap_gbps,
+        np.array([f.start_s for f in flows]), net=net, backend=backend,
+        device=router.device, tags=_flow_tags(flows))
+
+
+@dataclass
+class BatchSimResult:
+    """Outcome of a serialized sequence of flow batches: batch ``k``
+    spans ``batch_start_s[k]`` to ``batch_finish_s[k]`` on the shared
+    fabric clock, ``results[k]`` is its :class:`FlowSimResult` (None for
+    an empty batch)."""
+
+    batch_start_s: np.ndarray    # (K,)
+    batch_finish_s: np.ndarray   # (K,)
+    makespan_s: float
+    results: "list[FlowSimResult | None]"
+
+    def batch_span_s(self) -> np.ndarray:
+        return self.batch_finish_s - self.batch_start_s
+
+
+def simulate_flow_batches(router, batches: "list[list[FlowSpec]]",
+                          mode: str = "minimal", rate_cap_gbps=None,
+                          gap_s: float = 0.0, net: NetParams = DEFAULT_NET,
+                          backend: "str | None" = None) -> BatchSimResult:
+    """Run dependent flow batches back to back on one plane's fabric.
+
+    Batch ``k`` is admitted at the transfer finish of batch ``k-1`` plus
+    ``gap_s``; within a batch each flow's ``start_s`` is relative to the
+    admission.  Batches never overlap on the fabric, so simulating them
+    one by one and carrying the clock is exact.  Incidences come through
+    the router's pair-level cache (``incidence_cached``), so a pair
+    reused across batches is walked once.
+    """
+    if rate_cap_gbps is None:
+        rate_cap_gbps = _default_rate_cap(router)
+    t = 0.0
+    starts, finishes, results = [], [], []
+    for flows in batches:
+        starts.append(t)
+        if not flows:
+            finishes.append(t)
+            results.append(None)
+            continue
+        dem = flows_to_demands(flows, device=router.device)
+        inc = flow_incidence(router, dem, mode, backend=backend, cached=True)
+        res = simulate_incidence(
+            inc, np.array([f.size_bytes for f in flows]), rate_cap_gbps,
+            t + np.array([f.start_s for f in flows]), net=net,
+            backend=backend, device=router.device, tags=_flow_tags(flows))
+        finish = res.finish_s.cpu().numpy()
+        if not np.isfinite(finish).all():
+            raise RuntimeError("stalled flows in batch: fabric has a "
+                               "zero-capacity cut for this phase")
+        t = float(finish.max()) + gap_s
+        finishes.append(float(finish.max()))
+        results.append(res)
+    return BatchSimResult(
+        batch_start_s=np.asarray(starts), batch_finish_s=np.asarray(finishes),
+        makespan_s=finishes[-1] if finishes else 0.0, results=results)

@@ -134,12 +134,20 @@ class FlowIncidence:
 
 
 def flow_incidence(router, demands, mode: str = "minimal",
-                   backend: "str | None" = None) -> FlowIncidence:
+                   backend: "str | None" = None,
+                   cached: bool = False) -> FlowIncidence:
     """The per-flow incidence tensor of ``demands`` on ``router`` (a
     :func:`repro_torch.core.netsim.make_router` product) in ``mode``
-    (``minimal`` or ``valiant``); ``backend`` (``cuda`` or ``torch``) is
-    the router's reduction backend for the coalescing."""
-    flow, edge, frac = router.incidence(demands, mode, backend=backend)
+    (``minimal``, or ``valiant`` on the array engine); ``backend``
+    (``cuda`` or ``torch``) is the router's reduction backend.
+    ``cached=True`` goes through the router's pair-level cache
+    (``incidence_cached``): only (src, dst) pairs not seen before are
+    walked."""
+    if cached and hasattr(router, "incidence_cached"):
+        flow, edge, frac = router.incidence_cached(demands, mode,
+                                                   backend=backend)
+    else:
+        flow, edge, frac = router.incidence(demands, mode, backend=backend)
     return FlowIncidence(flow, edge, frac, demands.n,
                          router.edge_capacity().to(F64))
 

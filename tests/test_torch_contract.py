@@ -32,7 +32,11 @@ from repro_torch.core.hyperx import MPHX  # noqa: E402
 from repro_torch.core.netsim import make_router, resolve_engine  # noqa: E402
 from repro_torch.core.routing_vec import (  # noqa: E402
     VectorizedHyperXRouter, neighbor_shift_demands, uniform_demands)
+from repro_torch.core.routing_graph import (  # noqa: E402
+    GraphRouter, graph_uniform_demands)
 from repro_torch.experiments.run import main as cli_main  # noqa: E402
+from repro_torch.experiments.sweep import (SWEEP_TOPOLOGIES,  # noqa: E402
+                                           run_sweep_suite)
 from repro_torch.experiments.simsuite import run_sim_suite  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa
 from repro_torch.kernels.grouped_matmul import (  # noqa: E402
@@ -44,7 +48,8 @@ from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.models.registry import get_config, get_model  # noqa: E402
 from repro_torch.models.rglru import RGLRUModel  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
-from repro_torch.sim.events import simulate_incidence  # noqa: E402
+from repro_torch.sim.events import (FlowSpec, flows_to_demands,  # noqa
+                                    simulate_incidence)
 from repro_torch.sim.fairshare import max_min_rates  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -142,7 +147,13 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(no_cuda, tmp_path):
         lambda: incidence_from_arrays([0], [0], [1.0], 1, [1.0]),
         lambda: demands_from_arrays([0], [1], [1.0]),
         lambda: run_sim_suite(str(tmp_path)),
+        lambda: run_sweep_suite(str(tmp_path)),
         lambda: cli_main(["--out", str(tmp_path)]),
+        lambda: cli_main(["--suite", "sweep", "--out", str(tmp_path)]),
+        lambda: make_router(SWEEP_TOPOLOGIES["dragonfly-small"]),
+        lambda: GraphRouter(SWEEP_TOPOLOGIES["ft3-small"]),
+        lambda: graph_uniform_demands(SWEEP_TOPOLOGIES["ft3-small"], 800.0),
+        lambda: flows_to_demands([FlowSpec(0, 1, 1e6)]),
         lambda: DecoderLM(get_config("yi-9b", smoke=True)),
         lambda: get_model(get_config("yi-9b", smoke=True)),
         lambda: get_model(get_config("mixtral-8x22b", smoke=True)),
@@ -159,6 +170,7 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(no_cuda, tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert not (tmp_path / "sim.json").exists()
+    assert not (tmp_path / "sweep.json").exists()
 
 
 def test_unknown_backend_raises():
@@ -183,8 +195,20 @@ def test_unknown_kernel_backend_raises():
 
 
 def test_graph_engine_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        resolve_engine(MPHX(n=2, p=8, dims=(8, 8)), "graph")
+    """The graph engine is ported: ``resolve_engine`` behaves as the
+    reference's (array for MPHX under ``auto``, graph for the baselines,
+    ``ValueError`` for an unknown engine or the array engine on a
+    baseline)."""
+    mphx = MPHX(n=2, p=8, dims=(8, 8))
+    dragonfly = SWEEP_TOPOLOGIES["dragonfly-small"]
+    assert resolve_engine(mphx, "auto") == "array"
+    assert resolve_engine(mphx, "graph") == "graph"
+    assert resolve_engine(dragonfly, "auto") == "graph"
+    with pytest.raises(ValueError, match="array engine is MPHX-only, got "
+                       "Dragonfly \\(small\\)"):
+        resolve_engine(dragonfly, "array")
+    with pytest.raises(ValueError, match="unknown engine 'ecmp'"):
+        resolve_engine(mphx, "ecmp")
 
 
 def test_wrapper_has_no_fallback_off_the_cpu():

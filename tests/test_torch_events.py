@@ -6,7 +6,10 @@ reference to it), ``simulate_demands`` rows against the reference's
 jitted loop (``backend="jax"``) at 1e-9 relative with integers exact, and
 the stalled-flow and uncontended cases and staggered starts over random
 flows on 1-D and 3-D fabrics, in minimal and valiant routing, against
-the reference's numpy loop.
+the reference's numpy loop.  ``simulate_flows`` and
+``simulate_flow_batches`` with tagged flows on the array and the graph
+engine, the ``per_tag`` row and the ``sim.*`` counters against the
+reference's numpy loop, and the metrics registry's semantics.
 """
 
 import json
@@ -222,3 +225,189 @@ def test_negative_sizes_rejected():
     inc = incidence_from_arrays([0], [0], [1.0], 1, [1.0], device="cpu")
     with pytest.raises(ValueError, match="sizes must be >= 0"):
         simulate_incidence(inc, -1.0, 1.0, device="cpu")
+
+
+# ------------------------------------------- flow lists, batches, tags ----
+
+from repro.core.dragonfly import Dragonfly as RefDragonfly  # noqa: E402
+from repro.sim import events as ref_events  # noqa: E402
+from repro.telemetry import metrics as ref_metrics  # noqa: E402
+from repro_torch.core.dragonfly import Dragonfly  # noqa: E402
+from repro_torch.sim import events  # noqa: E402
+from repro_torch.telemetry import metrics  # noqa: E402
+
+FABRICS = {"mphx-2p-8x8": (RefMPHX, MPHX, dict(n=2, p=8, dims=(8, 8))),
+           "dragonfly-small": (RefDragonfly, Dragonfly,
+                               dict(p=2, a=4, h=2, groups=9))}
+
+
+def random_flows(S: int, F: int, seed: int, spec):
+    """F flows over S switches (repeated pairs, staggered starts, tags
+    from three tenants) as ``spec`` objects (either package's)."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, S, F)
+    dst = (src + rng.integers(1, S, F)) % S
+    pairs = rng.integers(0, F, F // 3)
+    src[F - F // 3:], dst[F - F // 3:] = src[pairs], dst[pairs]
+    size = rng.uniform(1e4, 2e6, F)
+    start = np.where(rng.random(F) < 0.5, 0.0, rng.uniform(0, 1e-4, F))
+    tags = [("tenant", int(t)) for t in rng.integers(0, 3, F)]
+    return [spec(int(s_), int(d), float(z), float(t0), tag)
+            for s_, d, z, t0, tag in zip(src, dst, size, start, tags)]
+
+
+def assert_results_match(got, want):
+    assert got.n_epochs == want.n_epochs
+    np.testing.assert_allclose(got.finish_s.numpy(), want.finish_s,
+                               rtol=1e-9, atol=0)
+    np.testing.assert_allclose(got.fct_s.numpy(), want.fct_s, rtol=1e-9,
+                               atol=0)
+    assert list(got.tags) == list(want.tags)
+    for g, w in zip(got.flow_records(), want.flow_records()):
+        assert g.keys() == w.keys()
+        for k, v in w.items():
+            if isinstance(v, float) and v != 0:
+                assert abs(g[k] - v) <= 1e-9 * abs(v), (k, g[k], v)
+            else:
+                assert g[k] == v, (k, g[k], v)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("fabric", sorted(FABRICS))
+def test_simulate_flows_matches_the_reference(fabric, backend):
+    ref_cls, cls, kw = FABRICS[fabric]
+    ref_router = ref_make_router(ref_cls(**kw), backend="numpy")
+    router = make_router(cls(**kw), device="cpu")
+    S = router.graph.n_switches if hasattr(router, "graph") \
+        else router.topo.switches_per_plane
+    want = ref_events.simulate_flows(
+        ref_router, random_flows(S, 40, 3, ref_events.FlowSpec),
+        backend="numpy")
+    got = events.simulate_flows(router, random_flows(S, 40, 3,
+                                                     events.FlowSpec),
+                                backend=backend)
+    assert_results_match(got, want)
+    assert want.n_epochs > 2
+    np.testing.assert_array_equal(got.tag_mask(("tenant", 1)),
+                                  want.tag_mask(("tenant", 1)))
+
+
+@pytest.mark.parametrize("fabric", sorted(FABRICS))
+def test_simulate_flow_batches_matches_the_reference(fabric):
+    ref_cls, cls, kw = FABRICS[fabric]
+    ref_router = ref_make_router(ref_cls(**kw), backend="numpy")
+    router = make_router(cls(**kw), device="cpu")
+    S = router.graph.n_switches if hasattr(router, "graph") \
+        else router.topo.switches_per_plane
+
+    def batches(spec):
+        a, b = random_flows(S, 12, 5, spec), random_flows(S, 9, 6, spec)
+        return [a, [], b, a, b[:4]]
+
+    want = ref_events.simulate_flow_batches(
+        ref_router, batches(ref_events.FlowSpec), gap_s=2e-6,
+        rate_cap_gbps=200.0)
+    got = events.simulate_flow_batches(router, batches(events.FlowSpec),
+                                       gap_s=2e-6, rate_cap_gbps=200.0,
+                                       backend="torch")
+    np.testing.assert_allclose(got.batch_start_s, want.batch_start_s,
+                               rtol=1e-9, atol=0)
+    np.testing.assert_allclose(got.batch_finish_s, want.batch_finish_s,
+                               rtol=1e-9, atol=0)
+    np.testing.assert_allclose(got.batch_span_s(), want.batch_span_s(),
+                               rtol=1e-9, atol=1e-18)
+    assert got.makespan_s == pytest.approx(want.makespan_s, rel=1e-9)
+    assert got.results[1] is None and want.results[1] is None
+    for g, w in zip(got.results, want.results):
+        if w is not None:
+            assert_results_match(g, w)
+    # the repeated batches ride the pair cache: the reference's walks
+    for key in ("incidence.walks", "incidence.cache_hits",
+                "incidence.cache_misses"):
+        assert router.metrics.value(key) == ref_router.metrics.value(key)
+    assert router.metrics.value("incidence.walks") == 2
+
+
+def test_simulate_demands_per_tag_matches_the_reference():
+    kw = TOPOS["mphx-2p-8x8"]
+    ref_router = ref_make_router(RefMPHX(**kw), backend="numpy")
+    router = make_router(MPHX(**kw), device="cpu")
+    ref_dem = ref_shift(RefMPHX(**kw), 1200.0)
+    dem = neighbor_shift_demands(MPHX(**kw), 1200.0, device="cpu")
+    tags = ["a" if i % 3 else ("b", i % 2) for i in range(ref_dem.n)]
+    want = ref_sim_demands(ref_router, ref_dem, 200e-6, backend="numpy",
+                           tags=tags)
+    got = simulate_demands(router, dem, 200e-6, backend="torch", tags=tags)
+    assert got["per_tag"].keys() == want["per_tag"].keys()
+    for tag, w in want["per_tag"].items():
+        assert_rows_match(got["per_tag"][tag], w)
+    assert "per_tag" not in simulate_demands(router, dem, 200e-6)
+    with pytest.raises(ValueError, match=f"expected {dem.n} tags, got "
+                       f"{dem.n + 1}"):
+        simulate_demands(router, dem, 200e-6, tags=tags + ["x"])
+    res = simulate_incidence(flow_incidence(router, dem), 1e6, 100.0,
+                             device="cpu")
+    with pytest.raises(ValueError, match="without flow tags"):
+        res.tag_mask("a")
+    assert [r["tag"] for r in res.flow_records()] == [None] * dem.n
+
+
+def test_sim_counters_match_the_reference():
+    kw = TOPOS["mphx-2p-8x8"]
+    ref_router = ref_make_router(RefMPHX(**kw), backend="numpy")
+    router = make_router(MPHX(**kw), device="cpu")
+    with ref_metrics.collecting() as want, metrics.collecting() as got:
+        for load in (0.5, 1.2):
+            ref_sim_demands(ref_router, ref_uniform(RefMPHX(**kw),
+                                                    load * 1600.0),
+                            200e-6, backend="numpy")
+            simulate_demands(router, uniform_demands(MPHX(**kw),
+                                                     load * 1600.0,
+                                                     device="cpu"),
+                             200e-6, backend="torch")
+    for k in ("sim.runs", "sim.flows", "sim.epochs", "incidence.walks"):
+        assert got.value(k) == want.value(k) > 0, k
+    assert got.snapshot()["timers"]["sim.wall_s"]["count"] == 2
+    # nothing collects outside the scope
+    assert metrics.get_metrics() is metrics.NULL_METRICS
+
+
+def test_metrics_registry_semantics_match_the_reference():
+    def drive(mod):
+        reg = mod.MetricsRegistry()
+        reg.inc("a")
+        reg.inc("a", 2.5)
+        reg.set_counter("b", 7)
+        reg.gauge("g", "x")
+        reg.gauge("g", 3)
+        for sec in (0.25, 0.125, 0.5):
+            reg.observe("t", sec)
+        other = mod.MetricsRegistry()
+        other.inc("a", 1)
+        other.gauge("h", 1.5)
+        other.observe("t", 1.0)
+        reg.merge(other, prefix="p.")
+        reg.merge(other)
+        null = mod.NullRegistry()
+        null.inc("a")
+        null.observe("t", 1.0)
+        null.merge(reg)
+        with null.timer("t"):
+            pass
+        with reg.timer("w"):
+            pass
+        snap = reg.snapshot()
+        snap["timers"]["w"] = {k: v for k, v in snap["timers"]["w"].items()
+                               if k == "count"}
+        with mod.collecting() as outer:
+            mod.get_metrics().inc("c")
+            with mod.collecting(reg) as inner:
+                mod.get_metrics().inc("c", 4)
+                assert inner is reg
+            mod.get_metrics().inc("c")
+        assert mod.get_metrics() is mod.NULL_METRICS
+        return (snap, reg.value("a"), reg.value("missing"), reg.value("c"),
+                outer.value("c"), null.snapshot(), null.value("a"),
+                null.enabled, reg.enabled)
+
+    assert drive(metrics) == drive(ref_metrics)

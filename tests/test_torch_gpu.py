@@ -332,6 +332,120 @@ def test_valiant_incidence_on_the_card_matches_the_cpu(cuda, topo_name):
                                rtol=0, atol=1e-15)
 
 
+GRAPH_PRESETS = ["ft3-small", "mpft-2p-small", "dragonfly-small",
+                 "dfplus-small"]
+
+
+@pytest.mark.parametrize("mode", ["minimal", "valiant", "adaptive"])
+@pytest.mark.parametrize("scenario", ["uniform", "hotspot",
+                                      "bit_complement"])
+@pytest.mark.parametrize("preset", GRAPH_PRESETS)
+def test_graph_route_kernel_equals_plain_and_cpu(cuda, preset, scenario,
+                                                 mode):
+    """The graph engine on the card: every ordered sum at one lane a
+    segment, so the kernel path, the plain path (the ordered twin and
+    ``segment_min_ref``) and the CPU's router give the same bits, twice;
+    the plain path launches no kernel."""
+    topo = SWEEP_TOPOLOGIES[preset]
+    sc = get_scenario(scenario)
+    router = make_router(topo, device=cuda)
+    dem = sc.build(topo, 1100.0, graph=router.graph, device=cuda)
+    reset_launch_counts()
+    first = router.route(dem, mode).loads
+    assert LAUNCHES["segment_sum"] > 0
+    assert (LAUNCHES["segment_min"] > 0) == (mode == "adaptive")
+    again = router.route(dem, mode, backend="cuda").loads
+    launched = dict(LAUNCHES)
+    plain = router.route(dem, mode, backend="torch").loads
+    assert LAUNCHES == launched
+    cpu_router = make_router(topo, device="cpu")
+    cpu = cpu_router.route(sc.build(topo, 1100.0, graph=cpu_router.graph,
+                                    device="cpu"), mode).loads
+    for other in (again, plain, cpu):
+        assert torch.equal(first.cpu().view(torch.int64),
+                           other.cpu().view(torch.int64))
+    assert float(first.sum()) > 0
+
+
+@pytest.mark.parametrize("preset", ["ft3-small", "dragonfly-small"])
+def test_segment_kernels_at_the_graph_row_scatter_shapes(cuda, preset):
+    """#1 and #2 at the graph engine's (E, C) block shapes: the pull's
+    scatter by ``dst`` (carried-in values first in each bin), the
+    denominators and the bottleneck max by ``src``.  At one lane a
+    segment the sum is ``index_add_``'s sequential bits on the CPU (and
+    the twin's on the card); at the default lanes the kernel equals its
+    twin.  The max through negation equals ``scatter_reduce_`` amax,
+    empty bins -inf."""
+    topo = SWEEP_TOPOLOGIES[preset]
+    router = make_router(topo, device=cuda)
+    S, E = router.csr.n_switches, router.csr.n_edges
+    rng = np.random.default_rng(11)
+    for C in (1, 7, 30):
+        n = S * C
+        for col in ("dst", "src"):
+            ids, plan = router._block(col, C)
+            assert plan.lanes == 1 and plan.ids is ids
+            vals = torch.from_numpy(rng.random(ids.numel())
+                                    * 10.0 ** rng.integers(-3, 3,
+                                                           ids.numel())
+                                    ).to(cuda)
+            got = segment_sum(vals, ids, n, plan=plan)
+            cpu = segment_sum_ref(vals.cpu(), ids.cpu(), n)
+            assert torch.equal(got.cpu().view(torch.int64),
+                               cpu.view(torch.int64))
+            assert torch.equal(got, segment_sum_ordered_ref(vals, plan))
+            wide = make_plan(ids, n)
+            assert torch.equal(segment_sum(vals, ids, n, plan=wide),
+                               segment_sum_ordered_ref(vals, wide))
+            if col == "src":
+                mask = torch.from_numpy(rng.random(E * C) < 0.4).to(cuda)
+                cand = torch.where(mask, vals, -torch.inf)
+                got_max = router._row_max(cand.view(E, C), "cuda")
+                want = torch.full((n,), -torch.inf, dtype=torch.float64)
+                want.scatter_reduce_(0, ids.cpu(), cand.cpu(), "amax")
+                assert torch.equal(got_max.reshape(-1).cpu(), want)
+                assert torch.equal(got_max,
+                                   router._row_max(cand.view(E, C), "torch"))
+
+
+@pytest.mark.parametrize("preset", GRAPH_PRESETS)
+def test_graph_incidence_on_the_card_matches_the_cpu(cuda, preset):
+    topo = SWEEP_TOPOLOGIES[preset]
+    sc = get_scenario("hotspot")
+    router = make_router(topo, device=cuda)
+    got = router.incidence(sc.build(topo, 800.0, graph=router.graph,
+                                    device=cuda))
+    plain = router.incidence(sc.build(topo, 800.0, graph=router.graph,
+                                      device=cuda), backend="torch")
+    cpu_router = make_router(topo, device="cpu")
+    want = cpu_router.incidence(sc.build(topo, 800.0,
+                                         graph=cpu_router.graph,
+                                         device="cpu"))
+    for a, b, c in zip(got, plain, want):
+        assert torch.equal(a, b)
+        assert torch.equal(a.cpu(), c)
+
+
+def test_default_sim_suite_through_kernels_matches_plain(cuda, tmp_path):
+    """``--suite sim``'s defaults (mphx-2p-8x8, dragonfly-small) on the
+    card: kernel and plain rows equal (floats at 1e-9 relative)."""
+    rows = {}
+    for backend in ("cuda", "torch"):
+        payload = run_sim_suite(str(tmp_path / backend), sim_backend=backend,
+                                device=cuda)
+        rows[backend] = [r for r in payload["rows"] if not r.get("skipped")]
+    assert {r["engine"] for r in rows["cuda"]} == {"array", "graph"}
+    assert len(rows["cuda"]) == len(rows["torch"]) == 12
+    for a, b in zip(rows["cuda"], rows["torch"]):
+        for k, v in a.items():
+            if k in ("sim_wall_s", "max_abs_util_diff"):
+                continue
+            if isinstance(v, float) and v != 0:
+                assert abs(b[k] - v) <= 1e-9 * abs(v), (k, v, b[k])
+            else:
+                assert b[k] == v, (k, v, b[k])
+
+
 def test_sweep_suite_through_kernels_matches_plain(cuda, tmp_path):
     """``--suite sweep`` on the card: kernel and plain paths give the
     same rows (floats at 1e-9 relative, adaptive's bit for bit), and the

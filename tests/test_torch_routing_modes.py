@@ -29,8 +29,7 @@ from repro_torch.core import routing_vec as rv  # noqa: E402
 from repro_torch.core.hyperx import MPHX  # noqa: E402
 from repro_torch.core.netsim import load_sweep, make_router  # noqa: E402
 from repro_torch.experiments import scenarios  # noqa: E402
-from repro_torch.experiments.sweep import (GRAPH_PRESETS,  # noqa: E402
-                                           SWEEP_TOPOLOGIES)
+from repro_torch.experiments.sweep import SWEEP_TOPOLOGIES  # noqa: E402
 
 TOPOS = {
     "mphx-2p-8x8": dict(n=2, p=8, dims=(8, 8)),
@@ -204,17 +203,16 @@ def test_scenario_registry_matches(scenario):
         scenarios.get_scenario(scenario)
     assert (port.name, port.kind, port.default_mode, port.requires_reason) \
         == (ref.name, ref.kind, ref.default_mode, ref.requires_reason)
-    assert port.graph_analogue == (ref.graph_builder is not None)
+    assert (port.graph_builder is None) == (ref.graph_builder is None)
+    # every preset of the reference, the graph-engine baselines too
+    assert list(SWEEP_TOPOLOGIES) == list(ref_sweep.SWEEP_TOPOLOGIES)
     for preset in SWEEP_TOPOLOGIES:
+        assert SWEEP_TOPOLOGIES[preset].name == \
+            ref_sweep.SWEEP_TOPOLOGIES[preset].name
         assert port.skip_reason(SWEEP_TOPOLOGIES[preset]) == \
             ref.skip_reason(ref_sweep.SWEEP_TOPOLOGIES[preset]), preset
         assert port.applicable(SWEEP_TOPOLOGIES[preset]) == \
             ref.applicable(ref_sweep.SWEEP_TOPOLOGIES[preset])
-    for preset in GRAPH_PRESETS:
-        assert GRAPH_PRESETS[preset].name == \
-            ref_sweep.SWEEP_TOPOLOGIES[preset].name
-        assert port.skip_reason(GRAPH_PRESETS[preset]) == \
-            ref.skip_reason(ref_sweep.SWEEP_TOPOLOGIES[preset]), preset
 
 
 def test_available_scenarios_match():
@@ -224,7 +222,8 @@ def test_available_scenarios_match():
         if s.kind == "synthetic")
     assert sorted([*synthetic, *scenarios.COLLECTIVE_SCENARIOS]) == \
         ref_scenarios.available_scenarios()
-    for preset in ("mphx-2p-8x8", "mphx-4p-86x9", "mphx-8p-256"):
+    for preset in ("mphx-2p-8x8", "mphx-4p-86x9", "mphx-8p-256",
+                   "dragonfly-small", "ft3-65536"):
         want = [n for n in ref_scenarios.available_scenarios(
             ref_sweep.SWEEP_TOPOLOGIES[preset]) if n in synthetic]
         assert scenarios.available_scenarios(

@@ -1,13 +1,17 @@
-"""The port's ``sweep`` suite against the JAX package's, on the CPU.
+"""The port's ``sweep`` and ``sim`` suites against the JAX package's, on
+the CPU.
 
-``run_sweep_suite`` over ``mphx-2p-8x8`` and a 1-D MPHX (all synthetic
-scenarios, the three routing modes, two loads, measured FCT columns on
-the minimal rows) against the reference's with its numpy backends:
-every routed row the reference writes for a ported scenario has a port
-row in the same place, with every key both write equal (floats at 1e-9
-relative, the rest exactly; the wall clocks left out).  The reference's
-graph-engine presets and its collective scenarios are skip records with
-a reason in the port.  The CLI's ``--suite sweep`` runs on the CPU.
+``run_sweep_suite`` over ``mphx-2p-8x8``, a 1-D MPHX and the reference's
+default topologies (the small MPHX and the four Table-2 baselines on the
+graph engine), all synthetic scenarios, the three routing modes, two
+loads, measured FCT columns on the minimal rows, against the reference's
+with its numpy backends: every routed row the reference writes for a
+ported scenario has a port row in the same place, with every key both
+write equal (floats at 1e-9 relative, the rest exactly; the wall clocks
+left out).  The same for ``run_sim_suite``'s default rows
+(``mphx-2p-8x8`` and ``dragonfly-small``) and for MPHX forced onto the
+graph engine.  The collective scenarios are skip records with a reason
+in the port.  The CLI's ``--suite sweep`` runs on the CPU.
 """
 
 import json
@@ -19,9 +23,10 @@ jax = pytest.importorskip("jax")
 import jax.experimental  # noqa: E402
 
 from repro.core.hyperx import MPHX as RefMPHX  # noqa: E402
+from repro.experiments import simsuite as ref_simsuite  # noqa: E402
 from repro.experiments import sweep as ref_sweep  # noqa: E402
 from repro_torch.core.hyperx import MPHX  # noqa: E402
-from repro_torch.experiments import sweep  # noqa: E402
+from repro_torch.experiments import simsuite, sweep  # noqa: E402
 from repro_torch.experiments.run import SUITES  # noqa: E402
 from repro_torch.experiments.run import main as cli_main  # noqa: E402
 from repro_torch.experiments.scenarios import (  # noqa: E402
@@ -29,7 +34,7 @@ from repro_torch.experiments.scenarios import (  # noqa: E402
 
 ONE_D = ("mphx-2p-8", dict(n=2, p=4, dims=(8,)))
 LOADS = (0.5, 1.0)
-UNCOMPARED = ("sweep_wall_s",)
+UNCOMPARED = ("sweep_wall_s", "sim_wall_s", "max_abs_util_diff")
 
 
 @pytest.fixture(autouse=True)
@@ -38,6 +43,17 @@ def jax_x64_shim(monkeypatch):
     reference imports it from; undone after each test."""
     monkeypatch.setattr(jax.experimental, "enable_x64", jax.enable_x64,
                         raising=False)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The graph engine's CPU path is thousands of small ops; under the
+    test runner's parallel workers torch's thread pools oversubscribe
+    the cores, so each test runs on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -52,6 +68,22 @@ def one_d(monkeypatch):
 
 def routed(payload):
     return [r for r in payload["rows"] if not r.get("skipped")]
+
+
+def assert_rows_match(got_rows, want_rows):
+    """Row for row, every key both write (wall clocks and round-off
+    sizes left out): floats at 1e-9 relative, the rest exactly."""
+    assert len(got_rows) == len(want_rows) > 0
+    for g, w in zip(got_rows, want_rows):
+        shared = (set(g) & set(w)) - set(UNCOMPARED)
+        assert {"topology", "scenario", "engine"} <= shared
+        for k in sorted(shared):
+            v = w[k]
+            if isinstance(v, float) and v != 0:
+                assert abs(g[k] - v) <= 1e-9 * abs(v), (g["topology"],
+                                                        g["scenario"], k)
+            else:
+                assert g[k] == v, (g["topology"], g["scenario"], k, g[k], v)
 
 
 @pytest.mark.parametrize("simulate", (True, False))
@@ -94,20 +126,79 @@ def test_sweep_suite_matches_the_reference(tmp_path, one_d, topo, simulate):
 
 
 def test_default_sweep_skips_the_graph_presets(tmp_path):
+    """The default sweep no longer skips the graph presets: it routes the
+    reference's five default topologies, the four baselines on the graph
+    engine, and its only skip records are the reference's (``transpose``
+    on the baselines) and the collective scenarios."""
     payload = sweep.run_sweep_suite(str(tmp_path), load_fractions=(1.0,),
                                     modes=["minimal"], device="cpu")
     assert payload["params"]["topologies"] == ref_sweep.DEFAULT_SWEEP_TOPOS
-    whole = [r for r in payload["rows"] if r["scenario"] == "*"]
-    assert [r["topology"] for r in whole] == [
-        ref_sweep.SWEEP_TOPOLOGIES[n].name
-        for n in ref_sweep.DEFAULT_SWEEP_TOPOS[1:]]
-    for r in whole:
-        assert r["skipped"] and "queue 1, item 2" in r["reason"]
-    assert payload["params"]["n_skipped"] == len(whole) + len(
-        COLLECTIVE_SCENARIOS)
-    assert len(routed(payload)) == len(SCENARIOS)
+    assert not [r for r in payload["rows"] if r["scenario"] == "*"]
+    skips = [(r["topology"], r["scenario"]) for r in payload["rows"]
+             if r.get("skipped")]
+    names = [ref_sweep.SWEEP_TOPOLOGIES[n].name
+             for n in ref_sweep.DEFAULT_SWEEP_TOPOS]
+    assert sorted(skips) == sorted(
+        [(t, "transpose") for t in names[1:]]
+        + [(t, c) for t in names for c in COLLECTIVE_SCENARIOS])
+    engines = {r["topology"]: r["engine"] for r in routed(payload)}
+    assert engines == {t: "array" if i == 0 else "graph"
+                       for i, t in enumerate(names)}
+    assert len(routed(payload)) == len(SCENARIOS) + 4 * (len(SCENARIOS) - 1)
     md = (tmp_path / "sweep.md").read_text()
-    assert all(f"| {r['topology']} | * |" in md for r in whole)
+    assert all(f"{t} (" in md for t in names)
+
+
+@pytest.mark.parametrize("simulate", (True, False))
+def test_default_sweep_matches_the_reference(tmp_path, simulate):
+    want = ref_sweep.run_sweep_suite(
+        str(tmp_path / "ref"), load_fractions=LOADS, backend="numpy",
+        simulate=simulate, sim_backend="numpy")
+    got = sweep.run_sweep_suite(
+        str(tmp_path / "port"), load_fractions=LOADS, simulate=simulate,
+        sim_backend="torch", device="cpu")
+    want_rows = [r for r in routed(want) if r["scenario"] in SCENARIOS]
+    assert_rows_match(routed(got), want_rows)
+    assert {r["engine"] for r in routed(got)} == {"array", "graph"}
+    for r in routed(got):
+        assert ("fct_p99_us" in r) == (simulate and r["mode"] == "minimal")
+    want_skips = {(r["topology"], r["scenario"]): r["reason"]
+                  for r in want["rows"] if r.get("skipped")}
+    for r in got["rows"]:
+        if r.get("skipped") and r["scenario"] not in COLLECTIVE_SCENARIOS:
+            assert r["reason"] == want_skips[(r["topology"], r["scenario"])]
+
+
+def test_sweep_engine_choice_matches_the_reference(tmp_path):
+    """``engine="graph"`` routes MPHX on the graph engine; ``"array"``
+    turns the baselines into one skip record each, the reference's."""
+    kw = dict(topo_names=["mphx-2p-8x8", "dragonfly-small"],
+              scenario_names=["uniform", "hotspot"], load_fractions=(1.0,))
+    for engine in ("graph", "array"):
+        want = ref_sweep.run_sweep_suite(
+            str(tmp_path / f"ref-{engine}"), backend="numpy", engine=engine,
+            **kw)
+        got = sweep.run_sweep_suite(str(tmp_path / engine), engine=engine,
+                                    device="cpu", **kw)
+        assert_rows_match(routed(got), routed(want))
+        assert [r for r in got["rows"] if r.get("skipped")] == \
+            [r for r in want["rows"] if r.get("skipped")]
+
+
+def test_default_sim_suite_matches_the_reference(tmp_path, monkeypatch):
+    """``run_sim_suite``'s defaults, ``mphx-2p-8x8`` and
+    ``dragonfly-small``: the steady-state checks and FCT rows (the
+    reference's measured collectives, skip records in the port, are not
+    run)."""
+    monkeypatch.setattr(ref_simsuite, "SIM_COLLECTIVES", ())
+    assert simsuite.DEFAULT_SIM_TOPOS == ref_simsuite.DEFAULT_SIM_TOPOS
+    want = ref_simsuite.run_sim_suite(str(tmp_path / "ref"),
+                                      backend="numpy", sim_backend="numpy")
+    got = simsuite.run_sim_suite(str(tmp_path / "port"), sim_backend="torch",
+                                 device="cpu")
+    assert_rows_match(routed(got), routed(want))
+    assert [r["engine"] for r in routed(got)] == ["array"] * 6 + ["graph"] * 6
+    assert got["params"]["all_steady_checks_agree_1e-6"] is True
 
 
 def test_sweep_transpose_is_a_skip_record_on_a_non_square_grid(tmp_path):
@@ -139,7 +230,24 @@ def test_cli_sweep_suite_on_the_cpu(tmp_path, capsys):
     assert (tmp_path / "sweep.md").exists()
 
 
-def test_cli_sim_suite_refuses_unported_cells(tmp_path):
-    with pytest.raises(SystemExit):
-        cli_main(["--suite", "sim", "--topos", "ft3-small", "--device",
-                  "cpu", "--out", str(tmp_path)])
+def test_cli_sim_suite_refuses_unported_cells(tmp_path, capsys):
+    """The sim suite routes a baseline; what it refuses are the cells not
+    ported (the measured collectives) and, with ``--engine array``, a
+    topology that engine cannot route: skip records with the reason."""
+    rc = cli_main(["--suite", "sim", "--topos", "ft3-small", "--device",
+                   "cpu", "--sim-backend", "torch", "--out", str(tmp_path)])
+    assert rc == 0
+    payload = json.loads((tmp_path / "sim.json").read_text())
+    skips = [r for r in payload["rows"] if r.get("skipped")]
+    assert [r["scenario"] for r in skips] == list(simsuite.SIM_COLLECTIVES)
+    assert all("ROADMAP" in r["reason"] for r in skips)
+    assert len(routed(payload)) == 6
+    assert {r["engine"] for r in routed(payload)} == {"graph"}
+    rc = cli_main(["--suite", "sim", "--topos", "ft3-small", "--engine",
+                   "array", "--device", "cpu", "--out", str(tmp_path)])
+    assert rc == 0
+    (row,) = json.loads((tmp_path / "sim.json").read_text())["rows"]
+    assert row["skipped"] and row["scenario"] == "*"
+    assert row["reason"] == "array engine is MPHX-only, got " \
+        "3-layer Fat-Tree (small)"
+    assert "skipping topology" in capsys.readouterr().err
