@@ -66,7 +66,31 @@ nonzero:
    adaptive route under the profiler; the segment kernels at the graph's
    shapes (ft3-65536's pull, ECMP denominators and bottleneck max, one
    lane a segment) and at mpft-8p-65536's water-filling shapes.
-9. ``model_kernel``: RMSNorm and flash attention against their plain
+9. ``table2_trace``: ``--suite table2`` through the CLI under
+   ``--trace`` (its rows equal to the same process's host rows, every
+   cost the paper's, the trace's untraced note); the neighbor-shift
+   throughput of Table 2's four MPHX rows in the three routing modes
+   through the kernels and on the plain path (each route's wall,
+   adaptive bit for bit); ``pattern_throughput`` at mphx-4p-86x9 uniform
+   with the simulator's loads within 1e-6 of the router's.  Then the
+   fabric flight recorder: ``--suite sim --trace`` at its defaults
+   through the kernels, on the plain path and on the CPU (valid traces,
+   the same events, journals at 1e-9, each ``sim.json`` with its
+   ``telemetry`` block); the golden staggered trace journaled on the
+   card (127 rows) against the CPU's; the many-epoch cell
+   (``results/BENCH_sim_scale.json``'s mphx-4p-86x9 workload, 1,547
+   epochs in the reference) with and without the recorder, in turns,
+   kernels and plain: its walls, the extra sum launches (one for the
+   link selection, one a journaled epoch), outputs bit for bit unmoved,
+   and, through the kernels, the walls of a journal that buffers the
+   epochs' rates and sums them at once (``buffered_journal``) in the
+   same turns; the profiler's device-to-host copies and the
+   synchronizing calls (torch's sync debug mode) with and without the
+   recorder at the golden trace's 127 epochs and the cell's 1,547,
+   counted in a fresh process (``chip_smoke.py --count-copies``); the
+   reference's bounded series at mphx-8p-256 (64 rows, 32 flow spans,
+   the rest counted).
+10. ``model_kernel``: RMSNorm and flash attention against their plain
    versions (edge cases: ragged sizes, decode, GQA and MQA, a window, a
    ring cache with empty and wrapped slots, float32 and bfloat16), at
    the serve path's shapes (float32 at 2e-5; bfloat16, and for
@@ -95,7 +119,7 @@ nonzero:
    shape 1), and each line carries its ``splits``; its device
    times come from the profiler and from CUDA graphs as attention's,
    beside ``torch.bmm``'s, with the SM clock around each timing.
-10. ``serve``: yi-9b at full width and depth (random bf16 weights drawn
+11. ``serve``: yi-9b at full width and depth (random bf16 weights drawn
    on the card from a seed) serves 8 requests of 1,024 prompt tokens and
    32 new tokens each in waves of 4 through the kernels, with the launch
    counts read around that run alone (97 RMSNorm and 48 attention
@@ -105,7 +129,7 @@ nonzero:
    Prefill and teacher-forced decode logits of the two paths must agree,
    and a float32 2-layer yi-9b must agree at 2e-5; a decode wave is
    profiled for the device's idle share.
-11. ``moe_serve``: mixtral-8x22b at full width and 12 of its 56 layers
+12. ``moe_serve``: mixtral-8x22b at full width and 12 of its 56 layers
    (60.9 GB of random bf16 weights drawn on the card after yi-9b's are
    freed) serves the same traffic through the kernels, with the launch
    counts read around that run alone (25 RMSNorm, 12 attention and 36
@@ -126,7 +150,7 @@ nonzero:
    runs through mixtral's 4,096-token window, a decode wave is profiled,
    and a float32 2-layer mixtral must agree at 2e-5 with no routing
    flipped.
-12. ``hybrid_serve``: the RG-LRU scan bit for bit equal to its plain
+13. ``hybrid_serve``: the RG-LRU scan bit for bit equal to its plain
    version, with each shape's plan, at ``tests/test_kernels.py``'s edge
    shapes, ragged widths and lengths, recurrentgemma-2b prefill's (4,
    1024, 2560) (timed: event, device and CUDA-graph ms, GB/s and the
@@ -144,7 +168,7 @@ nonzero:
    wave is
    profiled, and a float32 model at full width and 5 of its 26 layers
    must agree at 2e-5.
-13. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
+14. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
@@ -206,6 +230,16 @@ GRAPH_PLAIN_BIG_SCENARIOS = ["uniform"]
 GRAPH_PROFILED = "dragonfly-65536"
 # the row-scatter kernel lines: the largest pull
 GRAPH_KERNEL_TOPO = "ft3-65536"
+
+# the table2_trace phase: results/BENCH_sim_scale.json's workload
+# (neighbor_shift at 0.9, default_rng(7), sizes up to 16 MiB, starts
+# within 200 us) at mphx-4p-86x9, the many-epoch cell, where the
+# reference's numpy loop took 1,547 epochs; and the reference's bounded
+# series (tests/test_telemetry.py) at mphx-8p-256
+SIM_SCALE_SEED, SIM_SCALE_LOAD = 7, 0.9
+SIM_SCALE_SIZE_MAX, SIM_SCALE_WINDOW_S = float(1 << 24), 200e-6
+SIM_SCALE_EPOCHS = 1547
+BOUNDED_TOPO = "mphx-8p-256"
 
 KERNELS = {
     "segment_sum": "src/repro/kernels/segment_fairshare/kernel.py:97",
@@ -1236,6 +1270,531 @@ def phase_graph() -> dict:
     del prob, inc, dem, router
     torch.cuda.empty_cache()
     emit_graph(launches=by_path, ok=True)
+    return by_path
+
+
+def compare_traces(a: dict, b: dict, where: str) -> dict:
+    """Two exported traces of one run (kernels against plain, or against
+    the CPU): the same ``(ph, name)`` events in the same order; counter
+    samples with the same series (edge ids, active-flow labels), active
+    counts exact and utilizations within 1e-9; clocks within 1e-9 of the
+    longest simulated time."""
+    ea, eb = a["traceEvents"], b["traceEvents"]
+    if [(e["ph"], e["name"]) for e in ea] != \
+            [(e["ph"], e["name"]) for e in eb]:
+        raise AssertionError(f"{where}: the event sequences differ")
+    scale = max([e["ts"] + e.get("dur", 0.0) for e in ea if "ts" in e]
+                + [1e-30])
+    t_err = util_err = 0.0
+    for x, y in zip(ea, eb):
+        if x["ph"] == "M":
+            if x != y:
+                raise AssertionError(f"{where}: track {x} != {y}")
+            continue
+        for key in ("ts", "dur"):
+            if key in x:
+                t_err = max(t_err, abs(x[key] - y[key]))
+        if x["ph"] != "C":
+            continue
+        if list(x["args"]) != list(y["args"]):
+            raise AssertionError(f"{where}: {x['name']} series differ")
+        for k, v in x["args"].items():
+            if x["name"] == "active_flows":
+                if v != y["args"][k]:
+                    raise AssertionError(f"{where}: active {v} != "
+                                         f"{y['args'][k]}")
+            else:
+                util_err = max(util_err, abs(v - y["args"][k]))
+    if t_err > 1e-9 * scale or util_err > 1e-9:
+        raise AssertionError(f"{where}: clock err {t_err} (scale {scale}), "
+                             f"util err {util_err}")
+    return {"events": len(ea), "clock_max_abs_err_us": t_err,
+            "util_max_abs_err": util_err}
+
+
+def compare_journals(a: dict, b: dict, makespan: float,
+                     where: str) -> dict:
+    """Two journals of one simulation at the CPU tests' tolerances."""
+    for key in ("edge_ids", "active_flows", "dropped_epochs"):
+        if a[key] != b[key]:
+            raise AssertionError(f"{where}: journal {key} differ")
+    t_err = max([abs(x - y) for k in ("t_s", "dt_s")
+                 for x, y in zip(a[k], b[k])] + [0.0])
+    u = np.abs(np.asarray(a["util"]) - np.asarray(b["util"]))
+    u_err = float(u.max()) if u.size else 0.0
+    if len(a["t_s"]) != len(b["t_s"]) or t_err > 1e-9 * makespan \
+            or u_err > 1e-9:
+        raise AssertionError(f"{where}: journal t/dt err {t_err}, util err "
+                             f"{u_err}")
+    return {"rows": len(a["t_s"]), "t_max_abs_err": t_err,
+            "util_max_abs_err": u_err}
+
+
+def d2h_copies(prof) -> int:
+    """Device-to-host copies the profiler saw on the device."""
+    return sum(c for name, c, _ in device_events(prof) if "DtoH" in name)
+
+
+def sim_scale_case(topo_name: str, device):
+    """``results/BENCH_sim_scale.json``'s workload on one preset:
+    neighbor_shift at 0.9 of NIC bandwidth, minimal routing, sizes
+    ``U(0.2, 1) * 16 MiB`` and starts ``U(0, 200 us)`` from
+    ``default_rng(7)``: ``(incidence, sizes, caps, starts)``."""
+    from repro_torch.core.netsim import make_router
+    from repro_torch.core.routing_vec import neighbor_shift_demands
+    from repro_torch.experiments.sweep import SWEEP_TOPOLOGIES
+    from repro_torch.sim.fairshare import flow_incidence
+
+    topo = SWEEP_TOPOLOGIES[topo_name]
+    dem = neighbor_shift_demands(topo, SIM_SCALE_LOAD * topo.nic_bw_gbps,
+                                 device=device)
+    inc = flow_incidence(make_router(topo, device=device), dem)
+    rng = np.random.default_rng(SIM_SCALE_SEED)
+    size = rng.uniform(0.2, 1.0, inc.n_flows) * SIM_SCALE_SIZE_MAX
+    start = rng.uniform(0.0, SIM_SCALE_WINDOW_S, inc.n_flows)
+    return inc, size, dem.gbps, start
+
+
+def sim_scale_runner(inc, size, caps, start):
+    """``sim(backend, rec=None, buffered=False)``: one timed simulation
+    of a ``sim_scale_case`` on the card, under ``rec`` where one is
+    given, with the buffered journal where ``buffered``."""
+    from repro_torch.sim import events
+    from repro_torch.sim.events import simulate_incidence
+    from repro_torch.telemetry import recording
+
+    journal, buffered_cls = events._Journal, buffered_journal()
+
+    def run(backend):
+        return simulate_incidence(inc, size, caps, start_s=start,
+                                  backend=backend, device="cuda")
+
+    def sim(backend, rec=None, buffered=False):
+        if rec is None:
+            return timed(lambda: run(backend))
+        events._Journal = buffered_cls if buffered else journal
+        try:
+            with recording(rec):
+                return timed(lambda: run(backend))
+        finally:
+            events._Journal = journal
+    return sim
+
+
+def buffered_journal():
+    """The epoch journal that buffers the selected entries' rates of up
+    to 64 MiB of epochs (an ``index_select`` an epoch) and sums a full
+    buffer, and the rest at the end, in one segment sum over (epoch,
+    edge) segments: the design timed against the journal's sum an epoch,
+    in the many-epoch cell's turns."""
+    from repro_torch.kernels.segment_fairshare import make_plan
+    from repro_torch.sim import events
+    from repro_torch.sim.fairshare import _seg_sum
+
+    class BufferedJournal(events._Journal):
+        def __init__(self, inc, sel, max_epochs, backend):
+            super().__init__(inc, sel, max_epochs, backend)
+            nnz = int(self.flow.shape[0])
+            chunk = min(self.clock.shape[0],
+                        max(1, (64 << 20) // (8 * max(nnz, 1))))
+            self.rates = torch.empty((chunk, nnz), dtype=torch.float64,
+                                     device=self.clock.device)
+            self.summed = 0
+
+        def write(self, t, dt, act, rates):
+            n = self.n_epochs
+            self.n_epochs += 1
+            if n >= self.clock.shape[0]:
+                return
+            row = self.clock[n]
+            torch.stack((t, dt), out=row[:2])
+            torch.sum(act, 0, dtype=torch.float64, out=row[2])
+            if self.K:
+                torch.index_select(rates, 0, self.flow,
+                                   out=self.rates[n - self.summed])
+                if n + 1 - self.summed == self.rates.shape[0]:
+                    self.flush()
+
+        def flush(self):
+            m = min(self.n_epochs, self.clock.shape[0]) - self.summed
+            if m <= 0 or not self.K:
+                return
+            values = (self.rates[:m] * self.frac).reshape(-1)
+            ids = (torch.arange(m, device=values.device)[:, None] * self.K
+                   + self.ids).reshape(-1)
+            plan = make_plan(ids, m * self.K) \
+                if self.backend == "cuda" else None
+            loads = _seg_sum(values, ids, m * self.K, self.backend, plan)
+            torch.div(loads.view(m, self.K), self.cap,
+                      out=self.util[self.summed:self.summed + m])
+            self.summed += m
+
+        def record(self, recorder):
+            self.flush()
+            super().record(recorder)
+
+    return BufferedJournal
+
+
+def host_syncs(fn) -> int:
+    """Synchronizing CUDA calls in ``fn()`` (device-to-host reads, copies
+    from pageable host memory, ``nonzero``), counted by torch's sync
+    debug mode, which warns at each one and drops none."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing" in str(w.message) for w in caught)
+
+
+def count_copies() -> dict:
+    """Device-to-host copies by the profiler, without and with the
+    recorder (turns off, on, on, off at the golden staggered trace; off,
+    on at the many-epoch cell), through the kernels, and each run's
+    synchronizing calls (``host_syncs``, one run a side): ``{cell:
+    {"epochs": n, "off": [...], "on": [...], "syncs_off": s,
+    "syncs_on": s}}``.  Run in a process of its own (``chip_smoke.py
+    --count-copies``)."""
+    from repro_torch.core.netsim import make_router
+    from repro_torch.core.routing_vec import neighbor_shift_demands
+    from repro_torch.experiments.sweep import SWEEP_TOPOLOGIES
+    from repro_torch.sim.fairshare import flow_incidence
+    from repro_torch.telemetry import TraceRecorder
+
+    golden = json.loads(GOLDEN.read_text())["staggered"]
+    t = SWEEP_TOPOLOGIES["mphx-2p-8x8"]
+    cases = {"golden": (flow_incidence(
+        make_router(t, device="cuda"),
+        neighbor_shift_demands(t, 800.0, device="cuda")),
+        golden["size_bytes"], golden["rate_caps_gbps"], golden["start_s"]),
+        "many_epoch": sim_scale_case(MAIN_TOPO, "cuda")}
+    out = {}
+    for cell, case in cases.items():
+        sim = sim_scale_runner(*case)
+        sim("cuda")
+        res, _ = sim("cuda", TraceRecorder())
+        out[cell] = {"epochs": res.n_epochs, "off": [], "on": []}
+        # a profiled run of the many-epoch cell takes ~9 s: one a side
+        for turn in ("off", "on", "on", "off")[:4 if cell == "golden"
+                                               else 2]:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                sim("cuda", TraceRecorder() if turn == "on" else None)
+            out[cell][turn].append(d2h_copies(prof))
+        for turn in ("off", "on"):
+            out[cell][f"syncs_{turn}"] = host_syncs(lambda: sim(
+                "cuda", TraceRecorder() if turn == "on" else None))
+    return out
+
+
+def phase_table2_trace() -> dict:
+    """``--suite table2`` and the routed Table-2 closed forms on the card,
+    then the fabric flight recorder: ``--suite sim --trace``, the golden
+    staggered journal, the many-epoch cell with and without the recorder
+    and the bounded series.  Returns each path's launch counts."""
+    from repro_torch.core.hyperx import table2_mphx_rows
+    from repro_torch.core.netsim import (adversarial_throughput_fraction,
+                                         make_router, pattern_throughput)
+    from repro_torch.core.routing_vec import (neighbor_shift_demands,
+                                              uniform_demands)
+    from repro_torch.experiments import run_table2_suite
+    from repro_torch.experiments.run import main as cli
+    from repro_torch.experiments.sweep import (ROUTING_MODES,
+                                               SWEEP_TOPOLOGIES)
+    from repro_torch.sim.fairshare import flow_incidence
+    from repro_torch.kernels.segment_fairshare import (LAUNCHES,
+                                                       reset_launch_counts)
+    from repro_torch.sim.events import simulate_incidence
+    from repro_torch.telemetry import (LinkSeriesPolicy, TraceRecorder,
+                                       recording, validate_trace)
+
+    t_phase = time.perf_counter()
+    by_path = {}
+
+    def emit_t2(**fields):
+        emit("table2_trace", phase_s=time.perf_counter() - t_phase, **fields)
+
+    def launched(path, kernels=("segment_sum", "segment_min"),
+                 counts=None):
+        """Keep ``path``'s launch counts (default: the counts now); each
+        of ``kernels`` must have launched."""
+        by_path[path] = dict(LAUNCHES if counts is None else counts)
+        missing = [k for k in kernels if by_path[path][k] == 0]
+        if missing:
+            raise AssertionError(f"{path} launched no {missing} kernel")
+
+    # --suite table2 through the CLI, traced: the host's rows, every
+    # cost the paper's, and the untraced note
+    out = OUT_DIR / "table2"
+    trace_path = OUT_DIR / "table2_trace.json"
+    rc, wall = timed(lambda: cli(["--suite", "table2", "--out", str(out),
+                                  "--trace", str(trace_path)]))
+    if rc != 0:
+        raise AssertionError(f"--suite table2 exited {rc}")
+    disk = json.loads((out / "table2.json").read_text())
+    host = run_table2_suite(str(OUT_DIR / "table2_host"))
+    if disk["rows"] != json.loads(json.dumps(host["rows"])):
+        raise AssertionError("table2: the CLI's rows differ from the host's")
+    if not all(r.get("cost_matches_paper") for r in disk["rows"]):
+        raise AssertionError("table2: a cost differs from the paper's")
+    trace = json.loads(trace_path.read_text())
+    if validate_trace(trace) != [] or [n["name"] for n in
+                                       trace["otherData"]["skipped"]] \
+            != ["table2"]:
+        raise AssertionError("table2: no untraced note in its trace")
+    for r in disk["rows"]:
+        emit_t2(suite="table2", topology=r["topology"], N=r["N"],
+                N_s=r["N_s"], N_o=r["N_o"],
+                cost_per_nic_usd=r["cost_per_nic_usd"],
+                paper_cost_per_nic_usd=r["paper_cost_per_nic_usd"],
+                diameter=r["diameter"],
+                zero_load_latency_us=r["zero_load_latency_us"],
+                uniform_throughput=r["uniform_throughput"],
+                allreduce_256MB_ms=r["allreduce_256MB_ms"],
+                allreduce_algo=r["allreduce_algo"])
+    emit_t2(suite="table2", wall_s=wall, rows=len(disk["rows"]),
+            rows_equal_host=True, untraced_note=True)
+
+    # the adversarial (neighbor-shift) throughput of Table 2's MPHX rows,
+    # routed through the kernels, then on the plain path; a small fabric
+    # first, so that no timed route pays the first use of torch's kernels
+    for mode in ROUTING_MODES:
+        for backend in ("cuda", "torch"):
+            adversarial_throughput_fraction(
+                SWEEP_TOPOLOGIES["mphx-2p-8x8"], mode, backend=backend,
+                device="cuda")
+    reset_launch_counts()
+    results = {}
+    for topo in table2_mphx_rows():
+        for mode in ROUTING_MODES:
+            results[topo.name, mode] = timed(
+                lambda: adversarial_throughput_fraction(
+                    topo, mode, backend="cuda", device="cuda"))
+    launched("table2 adversarial", ("segment_sum",))
+    for topo in table2_mphx_rows():
+        for mode in ROUTING_MODES:
+            got, wall = results[topo.name, mode]
+            want, pwall = timed(lambda: adversarial_throughput_fraction(
+                topo, mode, backend="torch", device="cuda"))
+            ok = got == want if mode == "adaptive" \
+                else abs(got - want) <= 1e-12 * abs(want)
+            if not ok:
+                raise AssertionError(f"adversarial {topo.name}/{mode}: "
+                                     f"{got} != {want}")
+            emit_t2(adversarial=topo.name, mode=mode, throughput=got,
+                    plain_throughput=want, route_wall_s=wall,
+                    plain_route_wall_s=pwall, bits_equal=got == want)
+
+    # pattern_throughput with the simulator's load cross-check, at the
+    # Table-2 row mphx-4p-86x9 under uniform traffic
+    topo = SWEEP_TOPOLOGIES[MAIN_TOPO]
+    dem = uniform_demands(topo, topo.nic_bw_gbps, device="cuda")
+    reset_launch_counts()
+    got, wall = timed(lambda: pattern_throughput(
+        topo, dem, "minimal", simulate=True, backend="cuda", device="cuda"))
+    launched("table2 pattern_throughput", ("segment_sum",))
+    want, pwall = timed(lambda: pattern_throughput(
+        topo, dem, "minimal", simulate=True, backend="torch",
+        device="cuda"))
+    if got["sim_max_abs_util_diff"] > 1e-6:
+        raise AssertionError(f"pattern_throughput: util diff "
+                             f"{got['sim_max_abs_util_diff']}")
+    compare_rows({k: v for k, v in got.items()
+                  if k != "sim_max_abs_util_diff"}, want,
+                 "pattern_throughput")
+    emit_t2(pattern_throughput=f"{MAIN_TOPO} uniform minimal", **got,
+            wall_s=wall, plain_wall_s=pwall, plain_rows_agree=True)
+    del dem
+    torch.cuda.empty_cache()
+
+    # --suite sim --trace at its defaults: kernels, plain, and the CPU
+    traces = {}
+    for name, dev, backend in (("cuda", "cuda", "cuda"),
+                               ("torch", "cuda", "torch"),
+                               ("cpu", "cpu", "torch")):
+        path = OUT_DIR / f"sim_trace_{name}.json"
+        reset_launch_counts()
+        rc, wall = timed(lambda: cli(["--suite", "sim", "--device", dev,
+                                      "--sim-backend", backend, "--out",
+                                      str(OUT_DIR / f"sim_trace_{name}"),
+                                      "--trace", str(path)]))
+        if name == "cuda":
+            launched("sim default --trace")
+        traces[name] = json.loads(path.read_text())
+        art = json.loads((OUT_DIR / f"sim_trace_{name}" / "sim.json")
+                         .read_text())
+        if rc != 0 or validate_trace(traces[name]) != [] \
+                or "telemetry" not in art or traces[name]["otherData"][
+                    "skipped"]:
+            raise AssertionError(f"sim --trace ({name}): rc {rc}, or an "
+                                 "invalid trace, or no telemetry block")
+        emit_t2(suite="sim --trace", run=name, wall_s=wall,
+                events=len(traces[name]["traceEvents"]),
+                telemetry_counters=art["telemetry"]["counters"])
+    for other in ("torch", "cpu"):
+        emit_t2(suite="sim --trace", compared=f"cuda vs {other}",
+                **compare_traces(traces["cuda"], traces[other],
+                                 f"sim --trace cuda vs {other}"), ok=True)
+
+    # the golden staggered trace journaled on the card against the CPU
+    golden = json.loads(GOLDEN.read_text())["staggered"]
+    journals = {}
+    for dev in ("cuda", "cpu"):
+        t = SWEEP_TOPOLOGIES["mphx-2p-8x8"]
+        inc = flow_incidence(make_router(t, device=dev),
+                             neighbor_shift_demands(t, 800.0, device=dev))
+        rec = TraceRecorder()
+        with recording(rec):
+            res = simulate_incidence(
+                inc, golden["size_bytes"], golden["rate_caps_gbps"],
+                start_s=golden["start_s"], backend="cuda", device=dev)
+        journals[dev] = rec.journals[0]
+        if res.n_epochs != golden["n_epochs"] or \
+                len(journals[dev]["t_s"]) != golden["n_epochs"]:
+            raise AssertionError(f"golden journal ({dev}): "
+                                 f"{len(journals[dev]['t_s'])} rows")
+    emit_t2(golden_journal="staggered mphx-2p-8x8/neighbor_shift",
+            **compare_journals(journals["cuda"], journals["cpu"],
+                               golden["makespan_s"], "golden journal"),
+            ok=True)
+
+    # the many-epoch cell: BENCH_sim_scale.json's mphx-4p-86x9 workload,
+    # its wall without the recorder ("off"), with it ("on") and, through
+    # the kernels, with the buffered journal ("buffered"), in turns whose
+    # order runs forth and back; the overheads from the medians
+    inc, size, caps, start = sim_scale_case(MAIN_TOPO, "cuda")
+    cell = {"topology": MAIN_TOPO, "flows": inc.n_flows, "nnz": inc.nnz}
+    sim = sim_scale_runner(inc, size, caps, start)
+    sim("cuda")
+    sim("torch")
+    sim("cuda", TraceRecorder(), buffered=True)
+    for backend in ("cuda", "torch"):
+        turns = ("off", "on", "buffered", "buffered", "on", "off") * 3 \
+            if backend == "cuda" else ("off", "on", "on", "off")
+        walls = {turn: [] for turn in turns}
+        for turn in turns:
+            rec = TraceRecorder() if turn != "off" else None
+            reset_launch_counts()
+            res, wall = sim(backend, rec, buffered=turn == "buffered")
+            walls[turn].append(wall)
+            if len(walls[turn]) == 1:
+                first = (res, dict(LAUNCHES), rec and rec.journals[0])
+                if turn == "off":
+                    plain_res, launches_off, _ = first
+                elif turn == "on":
+                    rec_res, launches_on, journal = first
+                else:
+                    buf_res, launches_buf, buf_journal = first
+        if backend == "cuda":
+            # the event loop alone: water-filling and the journal sum
+            launched(f"many-epoch sim {MAIN_TOPO} traced", ("segment_sum",),
+                     counts=launches_on)
+            kernel_journal, kernel_makespan = journal, rec_res.makespan_s
+            compare_journals(journal, buf_journal, kernel_makespan,
+                             "many-epoch journal, a sum an epoch vs "
+                             "buffered")
+            for name in ("finish_s", "edge_bytes", "fct_s"):
+                if not same_bits(getattr(buf_res, name),
+                                 getattr(plain_res, name)):
+                    raise AssertionError(f"many-epoch: the buffered "
+                                         f"journal moved {name}")
+        else:
+            compare_journals(kernel_journal, journal, kernel_makespan,
+                             "many-epoch journal, kernels vs plain")
+        for name in ("finish_s", "edge_bytes", "fct_s"):
+            if not same_bits(getattr(rec_res, name),
+                             getattr(plain_res, name)):
+                raise AssertionError(f"many-epoch ({backend}): recording "
+                                     f"moved {name}")
+        if rec_res.n_epochs != SIM_SCALE_EPOCHS:
+            raise AssertionError(f"many-epoch: {rec_res.n_epochs} epochs, "
+                                 f"the reference's {SIM_SCALE_EPOCHS}")
+        # the kernel path: the selection's sum and one a journaled epoch
+        extra = launches_on["segment_sum"] - launches_off["segment_sum"]
+        rows = len(journal["t_s"])
+        if extra != (1 + rows if backend == "cuda" else 0):
+            raise AssertionError(f"many-epoch ({backend}): {extra} extra "
+                                 f"sum launches for {rows} rows")
+        med = {turn: statistics.median(w) for turn, w in walls.items()}
+        arms = {}
+        if backend == "cuda":
+            # the buffer's gain: how much above the buffered journal's
+            # median wall the sum an epoch's is
+            arms = {"wall_buffered_s": walls["buffered"],
+                    "buffered_overhead": med["buffered"] / med["off"] - 1,
+                    "buffered_extra_sum_launches":
+                        launches_buf["segment_sum"]
+                        - launches_off["segment_sum"],
+                    "buffer_gain": med["on"] / med["buffered"] - 1}
+        emit_t2(many_epoch=backend, **cell, epochs=rec_res.n_epochs,
+                reference_epochs=SIM_SCALE_EPOCHS,
+                waterfill_rounds=rec_res.waterfill_rounds,
+                journal_rows=rows, edge_ids=journal["edge_ids"],
+                wall_off_s=walls["off"], wall_on_s=walls["on"],
+                journal_overhead=med["on"] / med["off"] - 1,
+                off_spread=(max(walls["off"]) - min(walls["off"]))
+                / med["off"], **arms,
+                launches_off=launches_off, launches_on=launches_on,
+                extra_sum_launches=extra, outputs_bits_equal=True)
+    del inc, sim
+    torch.cuda.empty_cache()
+
+    # the device->host copies with and without the recorder, by the
+    # profiler in a fresh process (late in a long one it drops records)
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--count-copies"], capture_output=True, text=True,
+                          timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"--count-copies exited {proc.returncode}:\n"
+                             f"{proc.stdout}{proc.stderr}")
+    copies = json.loads(proc.stdout.strip().splitlines()[-1])
+    # the recorder's copies at most (the largest session with it less the
+    # smallest without) and its synchronizing calls at the golden trace's
+    # 127 epochs and the cell's 1,547: one an epoch would add 1,420 more
+    # at the cell
+    added = {cell: max(c["on"]) - min(c["off"]) for cell, c in copies.items()}
+    syncs = {cell: c["syncs_on"] - c["syncs_off"]
+             for cell, c in copies.items()}
+    growth = added["many_epoch"] - added["golden"]
+    sync_growth = syncs["many_epoch"] - syncs["golden"]
+    more_epochs = copies["many_epoch"]["epochs"] - copies["golden"]["epochs"]
+    if max(growth, sync_growth) >= more_epochs // 10:
+        raise AssertionError(f"the recorder adds {added} copies and "
+                             f"{syncs} synchronizing calls: they grow with "
+                             "the epochs")
+    emit_t2(d2h_copies=copies, added_at_most=added, growth=growth,
+            added_syncs=syncs, sync_growth=sync_growth)
+
+    # the reference's bounded series at mphx-8p-256: 64 rows, 32 spans
+    inc, size, caps, start = sim_scale_case(BOUNDED_TOPO, "cuda")
+    rec = TraceRecorder(LinkSeriesPolicy(top_k=8, reservoir=4,
+                                         max_epochs=64), max_flow_events=32)
+    reset_launch_counts()
+    with recording(rec):
+        res, wall = timed(lambda: simulate_incidence(
+            inc, size, caps, start_s=start, backend="cuda", device="cuda"))
+    launched(f"bounded series {BOUNDED_TOPO}", ("segment_sum",))
+    j = rec.journals[0]
+    if not (res.n_epochs > 64 and len(j["t_s"]) == 64
+            and j["dropped_epochs"] == res.n_epochs - 64
+            and rec.metrics.value("trace.dropped_epochs") == res.n_epochs - 64
+            and rec.metrics.value("trace.dropped_flow_events")
+            == inc.n_flows - 32 and len(j["edge_ids"]) <= 12
+            and validate_trace(rec.to_json()) == []):
+        raise AssertionError(f"bounded series: {res.n_epochs} epochs, "
+                             f"{len(j['t_s'])} rows, "
+                             f"{j['dropped_epochs']} dropped")
+    emit_t2(bounded=BOUNDED_TOPO, flows=inc.n_flows, epochs=res.n_epochs,
+            rows=64, dropped_epochs=j["dropped_epochs"],
+            dropped_flow_events=rec.metrics.value(
+                "trace.dropped_flow_events"), wall_s=wall)
+    del inc
+    torch.cuda.empty_cache()
+    emit_t2(launches=by_path, ok=True)
     return by_path
 
 
@@ -2516,6 +3075,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if sys.argv[1:] == ["--count-copies"]:
+        print(json.dumps(count_copies()), flush=True)
+        return 0
     card = nvidia_smi_line()
     emit("env", nvidia_smi=card, torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0],
@@ -2532,6 +3094,7 @@ def main() -> int:
     by_path[f"valiant sim {MAIN_TOPO} {VALIANT_SCENARIO}"] = \
         phase_valiant_sim()
     by_path.update(phase_graph())
+    by_path.update(phase_table2_trace())
     kernel_results.update(phase_model_kernels())
     by_path[f"{SERVE_ARCH} serve"] = phase_serve(card)
     by_path[f"{MOE_ARCH} serve"], ragged = phase_moe_serve(card)

@@ -232,3 +232,30 @@ class DragonflyPlus(Topology):
                 g.add_edge(spine(grp, grp2 % s), spine(grp2, grp % s),
                            per_pair, tier="global")
         return g
+
+
+def frontier_flattening_example() -> dict:
+    """Paper §5.1 worked example, Frontier: radix 64, 16 global ports a
+    switch, 512 NICs a group, 80 groups.  x2 breakout -> 2,048 NICs a
+    group, 20 groups, 32 global ports a switch >= 19 -> flattens to a 2D
+    HyperX."""
+    frontier = Dragonfly(p=16, a=32, h=16, groups=80, nic_bw_gbps=200.0,
+                         name="Frontier (Slingshot Dragonfly)")
+    flat = frontier.breakout(2)
+    return {
+        "before": {
+            "radix": frontier.radix_used + 0,
+            "nics_per_group": frontier.p * frontier.a,
+            "groups": frontier.groups,
+            "global_ports_per_switch": frontier.h,
+            "nics": frontier.n_nics,
+        },
+        "after": {
+            "flattened_to": type(flat).__name__,
+            "name": flat.name,
+            "nics_per_group": 2048,
+            "groups": 20,
+            "global_ports_per_switch": 32,
+            "nics": flat.n_nics,
+        },
+    }

@@ -1,8 +1,10 @@
 """Multi-Plane HyperX (MPHX) topology — the paper's contribution (§3).
 
-Copy of ``repro/core/hyperx.py::MPHX``, with its explicit switch graph
-(:meth:`MPHX.build_graph`, which the graph routing engine routes for the
-graph-vs-array cross-check).
+Copy of ``repro/core/hyperx.py``: :class:`MPHX` with Eq. 2
+(:meth:`MPHX.max_scale`, :meth:`MPHX.balanced`) and its explicit switch
+graph (:meth:`MPHX.build_graph`, which the graph routing engine routes
+for the graph-vs-array cross-check), :func:`flattened_butterfly` and
+Table 2's four MPHX rows (:func:`table2_mphx_rows`).
 
 ``MPHX(n, p, D_1, ..., D_D)``: ``n`` planes (NIC ports of B/n each),
 ``p`` NIC ports per switch per plane, ``D_i`` fully meshed switches
@@ -118,6 +120,19 @@ class MPHX(Topology):
              f"at {self.port_gbps} Gbps"),
         ]
 
+    @staticmethod
+    def max_scale(n: int, k: int, D: int) -> int:
+        """Eq. 2: NICs of the balanced maximum-scale MPHX."""
+        side = n * k // (D + 1)
+        return side ** (D + 1)
+
+    @staticmethod
+    def balanced(n: int, k: int, D: int,
+                 nic_bw_gbps: float = 1600.0) -> "MPHX":
+        """The balanced maximum-scale network behind Eq. 2."""
+        side = n * k // (D + 1)
+        return MPHX(n=n, p=side, dims=(side,) * D, nic_bw_gbps=nic_bw_gbps)
+
     def coord_to_id(self, coord: tuple[int, ...]) -> int:
         idx = 0
         for c, d in zip(coord, self.dims):
@@ -149,3 +164,21 @@ class MPHX(Topology):
                     g.add_edge(idx, self.coord_to_id(tuple(other)), mult,
                                tier=f"dim{i}")
         return g
+
+
+def flattened_butterfly(p: int, side: int, D: int, **kw) -> MPHX:
+    """Flattened Butterfly = HyperX restricted to equal dims [Kim ISCA'07]."""
+    return MPHX(n=1, p=p, dims=(side,) * D, **kw)
+
+
+def table2_mphx_rows() -> list[MPHX]:
+    """The four MPHX configurations of Table 2 (B=1.6T NIC, 102.4T
+    switch)."""
+    return [
+        MPHX(n=1, p=16, dims=(16, 16, 16), name="1-Plane 3D HyperX"),
+        MPHX(n=2, p=41, dims=(41, 41), name="2-Plane 2D HyperX"),
+        # dim 2 keeps 85 links like dim 1 -> trunked over its 8 neighbours
+        MPHX(n=4, p=86, dims=(86, 9), links_per_dim=(85, 85),
+             name="4-Plane 2D HyperX"),
+        MPHX(n=8, p=256, dims=(256,), name="8-Plane 1D HyperX"),
+    ]

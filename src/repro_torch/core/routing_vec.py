@@ -145,6 +145,19 @@ class BaseLinkLoads:
         u = self.utilization_array()
         return float(u.max()) if u.numel() else 0.0
 
+    def mean_utilization(self) -> float:
+        """Mean utilization over the loaded links."""
+        u = self.utilization_array()[self.loads > 0]
+        return float(u.mean()) if u.numel() else 0.0
+
+    def saturation_throughput(self, offered_per_nic_gbps: float = 0.0
+                              ) -> float:
+        mx = self.max_utilization()
+        return 1.0 if mx == 0 else min(1.0, 1.0 / mx)
+
+    def total_load(self) -> float:
+        return float(self.loads.sum())
+
 
 class ArrayLinkLoads(BaseLinkLoads):
     """Per-slot offered Gbps of one routed demand matrix."""

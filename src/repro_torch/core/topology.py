@@ -1,7 +1,8 @@
 """Base abstractions for network topologies (paper §3, Table 1).
 
 Copy of ``repro/core/topology.py``'s link inventory, switch model,
-abstract :class:`Topology` (with ``build_graph``'s default) and the
+abstract :class:`Topology` (with ``build_graph``'s default, the
+bisection bandwidth and the ``summary`` row) and the
 explicit switch-level multigraph :class:`SwitchGraph` that the graph
 routing engine routes over.  Bandwidths are Gbps; a "hop" is one
 traversed link, counting the NIC-switch access links (NIC -> sw -> sw ->
@@ -107,6 +108,27 @@ class Topology(abc.ABC):
     @abc.abstractmethod
     def bisection_links(self) -> int:
         """#links crossing the worst even bisection (all planes summed)."""
+
+    def bisection_bw_tbps(self) -> float:
+        return self.bisection_links() * self.port_gbps / 1000.0
+
+    def bisection_per_nic_gbps(self) -> float:
+        """Bisection bandwidth per NIC of one side (injection-normalized:
+        each link counted once)."""
+        return self.bisection_links() * self.port_gbps / (self.n_nics / 2)
+
+    def summary(self) -> dict:
+        return {
+            "name": self.name,
+            "planes": self.n_planes,
+            "N": self.n_nics,
+            "N_s": self.n_switches,
+            "N_o": self.n_optics,
+            "diameter": self.diameter,
+            "avg_hops": round(self.avg_hops(), 3),
+            "port_gbps": self.port_gbps,
+            "bisection_tbps": round(self.bisection_bw_tbps(), 1),
+        }
 
     def validate(self, switch: SwitchModel = DEFAULT_SWITCH) -> None:
         """Raise if the topology is infeasible with the given switch unit."""

@@ -1,2 +1,7 @@
-"""Experiment suites of the port (``--suite sim`` and ``--suite sweep``):
-scenario registry, topology presets, artifact writers and the CLI."""
+"""Experiment suites of the port (``--suite table2``, ``--suite sim`` and
+``--suite sweep``): scenario registry, topology presets, artifact
+writers and the CLI."""
+
+from .sweep import run_table2_suite
+
+__all__ = ["run_table2_suite"]

@@ -3,7 +3,11 @@
 
 Every suite writes ``<suite>.json`` — ``{"schema_version": 7, "suite",
 "generated_by": "repro_torch.experiments", "params", "rows"}`` — and
-``<suite>.md`` with the same rows as markdown tables.
+``<suite>.md`` with the same rows as markdown tables.  A suite run
+inside a collecting scope (``--trace``, or
+:func:`repro_torch.telemetry.collecting`) adds the schema-v5
+``telemetry`` block: the ambient registry's snapshot (counters, gauges,
+timers).  It is absent when telemetry is off.
 """
 
 from __future__ import annotations
@@ -12,13 +16,19 @@ import json
 import os
 from typing import Sequence
 
+from ..telemetry import get_metrics
+
 SCHEMA_VERSION = 7
 
 
 def artifact_payload(suite: str, params: dict, rows: "list[dict]") -> dict:
-    return {"schema_version": SCHEMA_VERSION, "suite": suite,
-            "generated_by": "repro_torch.experiments", "params": params,
-            "rows": rows}
+    payload = {"schema_version": SCHEMA_VERSION, "suite": suite,
+               "generated_by": "repro_torch.experiments", "params": params,
+               "rows": rows}
+    mx = get_metrics()
+    if mx.enabled:
+        payload["telemetry"] = mx.snapshot()
+    return payload
 
 
 def write_json(path: str, payload: dict) -> str:

@@ -1,8 +1,14 @@
-"""CLI of the port's experiment suites: ``sim`` (measured flow-completion
-times from the event loop) and ``sweep`` (routed latency/throughput vs
-offered load in the three routing modes).
+"""CLI of the port's experiment suites: ``table2`` (the paper's Table 2
+joined with the closed-form latency/throughput/all-reduce model), ``sim``
+(measured flow-completion times from the event loop) and ``sweep``
+(routed latency/throughput vs offered load in the three routing modes).
 
 Examples::
+
+    PYTHONPATH=src python -m repro_torch.experiments.run --suite table2 \
+        --out results/experiments_torch
+    PYTHONPATH=src python -m repro_torch.experiments.run --suite sim \
+        --trace sim_trace.json --out results/experiments_torch
 
     PYTHONPATH=src python -m repro_torch.experiments.run --suite sim \\
         --topos mphx-4p-86x9 --scenarios uniform neighbor_shift \\
@@ -18,23 +24,41 @@ engine; ``--engine graph`` routes MPHX on the graph engine too, and
 ``--device`` defaults to ``cuda``; on a machine without a GPU pass
 ``--device cpu``.  ``--sim-backend`` picks the fair-share solver's and
 the router's reductions (``cuda``: the hand-written kernels; ``torch``:
-the plain versions).  Artifacts: ``<out>/<suite>.json`` and
-``<out>/<suite>.md`` (schema v7 rows, see
-:mod:`repro_torch.experiments.artifacts`).
+the plain versions).  ``table2`` is host arithmetic and ignores both.
+Artifacts: ``<out>/<suite>.json`` and ``<out>/<suite>.md`` (schema v7
+rows, see :mod:`repro_torch.experiments.artifacts`).
+
+``--trace OUT.json`` runs the suite under the fabric flight recorder
+(:mod:`repro_torch.telemetry`) and exports one Chrome/Perfetto
+``trace_event`` JSON; a suite with nothing to trace (``table2``,
+``sweep`` without ``--simulate``) leaves an explicit skip record in the
+trace's ``otherData.skipped``, and the artifact gains the schema-v5
+``telemetry`` block.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+from contextlib import nullcontext
 
 from .._device import SIM_BACKENDS
+from ..telemetry import TraceRecorder, recording
 from .scenarios import SCENARIOS
 from .simsuite import DEFAULT_SIM_SCENARIOS, DEFAULT_SIM_TOPOS, run_sim_suite
 from .sweep import (DEFAULT_OUTDIR, DEFAULT_SWEEP_TOPOS, ROUTING_MODES,
-                    SWEEP_TOPOLOGIES, run_sweep_suite)
+                    SWEEP_TOPOLOGIES, run_sweep_suite, run_table2_suite)
 
-SUITES = ["sim", "sweep"]
+SUITES = ["table2", "sim", "sweep"]
+
+# why a suite leaves no trace events (the reference's reasons)
+UNTRACED = {
+    "table2": "analytic cost/diameter table — nothing crosses the "
+              "simulator",
+    "sweep": "analytic routing sweep without --simulate — nothing "
+             "crosses the simulator",
+    "sim": "suite produced no trace events (all cells skipped)",
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -78,12 +102,44 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; pass cpu "
                    "on a machine without a GPU)")
+    p.add_argument("--collective-mb", type=float, default=256.0,
+                   help="all-reduce payload for the table2 suite")
+    p.add_argument("--trace", default=None, metavar="OUT.json",
+                   help="run the suite under the fabric flight recorder "
+                   "and export a Chrome/Perfetto trace_event JSON; the "
+                   "artifact gains the schema-v5 telemetry block")
     return p
 
 
+def _note_if_untraced(rec, suite: str) -> None:
+    """Explicit skip record when the suite crossed no traced layer."""
+    if rec is not None and rec.n_events == 0:
+        rec.note_skip(suite, UNTRACED[suite])
+
+
 def main(argv: "list[str] | None" = None) -> int:
-    p = build_parser()
-    args = p.parse_args(argv)
+    args = build_parser().parse_args(argv)
+    rec, ctx = None, nullcontext()
+    if args.trace:
+        rec = TraceRecorder()
+        ctx = recording(rec)
+    with ctx:
+        rc = _run(args)
+        _note_if_untraced(rec, args.suite)
+    if rec is not None:
+        rec.export(args.trace)
+        print(f"trace: {rec.n_events} events, "
+              f"{len(rec.notes)} untraced suites -> {args.trace}")
+    return rc
+
+
+def _run(args) -> int:
+    if args.suite == "table2":
+        payload = run_table2_suite(args.out, args.collective_mb,
+                                   args.msg_bytes)
+        print(f"table2: {len(payload['rows'])} topologies -> "
+              f"{args.out}/table2.json, {args.out}/table2.md")
+        return 0
     if args.suite == "sweep":
         payload = run_sweep_suite(
             args.out, topo_names=args.topos, scenario_names=args.scenarios,

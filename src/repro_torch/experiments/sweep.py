@@ -1,7 +1,10 @@
-"""Topology presets and the ``sweep`` suite (port of
-``repro/experiments/sweep.py``'s load sweeps).
+"""Topology presets, the ``table2`` suite and the ``sweep`` suite (port
+of ``repro/experiments/sweep.py``).
 
-:func:`run_sweep_suite` routes every (topology, scenario, mode, load)
+:func:`run_table2_suite` reproduces the paper's Table 2 (cost, size,
+diameter) joined with the closed-form latency, throughput and all-reduce
+model: host arithmetic, as in the reference.  :func:`run_sweep_suite`
+routes every (topology, scenario, mode, load)
 cell with :func:`repro_torch.core.netsim.load_sweep` and writes
 ``sweep.json`` / ``sweep.md``.  MPHX presets route on the array engine,
 the Table-2 baselines on the graph engine over their switch graphs;
@@ -22,8 +25,11 @@ import torch
 from .._device import resolve_device, resolve_sim_backend
 from ..core.dragonfly import Dragonfly, DragonflyPlus
 from ..core.fattree import MultiPlaneFatTree, ThreeTierFatTree
+from ..core.cost import PAPER_TABLE2, cost_report, table2_topologies
 from ..core.hyperx import MPHX
-from ..core.netsim import load_sweep, make_router, resolve_engine
+from ..core.netsim import (DEFAULT_NET, allreduce_time, avg_latency,
+                           load_sweep, make_router, resolve_engine,
+                           uniform_throughput_fraction, zero_load_latency)
 from ..core.topology import Topology
 from .artifacts import (artifact_payload, markdown_table, write_json,
                         write_markdown)
@@ -70,6 +76,58 @@ SWEEP_TOPOLOGIES: "dict[str, Topology]" = {
 # baseline classes, so a bare ``--suite sweep`` runs both engines
 DEFAULT_SWEEP_TOPOS = ["mphx-2p-8x8", "ft3-small", "mpft-2p-small",
                        "dragonfly-small", "dfplus-small"]
+
+
+def run_table2_suite(outdir: str = DEFAULT_OUTDIR,
+                     collective_mb: float = 256.0,
+                     msg_bytes: float = 4096) -> dict:
+    """Paper Table 2 (§4) joined with the flow-level latency, throughput
+    and all-reduce closed forms (§6); writes ``table2.json`` /
+    ``table2.md``.
+
+    Its rows are the reference's, key for key and value for value.  It is
+    host arithmetic on the topology classes, as in the reference: no
+    tensor and no device is involved, so it takes no ``device`` (this is
+    not a CPU fallback of a device path)."""
+    rows = []
+    paper = {name: (n, ns, no, usd) for name, n, ns, no, usd in PAPER_TABLE2}
+    for topo in table2_topologies():
+        rep = cost_report(topo)
+        ar = allreduce_time(topo, collective_mb * 2**20, net=DEFAULT_NET)
+        row = {
+            "topology": topo.name,
+            "N": topo.n_nics,
+            "N_s": topo.n_switches,
+            "N_o": rep.n_optics,
+            "cost_per_nic_usd": round(rep.per_nic_usd, 2),
+            "paper_cost_per_nic_usd": paper.get(topo.name, (0, 0, 0, None))[3],
+            "diameter": topo.diameter,
+            "avg_hops": round(topo.avg_hops(), 3),
+            "zero_load_latency_us":
+                round(zero_load_latency(topo, msg_bytes) * 1e6, 3),
+            "avg_latency_us": round(avg_latency(topo, msg_bytes) * 1e6, 3),
+            "uniform_throughput": round(uniform_throughput_fraction(topo), 3),
+            f"allreduce_{int(collective_mb)}MB_ms": round(ar.total_s * 1e3, 3),
+            "allreduce_algo": ar.algo,
+        }
+        if row["paper_cost_per_nic_usd"]:
+            row["cost_matches_paper"] = (
+                abs(rep.per_nic_usd - row["paper_cost_per_nic_usd"]) < 3.0)
+        rows.append(row)
+    payload = artifact_payload(
+        "table2",
+        {"collective_mb": collective_mb, "msg_bytes": msg_bytes,
+         "cost_note": "paper §4 prices: $40k switch, 200G/$100 400G/$200 "
+                      "800G/$450 1.6T/$1200 optics"},
+        rows)
+    write_json(os.path.join(outdir, "table2.json"), payload)
+    write_markdown(
+        os.path.join(outdir, "table2.md"),
+        "Table 2 — topology cost & latency comparison (65K-NIC scale)",
+        [("", "Reproduces paper Table 2 (§4) and joins the flow-level "
+              "latency/throughput model (§6 future-work evaluation)."),
+         ("Comparison", markdown_table(rows))])
+    return payload
 
 
 def sweep_topology(topo, scenario_names: "list[str] | None" = None,

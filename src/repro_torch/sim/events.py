@@ -20,6 +20,10 @@ row).  :func:`simulate_flows` and :func:`simulate_flow_batches` run
 incidence cache.  Each run adds to the ambient metrics
 (:func:`repro_torch.telemetry.get_metrics`): ``sim.runs``,
 ``sim.flows``, ``sim.epochs`` and the ``sim.wall_s`` timer.
+
+Under a flight recorder (:func:`repro_torch.telemetry.recording`) each
+simulation journals one row per epoch (:class:`_Journal`) and its
+per-flow transfer spans, as the reference's numpy loop does.
 """
 
 from __future__ import annotations
@@ -33,9 +37,10 @@ import torch
 from .._device import resolve_device, resolve_sim_backend
 from ..core.netsim import DEFAULT_NET, NetParams, gbps_to_Bps
 from ..core.routing_vec import DemandArrays
-from ..telemetry import get_metrics
-from .fairshare import (FlowIncidence, SolveProblem, _waterfill_scale,
-                        flow_incidence, waterfill)
+from ..kernels.segment_fairshare import make_plan
+from ..telemetry import get_metrics, get_recorder
+from .fairshare import (FlowIncidence, SolveProblem, _seg_sum,
+                        _waterfill_scale, flow_incidence, waterfill)
 
 F64 = torch.float64
 
@@ -156,9 +161,77 @@ def path_latency(inc: FlowIncidence, net: NetParams = DEFAULT_NET,
     return net.t_nic + sw * net.t_switch + (sw + 2.0) * net.t_prop_per_hop
 
 
-def _event_loop(prob: SolveProblem, size, caps, start, tol: float):
+class _Journal:
+    """The epoch journal of one simulation, kept on its device.
+
+    ``sel`` (host, sorted global edge ids) come from the recorder's
+    :class:`~repro_torch.telemetry.LinkSeriesPolicy`.  The entries of
+    the incidence whose edge is selected form a sub-incidence, kept in
+    entry order, with its segment plan built once.  Each epoch the loop
+    hands over its clock ``t``, its step ``dt`` and its rates, and
+    :meth:`write` fills row ``n`` (the epoch count the loop holds on the
+    host, so no host read): ``(t, dt)`` and the active-flow count, and
+    one segment sum of ``rates[flow] * frac`` over the selected edges in
+    entry order (the reference's ``_journal_util``), divided by the
+    capacities, 0 where a capacity is 0.  :meth:`record` copies the rows
+    to the host once.  Epochs past ``max_epochs`` are counted, not
+    written.
+    """
+
+    def __init__(self, inc: FlowIncidence, sel, max_epochs: int,
+                 backend: str):
+        dev = inc.device
+        self.sel, self.backend = sel, backend
+        K = self.K = int(sel.size)
+        slot = torch.full((inc.n_edges,), -1, dtype=torch.int64,
+                          device=dev)
+        slot[torch.as_tensor(sel, dtype=torch.int64, device=dev)] = \
+            torch.arange(K, device=dev)
+        entry_slot = slot[inc.edge]
+        keep = torch.nonzero(entry_slot >= 0).squeeze(1)
+        self.flow, self.frac = inc.flow[keep], inc.frac[keep]
+        self.ids = entry_slot[keep]
+        self.plan = make_plan(self.ids, K) \
+            if backend == "cuda" and K else None
+        # x / inf = 0 for the loads (finite, >= 0): 0 where a capacity is
+        # 0, as the reference's where(cap > 0, loads / cap, 0)
+        cap = inc.capacity[slot >= 0]
+        self.cap = torch.where(cap > 0, cap, torch.inf)
+        rows = min(max(0, max_epochs), 4 * inc.n_flows + 8)
+        self.clock = torch.zeros((rows, 3), dtype=F64, device=dev)
+        self.util = torch.zeros((rows, K), dtype=F64, device=dev)
+        self.n_epochs = 0
+
+    def write(self, t, dt, act, rates) -> None:
+        """Journal one epoch: clock ``t`` and step ``dt`` (0-d device
+        tensors), the active mask ``act`` and the epoch's rates, 0 off
+        ``act`` (a flow stalled this epoch had rate 0): the reference's
+        rates of the active flows."""
+        n = self.n_epochs
+        self.n_epochs += 1
+        if n >= self.clock.shape[0]:
+            return
+        row = self.clock[n]
+        torch.stack((t, dt), out=row[:2])
+        torch.sum(act, 0, dtype=F64, out=row[2])
+        if self.K:
+            loads = _seg_sum(rates[self.flow] * self.frac, self.ids, self.K,
+                             self.backend, self.plan)
+            torch.div(loads, self.cap, out=self.util[n])
+
+    def record(self, recorder) -> None:
+        n = min(self.n_epochs, self.clock.shape[0])
+        rows = torch.cat((self.clock[:n], self.util[:n]), 1).cpu().numpy()
+        recorder.record_epoch_journal(
+            rows[:, 0], rows[:, 1], rows[:, 2].astype(np.int64), self.sel,
+            rows[:, 3:], dropped=self.n_epochs - n)
+
+
+def _event_loop(prob: SolveProblem, size, caps, start, tol: float,
+                journal: "_Journal | None" = None):
     """The epochs of one simulation: ``(finish, used_edge_bytes,
-    n_epochs, waterfill_rounds)``."""
+    n_epochs, waterfill_rounds)``; each epoch also goes to ``journal``
+    where one is given."""
     F = size.shape[0]
     thresh = 1e-9 * size.clamp_min(1.0)
     t = start.min()
@@ -199,6 +272,8 @@ def _event_loop(prob: SolveProblem, size, caps, start, tol: float):
         else:
             # everything active just stalled: the reference's dt = 0 epoch
             dt = torch.zeros((), dtype=F64, device=size.device)
+        if journal is not None:
+            journal.write(t, dt, act, rates)
         moved = Bps * dt
         remaining = (remaining - moved).clamp_min(0.0)
         t = t + dt
@@ -219,6 +294,16 @@ def simulate_incidence(inc: FlowIncidence, size_bytes, rate_caps_gbps,
     zero-capacity edge) are marked stalled (``finish_s = inf``).
     ``inc`` is moved to ``device`` (default ``cuda``).  ``tags``
     (length F, opaque) ride into ``FlowSimResult.tags``.
+
+    Under a flight recorder (:func:`repro_torch.telemetry.recording`)
+    with a link policy, the loop journals one row per epoch: the clock,
+    the step, the active-flow count and the utilization of the policy's
+    selected edges (a few small launches an epoch, one segment sum among
+    them, and no host read), and the recorder gets the journal once at
+    the end; with or without a policy it gets the per-flow transfer
+    spans.  With no recorder the
+    loop is the unrecorded one, launch for launch, and recording changes
+    no output bit.
     """
     backend = resolve_sim_backend(backend)
     dev = resolve_device(device)
@@ -237,14 +322,22 @@ def simulate_incidence(inc: FlowIncidence, size_bytes, rate_caps_gbps,
     if bool((size < 0).any()) or bool((caps <= 0).any()):
         raise ValueError("sizes must be >= 0 and rate caps > 0")
     prob = SolveProblem.build(inc, backend)
+    rec = get_recorder()
+    journal = None
+    if rec is not None and rec.link_policy is not None:
+        pol = rec.link_policy
+        journal = _Journal(inc, pol.select(inc, caps, backend),
+                           pol.max_epochs, backend)
     edge_bytes = torch.zeros(inc.n_edges, dtype=F64, device=dev)
     if F == 0:
         finish, n_epochs, rounds = size.clone(), 0, 0
     else:
         tol = 1e-12 * _waterfill_scale(inc, caps)
-        finish, used_bytes, n_epochs, rounds = _event_loop(prob, size, caps,
-                                                           start, tol)
+        finish, used_bytes, n_epochs, rounds = _event_loop(
+            prob, size, caps, start, tol, journal)
         edge_bytes[prob.used] = used_bytes
+    if journal is not None:
+        journal.record(rec)
     lat = path_latency(inc, net, backend)
     done = torch.isfinite(finish)
     makespan = float((finish[done] - start.min()).max()) \
@@ -254,11 +347,14 @@ def simulate_incidence(inc: FlowIncidence, size_bytes, rate_caps_gbps,
     mx.inc("sim.flows", F)
     mx.inc("sim.epochs", n_epochs)
     mx.observe("sim.wall_s", time.perf_counter() - t0_wall)
-    return FlowSimResult(
+    res = FlowSimResult(
         start_s=start, finish_s=finish, fct_s=finish - start + lat,
         latency_s=lat, size_bytes=size, edge_bytes=edge_bytes,
         incidence=inc, backend=backend, makespan_s=makespan,
         n_epochs=n_epochs, waterfill_rounds=rounds, tags=tag_arr)
+    if rec is not None:
+        rec.record_flow_sim(res)
+    return res
 
 
 def simulate_demands(router, demands, flow_time_s: float,

@@ -4,14 +4,17 @@
   under ``tools/`` imports ``jax`` or anything of the JAX package ``repro``
   (an AST scan).
 * With ``jax`` and ``repro`` blocked, every module imports and the CPU
-  slices run: the sim CLI, the serve CLI (yi-9b and recurrentgemma-2b)
-  and a yi-9b and a mixtral-8x22b smoke forward pass (a subprocess).
+  slices run: the sim CLI (under ``--trace``), the table2 CLI, the cost
+  model and the collective closed forms, the serve CLI (yi-9b and
+  recurrentgemma-2b) and a yi-9b and a mixtral-8x22b smoke forward pass
+  (a subprocess).
 * With no CUDA device, entry points called without ``device="cpu"`` raise
   instead of running on the CPU; unknown backends raise; a wrapper handed
   a tensor that is neither on the CPU nor on a GPU raises.
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -29,7 +32,9 @@ from repro_torch.convert import (decoder_params_from_numpy,  # noqa: E402
                                  hybrid_params_from_numpy,
                                  incidence_from_arrays)
 from repro_torch.core.hyperx import MPHX  # noqa: E402
-from repro_torch.core.netsim import make_router, resolve_engine  # noqa: E402
+from repro_torch.core.netsim import (  # noqa: E402
+    adversarial_throughput_fraction, make_router, pattern_throughput,
+    resolve_engine)
 from repro_torch.core.routing_vec import (  # noqa: E402
     VectorizedHyperXRouter, neighbor_shift_demands, uniform_demands)
 from repro_torch.core.routing_graph import (  # noqa: E402
@@ -96,7 +101,21 @@ def test_package_runs_with_jax_blocked(tmp_path):
             importlib.import_module(m.name)
         from repro_torch.experiments.run import main
         rc = main(["--topos", "mphx-2p-8x8", "--device", "cpu",
-                   "--out", {str(tmp_path)!r}])
+                   "--out", {str(tmp_path)!r},
+                   "--trace", {str(tmp_path / "trace.json")!r}])
+        assert main(["--suite", "table2", "--out", {str(tmp_path)!r}]) == 0
+        from repro_torch.core.cost import table2
+        from repro_torch.core.netsim import (allreduce_time,
+                                             compare_topologies)
+        from repro_torch.core.cost import table2_topologies
+        from repro_torch.telemetry import validate_trace
+        import json
+        assert len(table2(access_copper=True)) == 8
+        topos = table2_topologies()
+        assert len(compare_topologies(topos)) == 8
+        assert allreduce_time(topos[-1], 2**20).total_s > 0
+        trace = json.load(open({str(tmp_path / "trace.json")!r}))
+        assert validate_trace(trace) == [] and trace["traceEvents"]
         import torch
         from repro_torch.launch.serve import main as serve
         stats = serve(["--arch", "yi-9b", "--smoke", "--device", "cpu",
@@ -125,7 +144,8 @@ def test_package_runs_with_jax_blocked(tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert (tmp_path / "sim.json").exists()
+    assert "telemetry" in json.loads((tmp_path / "sim.json").read_text())
+    assert (tmp_path / "table2.json").exists()
 
 
 @pytest.fixture
@@ -165,12 +185,20 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(no_cuda, tmp_path):
                                                         smoke=True)),
         lambda: serve_main(["--arch", "recurrentgemma-2b", "--smoke"]),
         lambda: serve_main(["--smoke"]),
+        lambda: cli_main(["--trace", str(tmp_path / "t.json"),
+                          "--out", str(tmp_path)]),
+        lambda: cli_main(["--suite", "sweep", "--simulate", "--trace",
+                          str(tmp_path / "t.json"), "--out",
+                          str(tmp_path)]),
+        lambda: adversarial_throughput_fraction(topo),
+        lambda: pattern_throughput(topo, None, mode="minimal"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert not (tmp_path / "sim.json").exists()
     assert not (tmp_path / "sweep.json").exists()
+    assert not (tmp_path / "t.json").exists()
 
 
 def test_unknown_backend_raises():
@@ -194,7 +222,7 @@ def test_unknown_kernel_backend_raises():
                     "auto"])
 
 
-def test_graph_engine_is_not_ported():
+def test_resolve_engine_matches_the_reference():
     """The graph engine is ported: ``resolve_engine`` behaves as the
     reference's (array for MPHX under ``auto``, graph for the baselines,
     ``ValueError`` for an unknown engine or the array engine on a

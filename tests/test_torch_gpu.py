@@ -12,6 +12,10 @@ Tolerances: sum within ``1e-12 * max|value| * NNZ`` of ``index_add_``
 (which adds in no fixed order) and bit for bit equal to its ordered twin
 ``segment_sum_ordered_ref`` at every lanes count, min exact, two kernel
 runs bitwise equal; suite rows at 1e-9 relative with integers exact.
+The epoch journal's utilization sums through the kernel within 1e-9 of
+the plain path's and the CPU's, with one sum launch for the selection
+and one a journaled epoch, and recording bit for bit inert on either
+backend.
 The adaptive router's load update through the sum kernel bit for bit
 equal to the plain path's (the ordered twin) and repeatable; the
 valiant incidence coalesced on the card equal to the CPU's, ``frac``
@@ -67,6 +71,8 @@ from repro_torch.models.registry import get_config, get_model  # noqa: E402
 from repro_torch.sim.events import simulate_incidence  # noqa: E402
 from repro_torch.sim.fairshare import (SolveProblem,  # noqa: E402
                                        flow_incidence)
+from repro_torch.telemetry import (LinkSeriesPolicy,  # noqa: E402
+                                   TraceRecorder, recording, validate_trace)
 
 pytestmark = pytest.mark.cuda
 
@@ -172,6 +178,89 @@ def test_staggered_golden_on_gpu(cuda):
     np.testing.assert_allclose(res.finish_s.cpu().numpy(), rec["finish_s"],
                                rtol=0, atol=1e-9 * makespan)
     assert abs(res.makespan_s - makespan) <= 1e-9 * makespan
+
+
+def traced_staggered(device, backend, policy=None):
+    """The golden staggered trace under a flight recorder: ``(recorder,
+    result, segment_sum launches)``; ``policy`` None runs unrecorded."""
+    with open(GOLDEN) as f:
+        rec = json.load(f)["staggered"]
+    topo = MPHX(n=2, p=8, dims=(8, 8))
+    inc = flow_incidence(make_router(topo, device=device),
+                         neighbor_shift_demands(topo, 800.0, device=device))
+
+    def run():
+        return simulate_incidence(inc, rec["size_bytes"],
+                                  rec["rate_caps_gbps"],
+                                  start_s=rec["start_s"], backend=backend,
+                                  device=device)
+
+    reset_launch_counts()
+    if policy is None:
+        return None, run(), LAUNCHES["segment_sum"]
+    tracer = TraceRecorder(link_policy=policy)
+    with recording(tracer):
+        res = run()
+    return tracer, res, LAUNCHES["segment_sum"]
+
+
+@pytest.mark.parametrize("max_epochs", [4096, 16])
+def test_epoch_journal_kernel_matches_plain_and_cpu(cuda, max_epochs):
+    """The journal's utilization sums through the kernel against the
+    plain path on the card and the CPU's journal; beside the unrecorded
+    run's launches, one sum for the link selection and one a journaled
+    epoch (none past ``max_epochs``)."""
+    pol = LinkSeriesPolicy(max_epochs=max_epochs)
+    runs = {"cuda": traced_staggered(cuda, "cuda", pol),
+            "torch": traced_staggered(cuda, "torch", pol),
+            "cpu": traced_staggered("cpu", "torch", pol)}
+    _, plain, launches = traced_staggered(cuda, "cuda")
+    tracer, res, traced_launches = runs["cuda"]
+    rows = min(res.n_epochs, max_epochs)
+    assert traced_launches - launches == 1 + rows
+    j = tracer.journals[0]
+    assert len(j["t_s"]) == rows
+    assert j["dropped_epochs"] == res.n_epochs - rows
+    scale = res.makespan_s
+    for other in ("torch", "cpu"):
+        o = runs[other][0].journals[0]
+        assert [(e["ph"], e["name"]) for e in tracer.events] ==             [(e["ph"], e["name"]) for e in runs[other][0].events]
+        for key in ("edge_ids", "active_flows", "dropped_epochs"):
+            assert j[key] == o[key], (other, key)
+        for key in ("t_s", "dt_s"):
+            np.testing.assert_allclose(j[key], o[key], rtol=0,
+                                       atol=1e-9 * scale)
+        np.testing.assert_allclose(np.asarray(j["util"]),
+                                   np.asarray(o["util"]), rtol=0, atol=1e-9)
+    assert validate_trace(tracer.to_json()) == []
+
+
+@pytest.mark.parametrize("backend", ("cuda", "torch"))
+@pytest.mark.parametrize("topo_name", ["mphx-2p-8x8", "mphx-2p-16x16"])
+def test_link_selection_on_the_card_matches_the_cpu(cuda, topo_name,
+                                                    backend):
+    """Uniform loads tie exactly on many edges; the card's selection
+    ranks them by id as the CPU's does (entry-order sums)."""
+    topo = SWEEP_TOPOLOGIES[topo_name]
+    picks = []
+    for dev in (cuda, "cpu"):
+        dem = uniform_demands(topo, 800.0, device=dev)
+        inc = flow_incidence(make_router(topo, device=dev), dem)
+        picks.append(LinkSeriesPolicy().select(inc, dem.gbps, backend))
+    np.testing.assert_array_equal(picks[0], picks[1])
+
+
+@pytest.mark.parametrize("backend", ("cuda", "torch"))
+def test_recording_is_inert_on_the_card(cuda, backend):
+    _, plain, _ = traced_staggered(cuda, backend)
+    for pol in (LinkSeriesPolicy(), LinkSeriesPolicy(max_epochs=3)):
+        _, res, _ = traced_staggered(cuda, backend, pol)
+        for name in ("finish_s", "fct_s", "edge_bytes"):
+            a, b = getattr(res, name), getattr(plain, name)
+            assert torch.equal(a.view(torch.int64), b.view(torch.int64)), \
+                name
+        assert (res.n_epochs, res.waterfill_rounds) == \
+            (plain.n_epochs, plain.waterfill_rounds)
 
 
 # CASES, and segment counts that leave the last warp part-filled at
