@@ -34,8 +34,9 @@ nonzero:
    card: exact incidence sizes, rates, link loads and FCT columns at the
    golden's tolerances, the trace's exact epoch count.
 6. ``sweep``: ``--suite sweep`` over mphx-2p-16x16 (the five synthetic
-   scenarios) and mphx-4p-86x9 (the same; ``transpose`` a skip record on
-   its non-square grid) in minimal, valiant and adaptive routing, loads
+   scenarios and the three collective chunk schedules) and mphx-4p-86x9
+   (the same; ``transpose`` a skip record on its non-square grid) in
+   minimal, valiant and adaptive routing, loads
    0.5 and 1.0, measured FCTs on the minimal rows, through the kernels
    (launch counts read around that run alone), then again with the
    plain versions: every row at 1e-9 relative, integers exact.  Then
@@ -52,7 +53,8 @@ nonzero:
    through the kernels (launch counts read around that run alone) and
    on the plain path: rows at 1e-9 relative, integers exact.
 8. ``graph``: the Table-2 baselines on the graph engine.  ``--suite
-   sim``'s defaults (mphx-2p-8x8, dragonfly-small), then ``--suite sim
+   sim``'s defaults (mphx-2p-8x8, dragonfly-small, with their measured
+   collectives), then ``--suite sim
    --topos mpft-8p-65536`` (uniform, 16,711,680 incidence entries, and
    neighbor_shift, loads 0.5 and 0.9, uncut); ``--suite sweep`` over
    the four ``*-small`` presets (every scenario, three modes, loads 0.5
@@ -90,7 +92,23 @@ nonzero:
    counted in a fresh process (``chip_smoke.py --count-copies``); the
    reference's bounded series at mphx-8p-256 (64 rows, 32 flow spans,
    the rest counted).
-10. ``model_kernel``: RMSNorm and flash attention against their plain
+10. ``spray``: multi-plane spraying.  The many-epoch cell's workload
+   (774 flows) sprayed over mphx-4p-86x9's 4 planes, uncut, in three
+   variants: (a) whole chunks, every plane healthy; (b) chunks with
+   plane skew ``[1, 1.5, 1, inf]`` (plane 3 dead, its bytes re-sprayed);
+   (c) 64 KiB flowlets hashed with seed 0, plane 3 dead.  Each through
+   the kernels (launch counts read around that run alone), on the plain
+   path on the card and on the CPU: per-plane bytes, stalls, the
+   ``spray.*`` counters and (c)'s flowlet split bit for bit, completions
+   and makespans within 1e-9 relative; each run's wall, epochs a plane,
+   launches and segment plans built (once a run, whatever the plane
+   count).  Then ``--suite sim`` through the CLI at its defaults and
+   ``--topos mphx-2p-16x16 --scenarios uniform`` (the largest fabric
+   whose collectives the suite measures: an all-to-all of 65,280 flows
+   on 2 planes), kernels, plain and CPU, every row but the walls equal,
+   each collective's wall, flows a step and measured-over-analytic
+   ratio.
+11. ``model_kernel``: RMSNorm and flash attention against their plain
    versions (edge cases: ragged sizes, decode, GQA and MQA, a window, a
    ring cache with empty and wrapped slots, float32 and bfloat16), at
    the serve path's shapes (float32 at 2e-5; bfloat16, and for
@@ -119,7 +137,7 @@ nonzero:
    shape 1), and each line carries its ``splits``; its device
    times come from the profiler and from CUDA graphs as attention's,
    beside ``torch.bmm``'s, with the SM clock around each timing.
-11. ``serve``: yi-9b at full width and depth (random bf16 weights drawn
+12. ``serve``: yi-9b at full width and depth (random bf16 weights drawn
    on the card from a seed) serves 8 requests of 1,024 prompt tokens and
    32 new tokens each in waves of 4 through the kernels, with the launch
    counts read around that run alone (97 RMSNorm and 48 attention
@@ -129,7 +147,7 @@ nonzero:
    Prefill and teacher-forced decode logits of the two paths must agree,
    and a float32 2-layer yi-9b must agree at 2e-5; a decode wave is
    profiled for the device's idle share.
-12. ``moe_serve``: mixtral-8x22b at full width and 12 of its 56 layers
+13. ``moe_serve``: mixtral-8x22b at full width and 12 of its 56 layers
    (60.9 GB of random bf16 weights drawn on the card after yi-9b's are
    freed) serves the same traffic through the kernels, with the launch
    counts read around that run alone (25 RMSNorm, 12 attention and 36
@@ -150,13 +168,13 @@ nonzero:
    runs through mixtral's 4,096-token window, a decode wave is profiled,
    and a float32 2-layer mixtral must agree at 2e-5 with no routing
    flipped.
-13. ``hybrid_serve``: the RG-LRU scan bit for bit equal to its plain
+14. ``hybrid_serve``: the RG-LRU scan bit for bit equal to its plain
    version, with each shape's plan, at ``tests/test_kernels.py``'s edge
    shapes, ragged widths and lengths, recurrentgemma-2b prefill's (4,
    1024, 2560) (timed: event, device and CUDA-graph ms, GB/s and the
    share of the bound by device ms) and its window wave's (1, 2304, 2560)
    (a check row), RMSNorm at d_model 2,560 and
-   attention at head dim 256 at the path's shapes (as phase 8); then
+   attention at head dim 256 at the path's shapes (as phase 11); then
    recurrentgemma-2b uncut (26 layers, 6.26 GB of random bf16 weights,
    the gates and conv taps float32) serves the same traffic through the
    kernels, with the launch counts read around that run alone (53
@@ -168,7 +186,7 @@ nonzero:
    wave is
    profiled, and a float32 model at full width and 5 of its 26 layers
    must agree at 2e-5.
-14. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
+15. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
@@ -212,7 +230,8 @@ UNCOMPARED_KEYS = ("sim_wall_s", "sweep_wall_s", "max_abs_util_diff")
 # on the minimal rows
 SWEEP_TOPOS = ["mphx-2p-16x16", MAIN_TOPO]
 SWEEP_SCENARIOS = ["uniform", "neighbor_shift", "bit_complement",
-                   "transpose", "hotspot"]
+                   "transpose", "hotspot", "allreduce_ring",
+                   "allgather_ring", "alltoall"]
 SWEEP_LOADS = (0.5, 1.0)
 # the valiant sim phase: water-filling over the valiant incidence
 VALIANT_SCENARIO = "hotspot"
@@ -240,6 +259,20 @@ SIM_SCALE_SEED, SIM_SCALE_LOAD = 7, 0.9
 SIM_SCALE_SIZE_MAX, SIM_SCALE_WINDOW_S = float(1 << 24), 200e-6
 SIM_SCALE_EPOCHS = 1547
 BOUNDED_TOPO = "mphx-8p-256"
+# the spray phase: that workload sprayed over mphx-4p-86x9's 4 planes in
+# three variants; then the sim suite's measured collectives at its
+# defaults and on the largest fabric it measures them on (4,096 NICs)
+SPRAY_VARIANTS = {
+    "a chunk": dict(granularity="chunk"),
+    "b chunk skewed": dict(granularity="chunk",
+                           plane_skew=[1.0, 1.5, 1.0, math.inf]),
+    "c flowlet dead": dict(granularity="flowlet", flowlet_bytes=1 << 16,
+                           flowlet_seed=0,
+                           plane_skew=[1.0, 1.0, 1.0, math.inf]),
+}
+SPRAY_RUNS = (("cuda", "cuda", "cuda"), ("torch", "cuda", "torch"),
+              ("cpu", "cpu", "torch"))
+COLLECTIVE_TOPO = "mphx-2p-16x16"
 
 KERNELS = {
     "segment_sum": "src/repro/kernels/segment_fairshare/kernel.py:97",
@@ -1035,6 +1068,11 @@ def graph_suite(kind: str, backend: str, out: str, **kw):
                              device="cuda", **kw))
 
 
+def row_name(r: dict) -> str:
+    """A suite row's scenario, or (a measured collective) its collective."""
+    return r.get("scenario", r.get("collective"))
+
+
 def check_rows(got: "list[dict]", want: "list[dict]", where: str) -> int:
     """Row for row (:func:`compare_rows`), every float finite where it is
     not a skip record; returns the count of routed rows."""
@@ -1042,7 +1080,7 @@ def check_rows(got: "list[dict]", want: "list[dict]", where: str) -> int:
         raise AssertionError(f"{where}: {len(got)} rows, not {len(want)}")
     routed = 0
     for a, b in zip(got, want):
-        compare_rows(a, b, f"{where} {a['topology']}/{a['scenario']}/"
+        compare_rows(a, b, f"{where} {a['topology']}/{row_name(a)}/"
                            f"{a.get('mode')}")
         if a.get("skipped"):
             continue
@@ -1050,7 +1088,7 @@ def check_rows(got: "list[dict]", want: "list[dict]", where: str) -> int:
         for k, v in a.items():
             if isinstance(v, float) and not math.isfinite(v) \
                     and k != "latency_us":
-                raise AssertionError(f"{where}: {a['scenario']}: {k} = {v}")
+                raise AssertionError(f"{where}: {row_name(a)}: {k} = {v}")
     return routed
 
 
@@ -1795,6 +1833,221 @@ def phase_table2_trace() -> dict:
     del inc
     torch.cuda.empty_cache()
     emit_t2(launches=by_path, ok=True)
+    return by_path
+
+
+def spray_flows(topo_name: str) -> list:
+    """``sim_scale_case``'s workload as flows: the neighbor_shift pairs
+    with its sizes and starts (the same ``default_rng(7)`` draws)."""
+    from repro_torch.core.routing_vec import neighbor_shift_demands
+    from repro_torch.experiments.sweep import SWEEP_TOPOLOGIES
+    from repro_torch.sim.events import FlowSpec
+
+    topo = SWEEP_TOPOLOGIES[topo_name]
+    dem = neighbor_shift_demands(topo, SIM_SCALE_LOAD * topo.nic_bw_gbps,
+                                 device="cpu")
+    rng = np.random.default_rng(SIM_SCALE_SEED)
+    size = rng.uniform(0.2, 1.0, dem.n) * SIM_SCALE_SIZE_MAX
+    start = rng.uniform(0.0, SIM_SCALE_WINDOW_S, dem.n)
+    return [FlowSpec(s, d, float(b), float(t)) for s, d, b, t in
+            zip(dem.src.tolist(), dem.dst.tolist(), size, start)]
+
+
+def count_plans(fn):
+    """``(fn(), plans)``: ``plans`` holds the ``(entries, segments)`` of
+    each segment plan built while ``fn`` ran (``make_plan``, wherever the
+    port imported it)."""
+    from repro_torch.kernels.segment_fairshare import ops
+
+    make_plan, plans = ops.make_plan, []
+
+    def spy(ids, n, **kw):
+        plans.append((ids.numel(), n))
+        return make_plan(ids, n, **kw)
+
+    owners = [m for m in list(sys.modules.values())
+              if getattr(m, "make_plan", None) is make_plan]
+    for m in owners:
+        m.make_plan = spy
+    try:
+        out = fn()
+    finally:
+        for m in owners:
+            m.make_plan = make_plan
+    return out, plans
+
+
+def same_spray(a, b, where: str) -> dict:
+    """Two sprayed results of one run: per-plane bytes and stalls bit for
+    bit, completions within 1e-9 relative (inf where the other is),
+    makespans within 1e-9 relative."""
+    if not (same_bits(a.per_plane_bytes.cpu(), b.per_plane_bytes.cpu())
+            and torch.equal(a.stalled.cpu(), b.stalled.cpu())):
+        raise AssertionError(f"{where}: per-plane bytes or stalls differ")
+    x, y = a.completion_s.cpu().numpy(), b.completion_s.cpu().numpy()
+    fin = np.isfinite(y)
+    if not (np.array_equal(np.isfinite(x), fin)
+            and np.array_equal(x[~fin], y[~fin])):
+        raise AssertionError(f"{where}: stalled completions differ")
+    err = float((np.abs(x[fin] - y[fin]) / np.abs(y[fin])).max()) \
+        if fin.any() else 0.0
+    span = abs(a.makespan_s - b.makespan_s)
+    if err > 1e-9 or span > 1e-9 * b.makespan_s:
+        raise AssertionError(f"{where}: completion rel err {err}, "
+                             f"makespan err {span}")
+    return {"completion_max_rel_err": err, "makespan_abs_err": span}
+
+
+def phase_spray() -> dict:
+    """Multi-plane spraying on the card: the many-epoch cell's workload
+    sprayed over mphx-4p-86x9's 4 planes in three variants, then
+    ``--suite sim``'s measured collectives at its defaults and at
+    mphx-2p-16x16, each through the kernels, on the plain path and on
+    the CPU.  Returns each path's launch counts."""
+    from repro_torch.core.planes import SprayConfig
+    from repro_torch.experiments.run import main as cli
+    from repro_torch.experiments.sweep import SWEEP_TOPOLOGIES
+    from repro_torch.kernels.segment_fairshare import (LAUNCHES,
+                                                       reset_launch_counts)
+    from repro_torch.sim.events import FlowSpec
+    from repro_torch.sim.spray import flowlet_split, simulate_sprayed
+    from repro_torch.telemetry import collecting
+
+    t_phase = time.perf_counter()
+    by_path = {}
+
+    def emit_spray(**fields):
+        emit("spray", phase_s=time.perf_counter() - t_phase, **fields)
+
+    def launched(path, kernels=("segment_sum", "segment_min")):
+        by_path[path] = dict(LAUNCHES)
+        missing = [k for k in kernels if by_path[path][k] == 0]
+        if missing:
+            raise AssertionError(f"{path} launched no {missing} kernel")
+
+    # the sprayed many-epoch cell: a small run first, so that no timed
+    # run pays the first use of torch's kernels
+    topo = SWEEP_TOPOLOGIES[MAIN_TOPO]
+    flows = spray_flows(MAIN_TOPO)
+    cfg = SprayConfig(n_planes=topo.n_planes)
+    small = [FlowSpec(s, (s + 9) % 64, 1e6 * (s + 1)) for s in range(16)]
+    for backend in ("cuda", "torch"):
+        simulate_sprayed(SWEEP_TOPOLOGIES["mphx-2p-8x8"], small, cfg=cfg,
+                         backend=backend, device="cuda",
+                         **SPRAY_VARIANTS["c flowlet dead"])
+    for variant, kw in SPRAY_VARIANTS.items():
+        results = {}
+        for run, dev, backend in SPRAY_RUNS:
+            reset_launch_counts()
+            with collecting() as mx:
+                (res, wall), plans = count_plans(lambda: timed(
+                    lambda: simulate_sprayed(topo, flows, cfg=cfg,
+                                             backend=backend, device=dev,
+                                             **kw)))
+            path = f"spray {MAIN_TOPO} {variant}"
+            if run == "cuda":
+                # a sprayed run needs no bottleneck: sums alone
+                launched(path, ("segment_sum",))
+            counters = mx.snapshot()["counters"]
+            flowlet = kw["granularity"] == "flowlet"
+            # plans once a run, whatever the planes: the incidence's edge
+            # column, its flow column for the kernels, and on the card its
+            # coalescing and the flowlet bins
+            on_card = dev == "cuda"
+            want_plans = 1 + (backend == "cuda") + on_card \
+                + (flowlet and on_card)
+            if len(plans) != want_plans:
+                raise AssertionError(f"{path} ({run}): {len(plans)} plans "
+                                     f"{plans}, not {want_plans}")
+            results[run] = res, counters
+            n_sims = counters["spray.plane_sims"]
+            emit_spray(variant=variant, run=run, topology=MAIN_TOPO,
+                       flows=len(flows), planes=cfg.n_planes,
+                       plane_sims=n_sims, wall_s=wall,
+                       epochs=counters["sim.epochs"],
+                       epochs_per_plane=counters["sim.epochs"] / n_sims,
+                       launches=dict(LAUNCHES) if dev == "cuda" else None,
+                       make_plan_calls=len(plans), plans=plans,
+                       makespan_s=res.makespan_s,
+                       spray_counters={k: v for k, v in counters.items()
+                                       if k.startswith("spray.")},
+                       device_name=torch.cuda.get_device_name(0)
+                       if dev == "cuda" else "cpu")
+        res, counters = results["cuda"]
+        line = {}
+        for other in ("torch", "cpu"):
+            line[other] = same_spray(res, results[other][0],
+                                     f"spray {variant}: cuda vs {other}")
+            if results[other][1] != counters:
+                raise AssertionError(f"spray {variant}: counters differ "
+                                     f"from {other}'s")
+        if kw["granularity"] == "flowlet":
+            # the flowlet split alone: counts and bytes bit for bit
+            sizes = torch.tensor([f.size_bytes for f in flows],
+                                 dtype=torch.float64)
+            alive = [not math.isinf(s) for s in kw["plane_skew"]]
+            split = {run: flowlet_split(
+                sizes.to(dev), cfg.n_planes, kw["flowlet_bytes"],
+                seed=kw["flowlet_seed"], alive=alive, backend=backend)
+                for run, dev, backend in SPRAY_RUNS}
+            for other in ("torch", "cpu"):
+                if not (same_bits(split["cuda"][0].cpu(),
+                                  split[other][0].cpu())
+                        and torch.equal(split["cuda"][1].cpu(),
+                                        split[other][1].cpu())):
+                    raise AssertionError(f"flowlet split: cuda vs {other}")
+            line["flowlets"] = int(split["cuda"][1].sum())
+        emit_spray(variant=variant, compared=line, counters_equal=True,
+                   ok=True)
+        del results, res
+    torch.cuda.empty_cache()
+
+    # --suite sim through the CLI: its defaults, then the largest fabric
+    # it measures collectives on; kernels, plain on the card, the CPU
+    for path, args in (("sim default collectives", []),
+                       (f"sim {COLLECTIVE_TOPO} collectives",
+                        ["--topos", COLLECTIVE_TOPO, "--scenarios",
+                         "uniform"])):
+        runs = {}
+        for run, dev, backend in SPRAY_RUNS:
+            out = OUT_DIR / f"{path.replace(' ', '_')}_{run}"
+            reset_launch_counts()
+            rc, wall = timed(lambda: cli(["--suite", "sim", *args,
+                                          "--device", dev, "--sim-backend",
+                                          backend, "--out", str(out)]))
+            if rc != 0:
+                raise AssertionError(f"{path} ({run}): exit {rc}")
+            if run == "cuda":
+                launched(path)
+            runs[run] = json.loads((out / "sim.json").read_text())
+            emit_spray(path=path, run=run, suite_wall_s=wall,
+                       device_name=runs[run]["params"]["device_name"])
+        rows = runs["cuda"]["rows"]
+        colls = [r for r in rows if r.get("kind") == "collective"]
+        want = 3 * len(runs["cuda"]["params"]["topologies"])
+        if len(colls) != want or any(r.get("skipped") for r in rows):
+            raise AssertionError(f"{path}: {len(colls)} collective rows, "
+                                 f"not {want}, or a skip record")
+        for other in ("torch", "cpu"):
+            check_rows(rows, runs[other]["rows"], f"{path} cuda vs {other}")
+        for r in colls:
+            emit_spray(path=path, topology=r["topology"],
+                       collective=r["collective"],
+                       sim_flows_per_step=r["sim_flows_per_step"],
+                       steps=r["steps"], measured_us=r["measured_us"],
+                       analytic_us=r["analytic_us"],
+                       measured_over_analytic=r["measured_over_analytic"],
+                       sim_wall_s=r["sim_wall_s"],
+                       plain_sim_wall_s=next(
+                           p["sim_wall_s"] for p in runs["torch"]["rows"]
+                           if p.get("collective") == r["collective"]
+                           and p["topology"] == r["topology"]),
+                       cpu_sim_wall_s=next(
+                           p["sim_wall_s"] for p in runs["cpu"]["rows"]
+                           if p.get("collective") == r["collective"]
+                           and p["topology"] == r["topology"]))
+        emit_spray(path=path, launches=by_path[path], rows=len(rows),
+                   rows_agree_plain=True, rows_agree_cpu=True, ok=True)
     return by_path
 
 
@@ -2696,7 +2949,8 @@ def check_ragged(params, x_flat, top_i) -> dict:
             timed["library_ms"] = None
             lib_note = f"torch._grouped_mm unavailable: {e}"
             lib = None
-        # late in the process: a longer profiler session than phase 8's
+        # late in the process: a longer profiler session than the
+        # model_kernel phase's
         times = gmm_times(call, lib, True, reps=10)
         row.setdefault("ragged_grouped_matmul", timed)
         emit("moe_serve", kernel="ragged_grouped_matmul", case=case,
@@ -3095,6 +3349,7 @@ def main() -> int:
         phase_valiant_sim()
     by_path.update(phase_graph())
     by_path.update(phase_table2_trace())
+    by_path.update(phase_spray())
     kernel_results.update(phase_model_kernels())
     by_path[f"{SERVE_ARCH} serve"] = phase_serve(card)
     by_path[f"{MOE_ARCH} serve"], ragged = phase_moe_serve(card)

@@ -19,12 +19,16 @@ SIM_BACKENDS = KERNEL_BACKENDS = ("cuda", "torch")
 
 def resolve_device(device: "str | torch.device | None" = None
                    ) -> torch.device:
-    """``torch.device`` for an entry point's ``device`` argument."""
+    """``torch.device`` for an entry point's ``device`` argument.  A bare
+    ``cuda`` names the current card by its index, so the device compares
+    equal to that of the tensors made on it."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' "
             "(CLI: --device cpu) to run the port on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -50,7 +50,8 @@ from .._device import resolve_device, resolve_sim_backend
 from ..kernels.segment_fairshare import make_plan, segment_min, \
     segment_min_ref
 from . import routing_vec
-from .routing_vec import BaseLinkLoads, DemandArrays, IncidenceCacheMixin
+from .routing_vec import (BaseLinkLoads, DemandArrays,
+                          IncidenceCacheMixin, div_scalar)
 from .topology import SwitchGraph, Topology
 
 F64 = torch.float64
@@ -63,13 +64,6 @@ _NP_BLOCK = 128
 _NP_BUFFER = 8192
 
 Edge = tuple[int, int]
-
-
-def _div(x: torch.Tensor, d: float) -> torch.Tensor:
-    """``x / d`` rounded once, as numpy divides.  On the card ``x / d``
-    with a Python number multiplies by its reciprocal, which rounds
-    twice; a divisor tensor on ``x``'s device is divided by."""
-    return x / torch.full((), d, dtype=x.dtype, device=x.device)
 
 
 def _leaf(xt: torch.Tensor) -> torch.Tensor:
@@ -391,7 +385,7 @@ class GraphRouter(IncidenceCacheMixin):
         vias = torch.arange(S, device=self.device)
         for lo in range(0, S, self.dst_chunk):
             cols = vias[lo:lo + self.dst_chunk]
-            inject = _div(g_out[:, None], S).expand(S, cols.shape[0])
+            inject = div_scalar(g_out[:, None], S).expand(S, cols.shape[0])
             loads = self._route_to_dests(
                 cols, inject, loads, backend,
                 self._levels(range(lo, lo + cols.shape[0])))
@@ -400,7 +394,8 @@ class GraphRouter(IncidenceCacheMixin):
         host = dests.tolist()
         for lo in range(0, dests.shape[0], self.dst_chunk):
             cols = dests[lo:lo + self.dst_chunk]
-            inject = _div(g_in[cols], S)[None, :].expand(S, cols.shape[0])
+            inject = div_scalar(g_in[cols], S)[None, :].expand(
+                S, cols.shape[0])
             loads = self._route_to_dests(
                 cols, inject, loads, backend,
                 self._levels(host[lo:lo + self.dst_chunk]))
@@ -487,8 +482,8 @@ class GraphRouter(IncidenceCacheMixin):
             return GraphLinkLoads(csr, self._zeros())
         hops = self.hops
         h_min = hops[src, dst].to(F64)
-        h_val = _div(hops.sum(dim=1, dtype=F64), S)[src] \
-            + _div(hops.sum(dim=0, dtype=F64), S)[dst]
+        h_val = div_scalar(hops.sum(dim=1, dtype=F64), S)[src] \
+            + div_scalar(hops.sum(dim=0, dtype=F64), S)[dst]
         dests, inv = torch.unique(dst, sorted=True, return_inverse=True)
         order, spans = self._chunks(inv, dests.shape[0])
         src_o, inv_o = src[order], inv[order]
@@ -598,7 +593,7 @@ def graph_uniform_demands(topo: Topology, offered_per_nic_gbps: float,
     """Every NIC sprays uniformly over all *other* NIC-bearing switches,
     weighted by destination NIC count."""
     g, nics, nic_sw = _nic_switches(topo, graph, device)
-    out = _div(nics * offered_per_nic_gbps, topo.n_planes)
+    out = div_scalar(nics * offered_per_nic_gbps, topo.n_planes)
     s, d = torch.meshgrid(nic_sw, nic_sw, indexing="ij")
     mask = s != d
     s, d = s[mask], d[mask]
@@ -612,7 +607,7 @@ def graph_shift_demands(topo: Topology, offered_per_nic_gbps: float,
     """+1 shift over NIC-bearing switches in id order (the generic
     analogue of the MPHX dim-0 neighbor shift)."""
     g, nics, nic_sw = _nic_switches(topo, graph, device)
-    out = _div(nics * offered_per_nic_gbps, topo.n_planes)
+    out = div_scalar(nics * offered_per_nic_gbps, topo.n_planes)
     return DemandArrays(nic_sw, torch.roll(nic_sw, -1), out[nic_sw])
 
 
@@ -622,7 +617,7 @@ def graph_reverse_demands(topo: Topology, offered_per_nic_gbps: float,
     """Reverse pairing (switch k -> switch K-1-k over NIC-bearing
     switches in id order), the generic analogue of MPHX bit-complement."""
     g, nics, nic_sw = _nic_switches(topo, graph, device)
-    out = _div(nics * offered_per_nic_gbps, topo.n_planes)
+    out = div_scalar(nics * offered_per_nic_gbps, topo.n_planes)
     dst = torch.flip(nic_sw, [0])
     keep = nic_sw != dst
     return DemandArrays(nic_sw[keep], dst[keep], out[nic_sw][keep])
@@ -640,7 +635,7 @@ def graph_hotspot_demands(topo: Topology, offered_per_nic_gbps: float,
                                 offered_per_nic_gbps * (1 - hot_fraction),
                                 graph=g, device=nics.device)
     hot = int(nic_sw[0])
-    out = _div(nics * offered_per_nic_gbps * hot_fraction,
+    out = div_scalar(nics * offered_per_nic_gbps * hot_fraction,
                topo.n_planes)
     srcs = nic_sw[nic_sw != hot]
     return DemandArrays(

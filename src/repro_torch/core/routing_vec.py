@@ -47,6 +47,13 @@ F64 = torch.float64
 I64 = torch.int64
 
 
+def div_scalar(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` rounded once, as numpy divides.  On the card ``x / d``
+    with a Python number multiplies by its reciprocal, which rounds
+    twice; a divisor tensor on ``x``'s device is divided by."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
 def ordered_sum(values: torch.Tensor, ids: torch.Tensor, n: int,
                 backend: str, plan=None) -> torch.Tensor:
     """(n,) sums of ``values`` by ``ids`` in a fixed order.
@@ -283,6 +290,18 @@ def hotspot_demands(topo: MPHX, offered_per_nic_gbps: float, hot: int = 0,
         torch.cat([uni.dst, torch.full((int(keep.sum()),), hot, dtype=I64,
                                        device=dev)]),
         torch.cat([uni.gbps, g[keep]]))
+
+
+def ring_demands(topo: MPHX, offered_per_nic_gbps: float,
+                 device=None) -> DemandArrays:
+    """Steady-state link pattern of a switch-id-ordered ring collective
+    (ring all-reduce / all-gather): switch s -> s+1 mod S at full rate."""
+    dev = resolve_device(device)
+    S = topo.switches_per_plane
+    src = torch.arange(S, dtype=I64, device=dev)
+    g = torch.full((S,), _per_switch_out(topo, offered_per_nic_gbps),
+                   dtype=F64, device=dev)
+    return DemandArrays(src, (src + 1) % S, g)
 
 
 class IncidenceCacheMixin:

@@ -1,6 +1,7 @@
 """CLI of the port's experiment suites: ``table2`` (the paper's Table 2
 joined with the closed-form latency/throughput/all-reduce model), ``sim``
-(measured flow-completion times from the event loop) and ``sweep``
+(measured flow-completion times from the event loop, and measured
+collectives sprayed over the planes) and ``sweep``
 (routed latency/throughput vs offered load in the three routing modes).
 
 Examples::
@@ -76,7 +77,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scenarios", nargs="+", choices=sorted(SCENARIOS),
                    default=None, help="scenarios (default: sim "
                    f"{' '.join(DEFAULT_SIM_SCENARIOS)}; sweep all, "
-                   "inapplicable and collective ones recorded as skipped)")
+                   "inapplicable ones recorded as skipped)")
     p.add_argument("--modes", nargs="+", choices=list(ROUTING_MODES),
                    default=None,
                    help="sweep: routing modes (default: all three; the sim "
@@ -104,6 +105,8 @@ def build_parser() -> argparse.ArgumentParser:
                    "on a machine without a GPU)")
     p.add_argument("--collective-mb", type=float, default=256.0,
                    help="all-reduce payload for the table2 suite")
+    p.add_argument("--sim-collective-mb", type=float, default=16.0,
+                   help="sim suite: measured-collective payload per NIC")
     p.add_argument("--trace", default=None, metavar="OUT.json",
                    help="run the suite under the fabric flight recorder "
                    "and export a Chrome/Perfetto trace_event JSON; the "
@@ -158,8 +161,8 @@ def _run(args) -> int:
         args.out, topo_names=args.topos, scenario_names=args.scenarios,
         load_fractions=tuple(args.loads) if args.loads else (0.5, 0.9),
         flow_time_s=args.flow_time_us * 1e-6, msg_bytes=args.msg_bytes,
-        sim_backend=args.sim_backend, engine=args.engine,
-        device=args.device)
+        collective_mb=args.sim_collective_mb, sim_backend=args.sim_backend,
+        engine=args.engine, device=args.device)
     agree = payload["params"]["all_steady_checks_agree_1e-6"]
     print(f"sim: {len(payload['rows'])} rows on "
           f"{payload['params']['device_name']} (steady-state agreement: "

@@ -1,6 +1,8 @@
-"""Traffic scenario registry of the sweep and sim suites: the synthetic
-patterns of ``repro/experiments/scenarios.py``, copied (the reference
-module imports the JAX collectives).
+"""Traffic scenario registry of the sweep and sim suites (port of
+``repro/experiments/scenarios.py``): the synthetic patterns, and the
+collective chunk schedules whose per-plane load derives from the paper's
+NIC spraying model (:mod:`repro_torch.core.planes`) and the chunk
+decomposition (:func:`repro_torch.core.collectives.plane_chunk_count`).
 
 Every scenario carries up to two builders, ``builder(topo,
 offered_per_nic_gbps, device=) -> DemandArrays`` for MPHX (coordinate
@@ -11,12 +13,6 @@ is the injection rate per NIC across all planes (the builder takes one
 plane's share).  A scenario that does not apply to a topology
 (``transpose`` needs a square coordinate grid and has no graph builder)
 says why in :meth:`Scenario.skip_reason`, which the suites record.
-
-The reference's collective scenarios (``COLLECTIVE_SCENARIOS``) scale a
-pattern by the plane spray's chunk schedule, which needs
-``core/planes.py`` and ``plane_chunk_count``; they are not registered
-here, and the sweep records each as a skip with
-``COLLECTIVE_SKIP_REASON``.
 """
 
 from __future__ import annotations
@@ -24,21 +20,17 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
+from ..core.collectives import plane_chunk_count
 from ..core.hyperx import MPHX
+from ..core.planes import SprayConfig, plane_chunk_fractions
 from ..core.routing_graph import (graph_hotspot_demands,
-                                  graph_reverse_demands, graph_shift_demands,
-                                  graph_uniform_demands)
+                                  graph_reverse_demands, graph_ring_demands,
+                                  graph_shift_demands, graph_uniform_demands)
 from ..core.routing_vec import (DemandArrays, bit_complement_demands,
                                 hotspot_demands, neighbor_shift_demands,
-                                transpose_demands, uniform_demands)
+                                ring_demands, transpose_demands,
+                                uniform_demands)
 from ..core.topology import Topology
-
-COLLECTIVE_SCENARIOS = ("allgather_ring", "allreduce_ring", "alltoall")
-COLLECTIVE_SKIP_REASON = (
-    "collective scenarios scale a pattern by the plane spray's chunk "
-    "schedule (core/planes.py, plane_chunk_count), which is not ported "
-    "to repro_torch yet (ROADMAP.md, queue 1: collective_sim / spray / "
-    "planes)")
 
 
 @dataclass(frozen=True)
@@ -46,7 +38,7 @@ class Scenario:
     """A named traffic scenario."""
 
     name: str
-    kind: str                 # "synthetic"
+    kind: str                 # "synthetic" | "collective"
     description: str
     builder: Callable[..., DemandArrays]
     default_mode: str = "adaptive"
@@ -98,9 +90,6 @@ def register(scenario: Scenario) -> Scenario:
 
 
 def get_scenario(name: str) -> Scenario:
-    if name in COLLECTIVE_SCENARIOS:
-        raise NotImplementedError(f"scenario {name!r}: "
-                                  f"{COLLECTIVE_SKIP_REASON}")
     try:
         return SCENARIOS[name]
     except KeyError:
@@ -150,3 +139,88 @@ register(Scenario(
     "50% of every switch's load targets one hot switch, rest uniform "
     "(incast around the hot spot).",
     hotspot_demands, graph_builder=graph_hotspot_demands))
+
+
+# ---------------------------------------------------------------------------
+# Collective chunk schedules (plane spraying from planes.py / collectives.py)
+# ---------------------------------------------------------------------------
+
+
+def _spray_imbalance(n_planes: int, payload_bytes: int) -> float:
+    """Hottest plane's share of a sprayed collective, relative to perfect
+    1/n spray.  Whole-chunk rounding makes early planes carry more for
+    small payloads; the sweep charges the plane fabric at that factor."""
+    cfg = SprayConfig(n_planes=n_planes)
+    fracs = plane_chunk_fractions(payload_bytes, cfg)
+    return max(fracs) * n_planes
+
+
+def _ring_size(topo: Topology, graph=None) -> int:
+    """Ring participants: switches per plane (MPHX) or NIC-bearing
+    switches (generic graphs)."""
+    if isinstance(topo, MPHX):
+        return topo.switches_per_plane
+    if graph is None:
+        graph = topo.build_graph()
+    return len(graph.nic_nodes)
+
+
+def _collective_builder(pattern, graph_pattern=None,
+                        payload_bytes: int = 1 << 20,
+                        ring_chunked: bool = False):
+    """Scale a pattern by the hottest plane's share of the chunk schedule.
+
+    ``ring_chunked``: a ring all-reduce moves ``payload/m`` per step
+    (m ring participants), so spray imbalance is computed on the per-step
+    chunk — small chunks spray poorly.  An all-gather ring moves the full
+    payload every step.
+    """
+
+    def build(topo: Topology, offered_per_nic_gbps: float, graph=None,
+              device=None) -> DemandArrays:
+        if isinstance(topo, MPHX):
+            d = pattern(topo, offered_per_nic_gbps, device=device)
+        else:
+            d = graph_pattern(topo, offered_per_nic_gbps, graph=graph,
+                              device=device)
+        step_bytes = payload_bytes
+        if ring_chunked:
+            step_bytes = max(payload_bytes // _ring_size(topo, graph), 1)
+        # when the step payload does not chunk evenly over the planes the
+        # decomposition runs ONE ordered collective, so a single plane
+        # carries each step in turn -> full n penalty
+        n = topo.n_planes
+        if plane_chunk_count(step_bytes, n) == 1:
+            scale = float(n)
+        else:
+            scale = _spray_imbalance(n, step_bytes)
+        return DemandArrays(d.src, d.dst, d.gbps * scale)
+
+    return build
+
+
+def _register_collective(name, description, pattern, graph_pattern,
+                         **kw):
+    both = _collective_builder(pattern, graph_pattern, **kw)
+    register(Scenario(name, "collective", description, both,
+                      default_mode="minimal", graph_builder=both))
+
+
+_register_collective(
+    "allreduce_ring",
+    "Steady-state link pattern of a ring all-reduce over switch-ordered "
+    "ranks; per-step chunk is payload/m, so the spray schedule is charged "
+    "on small chunks.",
+    ring_demands, graph_ring_demands, ring_chunked=True)
+
+_register_collective(
+    "allgather_ring",
+    "Ring all-gather steady-state pattern (same ring links as all-reduce "
+    "but the full payload moves every step, so spraying is near-perfect).",
+    ring_demands, graph_ring_demands)
+
+_register_collective(
+    "alltoall",
+    "All-to-all chunk exchange — uniform all-pairs at full injection, "
+    "spray-chunked across planes (bisection-bound).",
+    uniform_demands, graph_uniform_demands)

@@ -4,11 +4,13 @@
 For each (topology, scenario): a steady-state cross-validation row
 (simulator load accounting vs the analytic routing engine) and one
 measured-FCT row per offered load from the event loop, on the array
-engine for MPHX and on the graph engine for the Table-2 baselines.  The
-reference's measured-collective rows become explicit skip records until
-collective_sim, spray and planes are ported; so does a scenario that
-does not apply to a topology, and a topology that a forced ``engine``
-cannot route.
+engine for MPHX and on the graph engine for the Table-2 baselines; then
+one measured-vs-analytic row per collective schedule
+(:mod:`repro_torch.sim.collective_sim`: sprayed flows over every plane)
+on topologies of at most ``MAX_COLLECTIVE_NICS`` NICs.  A collective on
+a larger fabric, a scenario that does not apply to a topology, and a
+topology that a forced ``engine`` cannot route are explicit skip
+records, with the reference's reasons.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from .._device import resolve_device, resolve_sim_backend
 from ..core.netsim import load_sweep, make_router, resolve_engine
+from ..sim.collective_sim import SIM_COLLECTIVES, simulate_collective
 from ..sim.fairshare import flow_incidence
 from .artifacts import (artifact_payload, markdown_table, write_json,
                         write_markdown)
@@ -30,15 +33,21 @@ from .sweep import DEFAULT_OUTDIR, SWEEP_TOPOLOGIES
 DEFAULT_SIM_TOPOS = ["mphx-2p-8x8", "dragonfly-small"]
 DEFAULT_SIM_SCENARIOS = ["uniform", "neighbor_shift"]
 SIM_MODE = "minimal"
-SIM_COLLECTIVES = ("allreduce_ring", "allgather_ring", "alltoall")
-COLLECTIVE_SKIP_REASON = (
-    "measured collectives need collective_sim, spray and planes, which "
-    "are not ported to repro_torch yet (ROADMAP.md, queue 1: "
-    "collective_sim / spray / planes)")
+
+# collective schedules serialize O(n_nics) phases — at the 65K-NIC
+# Table-2 presets that is ~130k fabric solves per collective, which is a
+# dedicated benchmark, not a suite row (the reference's limit and reason)
+MAX_COLLECTIVE_NICS = 4096
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _sim_topo_rows(topo, scenario_names, load_fractions, flow_time_s,
-                   msg_bytes, sim_backend, engine, device) -> "list[dict]":
+                   msg_bytes, collective_mb, sim_backend, engine,
+                   device) -> "list[dict]":
     engine_name = resolve_engine(topo, engine)
     router = make_router(topo, engine, device=device)
     graph = getattr(router, "graph", None)
@@ -78,20 +87,33 @@ def _sim_topo_rows(topo, scenario_names, load_fractions, flow_time_s,
                            load_fractions=load_fractions,
                            msg_bytes=msg_bytes, router=router, simulate=True,
                            flow_time_s=flow_time_s, sim_backend=sim_backend)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        _sync(device)
         dt = time.perf_counter() - t0
         for r in sweep:
             rows.append({"topology": topo.name, "scenario": name,
                          "kind": "fct", "mode": SIM_MODE,
                          "engine": engine_name, **r,
                          "sim_wall_s": round(dt, 4)})
+    # measured collectives (every registered collective schedule kind)
     for kind in SIM_COLLECTIVES:
-        print(f"sim: skipping collective {kind!r} on {topo.name!r}: "
-              f"{COLLECTIVE_SKIP_REASON}", file=sys.stderr)
-        rows.append({"topology": topo.name, "scenario": kind,
-                     "kind": "skip", "engine": engine_name, "skipped": True,
-                     "reason": COLLECTIVE_SKIP_REASON})
+        if topo.n_nics > MAX_COLLECTIVE_NICS:
+            reason = (f"{topo.n_nics} NICs > {MAX_COLLECTIVE_NICS}: "
+                      "collective schedules serialize O(n_nics) phases; "
+                      "use benchmarks/run.py sim-scale for 65K fabrics")
+            print(f"sim: skipping collective {kind!r} on {topo.name!r}: "
+                  f"{reason}", file=sys.stderr)
+            rows.append({"topology": topo.name, "scenario": kind,
+                         "kind": "skip", "engine": engine_name,
+                         "skipped": True, "reason": reason})
+            continue
+        t0 = time.perf_counter()
+        row = simulate_collective(topo, kind, collective_mb * 2**20,
+                                  router=router, mode=SIM_MODE,
+                                  backend=sim_backend)
+        _sync(device)
+        rows.append({"kind": "collective", "mode": SIM_MODE,
+                     "engine": engine_name, **row,
+                     "sim_wall_s": round(time.perf_counter() - t0, 4)})
     return rows
 
 
@@ -110,10 +132,12 @@ def run_sim_suite(outdir: str = DEFAULT_OUTDIR,
                   load_fractions=(0.5, 0.9),
                   flow_time_s: float = 200e-6,
                   msg_bytes: float = 4096,
+                  collective_mb: float = 16.0,
                   sim_backend: "str | None" = None, engine: str = "auto",
                   device=None) -> dict:
-    """Run the flow simulator over (topology, scenario, load) cells on
-    ``device`` (default ``cuda``) and write ``sim.json`` / ``sim.md``.
+    """Run the flow simulator over (topology, scenario, load) cells and
+    the measured collectives (``collective_mb`` MiB a NIC) on ``device``
+    (default ``cuda``) and write ``sim.json`` / ``sim.md``.
     ``sim_backend`` is the fair-share solver's and the router's backend
     (``cuda``: the hand-written kernels, the default; ``torch``: the
     plain versions); ``engine`` (``auto``, ``array`` or ``graph``) picks
@@ -135,15 +159,16 @@ def run_sim_suite(outdir: str = DEFAULT_OUTDIR,
                              "reason": str(e)})
             continue
         all_rows += _sim_topo_rows(topo, scenario_names, load_fractions,
-                                   flow_time_s, msg_bytes, sim_backend,
-                                   engine, dev)
+                                   flow_time_s, msg_bytes, collective_mb,
+                                   sim_backend, engine, dev)
     checks = [r for r in all_rows if r.get("kind") == "steady_check"]
     payload = artifact_payload(
         "sim",
         {"topologies": names, "scenarios": scenario_names,
          "mode": SIM_MODE, "load_fractions": list(load_fractions),
          "flow_time_s": flow_time_s, "msg_bytes": msg_bytes,
-         "engine": engine, "sim_backend": sim_backend,
+         "collective_mb": collective_mb, "engine": engine,
+         "sim_backend": sim_backend,
          **device_params(dev),
          "n_steady_checks": len(checks),
          "all_steady_checks_agree_1e-6":
@@ -168,11 +193,19 @@ def run_sim_suite(outdir: str = DEFAULT_OUTDIR,
                          "fct_p50_us", "fct_p99_us", "slowdown_mean",
                          "slowdown_p99", "sim_stalled", "sim_epochs",
                          "sim_wall_s"])),
+        ("Collectives: measured vs analytic",
+         markdown_table([r for r in all_rows
+                         if r.get("kind") == "collective"],
+                        ["topology", "collective", "bytes_per_nic", "steps",
+                         "sim_flows_per_step", "measured_us", "analytic_us",
+                         "analytic_algo", "measured_over_analytic",
+                         "sim_wall_s"])),
         ("Skipped",
          markdown_table([r for r in all_rows if r.get("skipped")],
                         ["topology", "scenario", "reason"])),
     ]
     write_markdown(os.path.join(outdir, "sim.md"),
-                   "Flow-level simulation (PyTorch port) — measured FCTs",
+                   "Flow-level simulation (PyTorch port) — measured FCTs "
+                   "& collectives",
                    sections)
     return payload

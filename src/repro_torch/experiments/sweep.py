@@ -8,10 +8,11 @@ routes every (topology, scenario, mode, load)
 cell with :func:`repro_torch.core.netsim.load_sweep` and writes
 ``sweep.json`` / ``sweep.md``.  MPHX presets route on the array engine,
 the Table-2 baselines on the graph engine over their switch graphs;
-every row records its ``engine``.  Nothing is dropped silently: a
-scenario that does not apply to a topology, a collective scenario, and a
-topology that a forced ``engine`` cannot route each give a skip record
-with its reason (and a note on stderr).
+every row records its ``engine``.  The collective scenarios route like
+the synthetic ones, their patterns scaled by the plane spray's chunk
+schedule.  Nothing is dropped silently: a scenario that does not apply
+to a topology and a topology that a forced ``engine`` cannot route each
+give a skip record with its reason (and a note on stderr).
 """
 
 from __future__ import annotations
@@ -33,8 +34,7 @@ from ..core.netsim import (DEFAULT_NET, allreduce_time, avg_latency,
 from ..core.topology import Topology
 from .artifacts import (artifact_payload, markdown_table, write_json,
                         write_markdown)
-from .scenarios import (COLLECTIVE_SCENARIOS, COLLECTIVE_SKIP_REASON,
-                        SCENARIOS, get_scenario)
+from .scenarios import SCENARIOS, get_scenario
 
 DEFAULT_OUTDIR = os.path.join("results", "experiments_torch")
 
@@ -160,18 +160,14 @@ def sweep_topology(topo, scenario_names: "list[str] | None" = None,
     router = make_router(topo, engine, device=dev)
     graph = getattr(router, "graph", None)
     rows = []
-    names = scenario_names or sorted([*SCENARIOS, *COLLECTIVE_SCENARIOS])
-    for name in names:
-        if name in COLLECTIVE_SCENARIOS:
-            kind, reason = "collective", COLLECTIVE_SKIP_REASON
-        else:
-            sc = get_scenario(name)
-            kind, reason = sc.kind, sc.skip_reason(topo)
+    for name in scenario_names or sorted(SCENARIOS):
+        sc = get_scenario(name)
+        reason = sc.skip_reason(topo)
         if reason is not None:
             print(f"sweep: skipping scenario {name!r} on {topo.name!r}: "
                   f"{reason}", file=sys.stderr)
             rows.append({"topology": topo.name, "scenario": name,
-                         "kind": kind, "engine": engine_name,
+                         "kind": sc.kind, "engine": engine_name,
                          "skipped": True, "reason": reason})
             continue
 
@@ -191,7 +187,7 @@ def sweep_topology(topo, scenario_names: "list[str] | None" = None,
             dt = time.perf_counter() - t0
             for r in sweep:
                 rows.append({"topology": topo.name, "scenario": name,
-                             "kind": kind, "mode": mode,
+                             "kind": sc.kind, "mode": mode,
                              "engine": engine_name, **r,
                              "sweep_wall_s": round(dt, 4)})
     return rows
@@ -223,8 +219,7 @@ def run_sweep_suite(outdir: str = DEFAULT_OUTDIR,
     payload = artifact_payload(
         "sweep",
         {"topologies": names,
-         "scenarios": scenario_names
-         or sorted([*SCENARIOS, *COLLECTIVE_SCENARIOS]),
+         "scenarios": scenario_names or sorted(SCENARIOS),
          "modes": modes or list(ROUTING_MODES),
          "load_fractions": list(load_fractions),
          "msg_bytes": msg_bytes, "engine": engine, "simulate": simulate,

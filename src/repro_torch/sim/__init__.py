@@ -1,3 +1,22 @@
 """Flow-level fabric simulator on torch tensors (port of ``repro.sim``):
-max-min water-filling (:mod:`.fairshare`) and the event loop
-(:mod:`.events`)."""
+max-min water-filling (:mod:`.fairshare`), the event loop
+(:mod:`.events`), plane spraying with skew and dead-plane re-spray
+(:mod:`.spray`) and measured collective schedules
+(:mod:`.collective_sim`)."""
+
+from .collective_sim import SIM_COLLECTIVES, simulate_collective
+from .events import (BatchSimResult, FlowSimResult, FlowSpec,
+                     flows_to_demands, path_latency, simulate_demands,
+                     simulate_flow_batches, simulate_flows,
+                     simulate_incidence)
+from .fairshare import FlowIncidence, flow_incidence, max_min_rates
+from .spray import SprayedSimResult, flowlet_split, simulate_sprayed
+
+__all__ = [
+    "SIM_COLLECTIVES", "simulate_collective",
+    "BatchSimResult", "FlowSimResult", "FlowSpec", "flows_to_demands",
+    "path_latency", "simulate_demands", "simulate_flow_batches",
+    "simulate_flows", "simulate_incidence",
+    "FlowIncidence", "flow_incidence", "max_min_rates",
+    "SprayedSimResult", "flowlet_split", "simulate_sprayed",
+]

@@ -36,7 +36,8 @@ from repro_torch.core.netsim import (  # noqa: E402
     adversarial_throughput_fraction, make_router, pattern_throughput,
     resolve_engine)
 from repro_torch.core.routing_vec import (  # noqa: E402
-    VectorizedHyperXRouter, neighbor_shift_demands, uniform_demands)
+    VectorizedHyperXRouter, neighbor_shift_demands, ring_demands,
+    uniform_demands)
 from repro_torch.core.routing_graph import (  # noqa: E402
     GraphRouter, graph_uniform_demands)
 from repro_torch.experiments.run import main as cli_main  # noqa: E402
@@ -55,7 +56,9 @@ from repro_torch.models.rglru import RGLRUModel  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
 from repro_torch.sim.events import (FlowSpec, flows_to_demands,  # noqa
                                     simulate_incidence)
+from repro_torch.sim.collective_sim import simulate_collective  # noqa
 from repro_torch.sim.fairshare import max_min_rates  # noqa: E402
+from repro_torch.sim.spray import flowlet_split, simulate_sprayed  # noqa
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "src", "repro_torch")
@@ -192,6 +195,16 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(no_cuda, tmp_path):
                           str(tmp_path)]),
         lambda: adversarial_throughput_fraction(topo),
         lambda: pattern_throughput(topo, None, mode="minimal"),
+        lambda: ring_demands(topo, 800.0),
+        lambda: simulate_sprayed(topo, [FlowSpec(0, 5, 1e6)]),
+        lambda: simulate_sprayed(topo, [FlowSpec(0, 5, 1e6)],
+                                 granularity="flowlet"),
+        lambda: simulate_collective(topo, "alltoall", 2**20),
+        lambda: simulate_collective(SWEEP_TOPOLOGIES["dragonfly-small"],
+                                    "allreduce_ring", 2**20),
+        lambda: flowlet_split(np.ones(3), 2, 0.5),
+        lambda: cli_main(["--sim-collective-mb", "1", "--out",
+                          str(tmp_path)]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -16,6 +16,9 @@ The epoch journal's utilization sums through the kernel within 1e-9 of
 the plain path's and the CPU's, with one sum launch for the selection
 and one a journaled epoch, and recording bit for bit inert on either
 backend.
+Sprayed runs (chunk and flowlet split, skewed and dead planes) through
+the kernels: per-plane bytes bit for bit and completions within 1e-9 of
+the plain path's and the CPU's.
 The adaptive router's load update through the sum kernel bit for bit
 equal to the plain path's (the ordered twin) and repeatable; the
 valiant incidence coalesced on the card equal to the CPU's, ``frac``
@@ -49,6 +52,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch._device import resolve_device  # noqa: E402
 from repro_torch.core.hyperx import MPHX  # noqa: E402
 from repro_torch.core.netsim import make_router  # noqa: E402
 from repro_torch.core.routing_vec import (  # noqa: E402
@@ -68,7 +72,9 @@ from repro_torch.kernels.segment_fairshare import (  # noqa: E402
 from repro_torch.kernels.segment_fairshare.ops import (  # noqa: E402
     LIBRARY as SEGMENT_LIBRARY)
 from repro_torch.models.registry import get_config, get_model  # noqa: E402
-from repro_torch.sim.events import simulate_incidence  # noqa: E402
+from repro_torch.core.planes import SprayConfig  # noqa: E402
+from repro_torch.sim.events import FlowSpec, simulate_incidence  # noqa
+from repro_torch.sim.spray import flowlet_split, simulate_sprayed  # noqa
 from repro_torch.sim.fairshare import (SolveProblem,  # noqa: E402
                                        flow_incidence)
 from repro_torch.telemetry import (LinkSeriesPolicy,  # noqa: E402
@@ -517,14 +523,16 @@ def test_graph_incidence_on_the_card_matches_the_cpu(cuda, preset):
 
 def test_default_sim_suite_through_kernels_matches_plain(cuda, tmp_path):
     """``--suite sim``'s defaults (mphx-2p-8x8, dragonfly-small) on the
-    card: kernel and plain rows equal (floats at 1e-9 relative)."""
+    card, the measured collectives included: kernel and plain rows equal
+    (floats at 1e-9 relative)."""
     rows = {}
     for backend in ("cuda", "torch"):
         payload = run_sim_suite(str(tmp_path / backend), sim_backend=backend,
                                 device=cuda)
         rows[backend] = [r for r in payload["rows"] if not r.get("skipped")]
     assert {r["engine"] for r in rows["cuda"]} == {"array", "graph"}
-    assert len(rows["cuda"]) == len(rows["torch"]) == 12
+    assert len(rows["cuda"]) == len(rows["torch"]) == 18
+    assert sum(r["kind"] == "collective" for r in rows["cuda"]) == 6
     for a, b in zip(rows["cuda"], rows["torch"]):
         for k, v in a.items():
             if k in ("sim_wall_s", "max_abs_util_diff"):
@@ -533,6 +541,92 @@ def test_default_sim_suite_through_kernels_matches_plain(cuda, tmp_path):
                 assert abs(b[k] - v) <= 1e-9 * abs(v), (k, v, b[k])
             else:
                 assert b[k] == v, (k, v, b[k])
+
+
+# (granularity, n_planes, plane_skew) of the sprayed runs on the card
+SPRAYS = {"chunk": ("chunk", 4, None),
+          "chunk-skew-dead": ("chunk", 4, [1.0, 1.5, 1.0, float("inf")]),
+          "flowlet-dead": ("flowlet", 4, [1.0, 1.0, 1.0, float("inf")])}
+
+
+def spray_workload(n_switches: int, F: int = 200, seed: int = 7):
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n_switches, F)
+    dst = (src + rng.integers(1, n_switches, F)) % n_switches
+    size = rng.uniform(0.2, 1.0, F) * (1 << 24)
+    start = rng.uniform(0.0, 200e-6, F)
+    return [FlowSpec(int(a), int(b), float(c), float(d))
+            for a, b, c, d in zip(src, dst, size, start)]
+
+
+@pytest.mark.parametrize("spray_name", sorted(SPRAYS))
+@pytest.mark.parametrize("fabric", ["mphx-2p-8x8", "dragonfly-small"])
+def test_simulate_sprayed_kernel_matches_plain_and_cpu(cuda, fabric,
+                                                        spray_name):
+    """A sprayed run through the kernels, on the plain path on the card
+    and on the CPU: per-plane bytes and stalls bit for bit, completions
+    within 1e-9 relative; the sum kernel launched (a sprayed run takes
+    no bottleneck, so no min)."""
+    topo = SWEEP_TOPOLOGIES[fabric]
+    granularity, n, skew = SPRAYS[spray_name]
+    flows = spray_workload(topo.build_graph().n_switches)
+    runs = {}
+    for name, dev, backend in (("cuda", cuda, "cuda"), ("torch", cuda,
+                                                        "torch"),
+                               ("cpu", "cpu", "torch")):
+        reset_launch_counts()
+        runs[name] = simulate_sprayed(
+            topo, flows, cfg=SprayConfig(n_planes=n), plane_skew=skew,
+            granularity=granularity, flowlet_bytes=1 << 16, backend=backend,
+            device=dev)
+        if name == "cuda":
+            assert LAUNCHES["segment_sum"] > 0
+    a = runs["cuda"]
+    assert a.completion_s.is_cuda
+    for other in ("torch", "cpu"):
+        b = runs[other]
+        assert torch.equal(a.per_plane_bytes.cpu().view(torch.int64),
+                           b.per_plane_bytes.cpu().view(torch.int64))
+        assert torch.equal(a.stalled.cpu(), b.stalled.cpu())
+        want = b.completion_s.cpu()
+        np.testing.assert_allclose(a.completion_s.cpu().numpy(),
+                                   want.numpy(), rtol=1e-9, atol=0)
+
+
+def test_incidence_on_its_card_keeps_its_plans(cuda):
+    """An entry point's ``device`` resolves a bare ``cuda`` to the current
+    card's index, so ``inc.to`` of an incidence on that card is the
+    incidence itself, with the plans it built, and the planes of a
+    sprayed run and the loads of a sweep sort its columns once."""
+    topo = SWEEP_TOPOLOGIES["mphx-2p-8x8"]
+    inc = flow_incidence(make_router(topo, device="cuda"),
+                         neighbor_shift_demands(topo, 800.0, device="cuda"))
+    plan = inc.flow_plan("cuda")
+    for dev in (None, "cuda", cuda, torch.device(
+            "cuda", torch.cuda.current_device())):
+        assert resolve_device(dev) == inc.device
+        assert inc.to(resolve_device(dev)) is inc
+    assert inc.to(resolve_device("cuda")).flow_plan("cuda") is plan
+    assert inc.to("cpu") is not inc
+
+
+@pytest.mark.parametrize("seed", [0, 2**63 + 5])
+def test_flowlet_split_on_the_card_is_the_cpus(cuda, seed):
+    """The flowlet hash in int64 on the card and the bins' one-lane sum
+    through the kernel and its twin: the CPU's bits."""
+    sizes = torch.from_numpy(np.random.default_rng(3).uniform(
+        0, 4e6, 500))
+    alive = [True, False, True, True]
+    want = flowlet_split(sizes, 4, 4096, seed=seed, alive=alive,
+                         backend="torch")
+    reset_launch_counts()
+    for backend in ("cuda", "torch"):
+        got = flowlet_split(sizes.to(cuda), 4, 4096, seed=seed, alive=alive,
+                            backend=backend)
+        assert torch.equal(got[0].cpu().view(torch.int64),
+                           want[0].view(torch.int64))
+        assert torch.equal(got[1].cpu(), want[1])
+    assert LAUNCHES["segment_sum"] == 1
 
 
 def test_sweep_suite_through_kernels_matches_plain(cuda, tmp_path):

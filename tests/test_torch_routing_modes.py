@@ -194,11 +194,6 @@ def test_ordered_sum_equals_numpy_on_the_cpu(seed, backend):
 
 @pytest.mark.parametrize("scenario", sorted(ref_scenarios.SCENARIOS))
 def test_scenario_registry_matches(scenario):
-    if scenario in scenarios.COLLECTIVE_SCENARIOS:
-        assert ref_scenarios.SCENARIOS[scenario].kind == "collective"
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            scenarios.get_scenario(scenario)
-        return
     ref, port = ref_scenarios.SCENARIOS[scenario], \
         scenarios.get_scenario(scenario)
     assert (port.name, port.kind, port.default_mode, port.requires_reason) \
@@ -216,18 +211,15 @@ def test_scenario_registry_matches(scenario):
 
 
 def test_available_scenarios_match():
-    synthetic = sorted(scenarios.SCENARIOS)
-    assert synthetic == sorted(
-        n for n, s in ref_scenarios.SCENARIOS.items()
-        if s.kind == "synthetic")
-    assert sorted([*synthetic, *scenarios.COLLECTIVE_SCENARIOS]) == \
+    assert scenarios.available_scenarios() == \
         ref_scenarios.available_scenarios()
+    assert [s.kind for s in scenarios.SCENARIOS.values()] == \
+        [s.kind for s in ref_scenarios.SCENARIOS.values()]
     for preset in ("mphx-2p-8x8", "mphx-4p-86x9", "mphx-8p-256",
                    "dragonfly-small", "ft3-65536"):
-        want = [n for n in ref_scenarios.available_scenarios(
-            ref_sweep.SWEEP_TOPOLOGIES[preset]) if n in synthetic]
-        assert scenarios.available_scenarios(
-            SWEEP_TOPOLOGIES[preset]) == want
+        assert scenarios.available_scenarios(SWEEP_TOPOLOGIES[preset]) == \
+            ref_scenarios.available_scenarios(
+                ref_sweep.SWEEP_TOPOLOGIES[preset])
 
 
 def assert_rows_match(got, want):

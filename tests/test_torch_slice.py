@@ -1,10 +1,10 @@
 """The port's slice as a whole: ``--suite sim`` through the CLI on the
 CPU against the JAX package's ``run_sim_suite`` (jitted backend).
 
-Every ``steady_check`` and ``fct`` row must match at 1e-9 relative with
-integers exact, leaving out the wall clocks and the round-off measure
-``max_abs_util_diff`` (held below 1e-6 on both sides by
-``agrees_1e-6``); collective rows are explicit skip records.
+Every ``steady_check``, ``fct`` and measured ``collective`` row must
+match at 1e-9 relative with integers exact, leaving out the wall clocks
+and the round-off measure ``max_abs_util_diff`` (held below 1e-6 on both
+sides by ``agrees_1e-6``).
 """
 
 import json
@@ -53,27 +53,22 @@ def test_cli_rows_match_reference(tmp_path):
                         load_fractions=(0.5, 0.9), sim_backend="jax")
     assert port["schema_version"] == ref["schema_version"] == 7
     assert port["params"]["device"] == "cpu"
-    kinds = ("steady_check", "fct")
-    want = [r for r in ref["rows"] if r.get("kind") in kinds]
-    got = [r for r in port["rows"] if r.get("kind") in kinds]
-    assert len(got) == len(want) == 6
+    want, got = ref["rows"], port["rows"]
+    assert [r["kind"] for r in got] == [r["kind"] for r in want] == \
+        ["steady_check", "fct", "fct"] * 2 + ["collective"] * 3
     for g, w in zip(got, want):
         assert set(g) == set(w) | (PORT_ONLY if g["kind"] == "fct"
                                    else set())
         for k, v in w.items():
             if k in UNCOMPARED:
                 continue
+            name = w.get("scenario", w.get("collective"))
             if isinstance(v, float) and v != 0:
-                assert abs(g[k] - v) <= 1e-9 * abs(v), (w["scenario"], k)
+                assert abs(g[k] - v) <= 1e-9 * abs(v), (name, k)
             else:
-                assert g[k] == v, (w["scenario"], k, g[k], v)
+                assert g[k] == v, (name, k, g[k], v)
         if w["kind"] == "steady_check":
             assert g["agrees_1e-6"] and w["agrees_1e-6"]
-    skips = [r for r in port["rows"] if r.get("skipped")]
-    assert sorted(r["scenario"] for r in skips) == [
-        "allgather_ring", "allreduce_ring", "alltoall"]
-    for r in skips:
-        assert r["kind"] == "skip" and "ROADMAP" in r["reason"]
     assert (tmp_path / "port" / "sim.md").exists()
 
 

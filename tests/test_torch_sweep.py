@@ -3,15 +3,16 @@ the CPU.
 
 ``run_sweep_suite`` over ``mphx-2p-8x8``, a 1-D MPHX and the reference's
 default topologies (the small MPHX and the four Table-2 baselines on the
-graph engine), all synthetic scenarios, the three routing modes, two
-loads, measured FCT columns on the minimal rows, against the reference's
-with its numpy backends: every routed row the reference writes for a
-ported scenario has a port row in the same place, with every key both
-write equal (floats at 1e-9 relative, the rest exactly; the wall clocks
-left out).  The same for ``run_sim_suite``'s default rows
-(``mphx-2p-8x8`` and ``dragonfly-small``) and for MPHX forced onto the
-graph engine.  The collective scenarios are skip records with a reason
-in the port.  The CLI's ``--suite sweep`` runs on the CPU.
+graph engine), every scenario (the synthetic ones and the three
+collective chunk schedules), the three routing modes, two loads,
+measured FCT columns on the minimal rows, against the reference's with
+its numpy backends: every row the reference writes has a port row in the
+same place, with every key both write equal (floats at 1e-9 relative,
+the rest exactly; the wall clocks left out), and the skip records are
+the reference's.  The same for ``run_sim_suite``'s default rows
+(``mphx-2p-8x8`` and ``dragonfly-small``), the measured collectives
+included, and for MPHX forced onto the graph engine.  The CLI's
+``--suite sweep`` runs on the CPU.
 """
 
 import json
@@ -29,10 +30,11 @@ from repro_torch.core.hyperx import MPHX  # noqa: E402
 from repro_torch.experiments import simsuite, sweep  # noqa: E402
 from repro_torch.experiments.run import SUITES  # noqa: E402
 from repro_torch.experiments.run import main as cli_main  # noqa: E402
-from repro_torch.experiments.scenarios import (  # noqa: E402
-    COLLECTIVE_SCENARIOS, SCENARIOS)
+from repro_torch.experiments.scenarios import SCENARIOS  # noqa: E402
 
 ONE_D = ("mphx-2p-8", dict(n=2, p=4, dims=(8,)))
+COLLECTIVES = sorted(n for n, s in SCENARIOS.items()
+                     if s.kind == "collective")
 LOADS = (0.5, 1.0)
 UNCOMPARED = ("sweep_wall_s", "sim_wall_s", "max_abs_util_diff")
 
@@ -72,18 +74,21 @@ def routed(payload):
 
 def assert_rows_match(got_rows, want_rows):
     """Row for row, every key both write (wall clocks and round-off
-    sizes left out): floats at 1e-9 relative, the rest exactly."""
+    sizes left out): floats at 1e-9 relative, the rest exactly.  A row
+    names its scenario, or (a measured collective) its collective."""
     assert len(got_rows) == len(want_rows) > 0
     for g, w in zip(got_rows, want_rows):
         shared = (set(g) & set(w)) - set(UNCOMPARED)
-        assert {"topology", "scenario", "engine"} <= shared
+        assert {"topology", "engine"} <= shared
+        assert {"scenario", "collective"} & shared
+        name = g.get("scenario", g.get("collective"))
         for k in sorted(shared):
             v = w[k]
             if isinstance(v, float) and v != 0:
                 assert abs(g[k] - v) <= 1e-9 * abs(v), (g["topology"],
-                                                        g["scenario"], k)
+                                                        name, k)
             else:
-                assert g[k] == v, (g["topology"], g["scenario"], k, g[k], v)
+                assert g[k] == v, (g["topology"], name, k, g[k], v)
 
 
 @pytest.mark.parametrize("simulate", (True, False))
@@ -96,9 +101,11 @@ def test_sweep_suite_matches_the_reference(tmp_path, one_d, topo, simulate):
     got = sweep.run_sweep_suite(
         str(tmp_path / "port"), topo_names=[name], load_fractions=LOADS,
         simulate=simulate, sim_backend="torch", device="cpu")
-    want_rows = [r for r in routed(want) if r["scenario"] in SCENARIOS]
+    want_rows = routed(want)
     got_rows = routed(got)
     assert len(got_rows) == len(want_rows) > 0
+    assert {r["scenario"] for r in got_rows if r["kind"] == "collective"} \
+        == set(COLLECTIVES)
     n_shared = 0
     for g, w in zip(got_rows, want_rows):
         shared = (set(g) & set(w)) - set(UNCOMPARED)
@@ -113,23 +120,15 @@ def test_sweep_suite_matches_the_reference(tmp_path, one_d, topo, simulate):
         n_shared += 1
         assert ("fct_p99_us" in g) == (simulate and g["mode"] == "minimal")
     assert n_shared == len(want_rows)
-    skips = {r["scenario"]: r for r in got["rows"] if r.get("skipped")}
-    want_skips = {r["scenario"] for r in want["rows"] if r.get("skipped")}
-    assert set(skips) == want_skips | set(COLLECTIVE_SCENARIOS)
-    for scen in COLLECTIVE_SCENARIOS:
-        assert "ROADMAP" in skips[scen]["reason"]
-        assert skips[scen]["kind"] == "collective"
-    for scen in want_skips:
-        assert skips[scen]["reason"] == next(
-            r["reason"] for r in want["rows"]
-            if r.get("skipped") and r["scenario"] == scen)
+    assert [r for r in got["rows"] if r.get("skipped")] == \
+        [r for r in want["rows"] if r.get("skipped")]
 
 
 def test_default_sweep_skips_the_graph_presets(tmp_path):
     """The default sweep no longer skips the graph presets: it routes the
     reference's five default topologies, the four baselines on the graph
-    engine, and its only skip records are the reference's (``transpose``
-    on the baselines) and the collective scenarios."""
+    engine, every scenario (the collective ones too), and its only skip
+    records are the reference's (``transpose`` on the baselines)."""
     payload = sweep.run_sweep_suite(str(tmp_path), load_fractions=(1.0,),
                                     modes=["minimal"], device="cpu")
     assert payload["params"]["topologies"] == ref_sweep.DEFAULT_SWEEP_TOPOS
@@ -138,9 +137,7 @@ def test_default_sweep_skips_the_graph_presets(tmp_path):
              if r.get("skipped")]
     names = [ref_sweep.SWEEP_TOPOLOGIES[n].name
              for n in ref_sweep.DEFAULT_SWEEP_TOPOS]
-    assert sorted(skips) == sorted(
-        [(t, "transpose") for t in names[1:]]
-        + [(t, c) for t in names for c in COLLECTIVE_SCENARIOS])
+    assert sorted(skips) == sorted((t, "transpose") for t in names[1:])
     engines = {r["topology"]: r["engine"] for r in routed(payload)}
     assert engines == {t: "array" if i == 0 else "graph"
                        for i, t in enumerate(names)}
@@ -157,16 +154,15 @@ def test_default_sweep_matches_the_reference(tmp_path, simulate):
     got = sweep.run_sweep_suite(
         str(tmp_path / "port"), load_fractions=LOADS, simulate=simulate,
         sim_backend="torch", device="cpu")
-    want_rows = [r for r in routed(want) if r["scenario"] in SCENARIOS]
-    assert_rows_match(routed(got), want_rows)
+    assert_rows_match(routed(got), routed(want))
     assert {r["engine"] for r in routed(got)} == {"array", "graph"}
+    assert {(r["kind"], r["engine"]) for r in routed(got)} == {
+        (k, e) for k in ("synthetic", "collective")
+        for e in ("array", "graph")}
     for r in routed(got):
         assert ("fct_p99_us" in r) == (simulate and r["mode"] == "minimal")
-    want_skips = {(r["topology"], r["scenario"]): r["reason"]
-                  for r in want["rows"] if r.get("skipped")}
-    for r in got["rows"]:
-        if r.get("skipped") and r["scenario"] not in COLLECTIVE_SCENARIOS:
-            assert r["reason"] == want_skips[(r["topology"], r["scenario"])]
+    assert [r for r in got["rows"] if r.get("skipped")] == \
+        [r for r in want["rows"] if r.get("skipped")]
 
 
 def test_sweep_engine_choice_matches_the_reference(tmp_path):
@@ -185,20 +181,24 @@ def test_sweep_engine_choice_matches_the_reference(tmp_path):
             [r for r in want["rows"] if r.get("skipped")]
 
 
-def test_default_sim_suite_matches_the_reference(tmp_path, monkeypatch):
+def test_default_sim_suite_matches_the_reference(tmp_path):
     """``run_sim_suite``'s defaults, ``mphx-2p-8x8`` and
-    ``dragonfly-small``: the steady-state checks and FCT rows (the
-    reference's measured collectives, skip records in the port, are not
-    run)."""
-    monkeypatch.setattr(ref_simsuite, "SIM_COLLECTIVES", ())
+    ``dragonfly-small``, whole: the steady-state checks, the FCT rows
+    and the measured collectives (three a topology)."""
     assert simsuite.DEFAULT_SIM_TOPOS == ref_simsuite.DEFAULT_SIM_TOPOS
+    assert simsuite.MAX_COLLECTIVE_NICS == ref_simsuite.MAX_COLLECTIVE_NICS
     want = ref_simsuite.run_sim_suite(str(tmp_path / "ref"),
                                       backend="numpy", sim_backend="numpy")
     got = simsuite.run_sim_suite(str(tmp_path / "port"), sim_backend="torch",
                                  device="cpu")
-    assert_rows_match(routed(got), routed(want))
-    assert [r["engine"] for r in routed(got)] == ["array"] * 6 + ["graph"] * 6
+    assert len(got["rows"]) == len(want["rows"]) == 18
+    assert_rows_match(got["rows"], want["rows"])
+    assert [r["engine"] for r in got["rows"]] == ["array"] * 9 + ["graph"] * 9
+    assert [r["collective"] for r in got["rows"]
+            if r["kind"] == "collective"] == \
+        list(ref_simsuite.SIM_COLLECTIVES) * 2
     assert got["params"]["all_steady_checks_agree_1e-6"] is True
+    assert got["params"]["collective_mb"] == 16.0
 
 
 def test_sweep_transpose_is_a_skip_record_on_a_non_square_grid(tmp_path):
@@ -231,18 +231,36 @@ def test_cli_sweep_suite_on_the_cpu(tmp_path, capsys):
 
 
 def test_cli_sim_suite_refuses_unported_cells(tmp_path, capsys):
-    """The sim suite routes a baseline; what it refuses are the cells not
-    ported (the measured collectives) and, with ``--engine array``, a
-    topology that engine cannot route: skip records with the reason."""
+    """Every cell of the sim suite is ported: on a baseline it routes the
+    scenarios and measures the collectives (``--sim-collective-mb`` MiB
+    a NIC); what it refuses is, with ``--engine array``, a topology that
+    engine cannot route, and a collective on a fabric past
+    ``MAX_COLLECTIVE_NICS``: skip records with the reference's
+    reasons."""
     rc = cli_main(["--suite", "sim", "--topos", "ft3-small", "--device",
-                   "cpu", "--sim-backend", "torch", "--out", str(tmp_path)])
+                   "cpu", "--sim-backend", "torch", "--sim-collective-mb",
+                   "2", "--out", str(tmp_path)])
     assert rc == 0
     payload = json.loads((tmp_path / "sim.json").read_text())
-    skips = [r for r in payload["rows"] if r.get("skipped")]
-    assert [r["scenario"] for r in skips] == list(simsuite.SIM_COLLECTIVES)
-    assert all("ROADMAP" in r["reason"] for r in skips)
-    assert len(routed(payload)) == 6
+    assert not [r for r in payload["rows"] if r.get("skipped")]
+    assert len(routed(payload)) == 9
     assert {r["engine"] for r in routed(payload)} == {"graph"}
+    colls = [r for r in payload["rows"] if r["kind"] == "collective"]
+    assert [r["collective"] for r in colls] == list(simsuite.SIM_COLLECTIVES)
+    assert {r["bytes_per_nic"] for r in colls} == {2 * 2**20}
+    assert payload["params"]["collective_mb"] == 2.0
+    # the Table-2 row (66,564 NICs): the collectives are the reference's
+    # skip records, reason word for word (no scenario, so nothing routes)
+    big = "mphx-4p-86x9"
+    got = simsuite._sim_topo_rows(
+        sweep.SWEEP_TOPOLOGIES[big], [], (0.5,), 200e-6, 4096, 16.0, "torch",
+        "auto", torch.device("cpu"))
+    want = ref_simsuite._sim_topo_rows(
+        ref_sweep.SWEEP_TOPOLOGIES[big], [], (0.5,), 200e-6, 4096, "numpy",
+        "auto", 16.0, sim_backend="numpy")
+    assert got == want and len(got) == 3
+    assert all(r["skipped"] and "66564 NICs > 4096" in r["reason"]
+               for r in got)
     rc = cli_main(["--suite", "sim", "--topos", "ft3-small", "--engine",
                    "array", "--device", "cpu", "--out", str(tmp_path)])
     assert rc == 0
