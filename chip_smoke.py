@@ -108,7 +108,29 @@ nonzero:
    on 2 planes), kernels, plain and CPU, every row but the walls equal,
    each collective's wall, flows a step and measured-over-analytic
    ratio.
-11. ``model_kernel``: RMSNorm and flash attention against their plain
+11. ``failures``: failure injection and fast-reroute protection.
+   ``--suite failures`` through the CLI at its defaults (mphx-2p-8x8 and
+   dragonfly-small, ``link:0.01`` and ``link:0.05``, uniform, the three
+   reroute modes) through the kernels (launch counts read around that
+   run alone), on the plain path and on the CPU, rows equal but the
+   walls.  Then ``--suite failures`` at mphx-4p-86x9 (66,564 NICs,
+   uncut) and mphx-2p-16x16 under ``link:0.01,plane:1`` and
+   ``switch:0.02,seed:3``, uniform, three reroute modes, 4 protection
+   layers: twice through the kernels (rows equal but the walls; the
+   second run also checks that each local reroute put no load on a
+   failed edge and conserved its Gbps within 1e-9), on the plain path
+   (at 86 x 9 the first spec alone: reduced) and on the CPU (16 x 16
+   under the switch failure alone: reduced), every row at 1e-9
+   relative, integers exact, each side's
+   ``conservation_residual`` below 1e-9; each run's wall, peak device
+   memory, launches and the ``protection.*`` / ``failures.*`` timers
+   (the layer BFS and the backup table: provisioning), and a spec's
+   phase walls and ``time_to_90_s`` a reroute mode (and whether the
+   local reroute reaches 90 % before the global recompute).  Then the
+   segment
+   kernels at the protection's shapes at 86 x 9: a local-reroute pull's
+   ECMP denominators and the backup table's first-downhill min.
+12. ``model_kernel``: RMSNorm and flash attention against their plain
    versions (edge cases: ragged sizes, decode, GQA and MQA, a window, a
    ring cache with empty and wrapped slots, float32 and bfloat16), at
    the serve path's shapes (float32 at 2e-5; bfloat16, and for
@@ -137,7 +159,7 @@ nonzero:
    shape 1), and each line carries its ``splits``; its device
    times come from the profiler and from CUDA graphs as attention's,
    beside ``torch.bmm``'s, with the SM clock around each timing.
-12. ``serve``: yi-9b at full width and depth (random bf16 weights drawn
+13. ``serve``: yi-9b at full width and depth (random bf16 weights drawn
    on the card from a seed) serves 8 requests of 1,024 prompt tokens and
    32 new tokens each in waves of 4 through the kernels, with the launch
    counts read around that run alone (97 RMSNorm and 48 attention
@@ -147,7 +169,7 @@ nonzero:
    Prefill and teacher-forced decode logits of the two paths must agree,
    and a float32 2-layer yi-9b must agree at 2e-5; a decode wave is
    profiled for the device's idle share.
-13. ``moe_serve``: mixtral-8x22b at full width and 12 of its 56 layers
+14. ``moe_serve``: mixtral-8x22b at full width and 12 of its 56 layers
    (60.9 GB of random bf16 weights drawn on the card after yi-9b's are
    freed) serves the same traffic through the kernels, with the launch
    counts read around that run alone (25 RMSNorm, 12 attention and 36
@@ -168,7 +190,7 @@ nonzero:
    runs through mixtral's 4,096-token window, a decode wave is profiled,
    and a float32 2-layer mixtral must agree at 2e-5 with no routing
    flipped.
-14. ``hybrid_serve``: the RG-LRU scan bit for bit equal to its plain
+15. ``hybrid_serve``: the RG-LRU scan bit for bit equal to its plain
    version, with each shape's plan, at ``tests/test_kernels.py``'s edge
    shapes, ragged widths and lengths, recurrentgemma-2b prefill's (4,
    1024, 2560) (timed: event, device and CUDA-graph ms, GB/s and the
@@ -186,7 +208,7 @@ nonzero:
    wave is
    profiled, and a float32 model at full width and 5 of its 26 layers
    must agree at 2e-5.
-15. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
+16. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
@@ -273,6 +295,21 @@ SPRAY_VARIANTS = {
 SPRAY_RUNS = (("cuda", "cuda", "cuda"), ("torch", "cuda", "torch"),
               ("cpu", "cpu", "torch"))
 COLLECTIVE_TOPO = "mphx-2p-16x16"
+# the failures phase: --suite failures through the CLI at its defaults,
+# then the paper's Table-2 MPHX and mphx-2p-16x16 under a link and plane
+# failure and a switch failure, uniform, three reroute modes, 4 layers.
+# Reduced: the plain pass at mphx-4p-86x9 runs the first spec alone, and
+# the CPU pass runs mphx-2p-16x16 under the second alone (the CPU's
+# minimal incidence of 65,280 pairs takes ~18 s a reroute mode on the
+# card's host)
+FAILURE_TOPOS = [MAIN_TOPO, COLLECTIVE_TOPO]
+FAILURE_SPECS = ["link:0.01,plane:1", "switch:0.02,seed:3"]
+FAILURE_LAYERS = 4
+# not compared as values: the walls, time_to_90_s (a wall: only whether
+# it is None) and conservation_residual (raw round-off: below 1e-9 on
+# each side)
+FAILURE_UNCOMPARED_KEYS = ("phase_wall_s", "t_offset_s", "sim_wall_s",
+                           "time_to_90_s", "conservation_residual")
 
 KERNELS = {
     "segment_sum": "src/repro/kernels/segment_fairshare/kernel.py:97",
@@ -623,14 +660,16 @@ def kernel_row(name: str, case: str, site: str, vals, ids, n_seg: int,
             "library_ms": lib_ms, "lanes": lanes, **b}
 
 
-def compare_rows(a: dict, b: dict, where: str) -> None:
-    """Every key of ``a`` but ``UNCOMPARED_KEYS``: ints and strings
-    exact, floats at 1e-9 relative."""
+def compare_rows(a: dict, b: dict, where: str,
+                 uncompared: tuple = UNCOMPARED_KEYS,
+                 exact: bool = False) -> None:
+    """Every key of ``a`` but ``uncompared``: ints and strings exact,
+    floats at 1e-9 relative (exactly with ``exact``)."""
     for k, v in a.items():
-        if k in UNCOMPARED_KEYS:
+        if k in uncompared:
             continue
         w = b.get(k)
-        if isinstance(v, float) and isinstance(w, float):
+        if isinstance(v, float) and isinstance(w, float) and not exact:
             if abs(v - w) > 1e-9 * max(abs(v), abs(w)):
                 raise AssertionError(f"{where}: {k} {v} != {w}")
         elif v != w:
@@ -2051,6 +2090,236 @@ def phase_spray() -> dict:
     return by_path
 
 
+def spy_reroutes(fn):
+    """``(fn(), checks)``: each ``local_reroute_loads`` that ``fn`` ran,
+    with the largest load it put on a failed edge (surviving
+    multiplicity 0), its conservation residual, diverted Gbps and
+    pulls.  The check runs inside the local phase's wall: use it on a
+    run whose walls are not reported."""
+    from repro_torch.routing.protection import ProtectedRouter
+
+    reroute = ProtectedRouter.local_reroute_loads
+    checks = []
+
+    def spy(self, demands, dg, max_redirects=None):
+        lr = reroute(self, demands, dg, max_redirects)
+        dead = self._degraded_state(dg)[0] <= 0
+        checks.append({
+            "failed_edges": int(dead.sum()),
+            "max_load_on_failed": float(lr.loads[dead].abs().max())
+            if bool(dead.any()) else 0.0,
+            "conservation_residual": lr.conservation_residual,
+            "diverted_gbps": lr.diverted_gbps, "pulls": lr.n_pulls})
+        return lr
+
+    ProtectedRouter.local_reroute_loads = spy
+    try:
+        out = fn()
+    finally:
+        ProtectedRouter.local_reroute_loads = reroute
+    return out, checks
+
+
+def phase_failures() -> dict:
+    """Failure injection and fast-reroute protection on the card:
+    ``--suite failures`` through the CLI at its defaults, then at
+    mphx-4p-86x9 and mphx-2p-16x16 (``FAILURE_SPECS``, uniform, three
+    reroute modes) twice through the kernels, on the plain path and on
+    the CPU, then the segment kernels at the protection's shapes.
+    Returns each path's launch counts."""
+    from repro_torch.experiments.run import main as cli
+    from repro_torch.experiments.scenarios import get_scenario
+    from repro_torch.experiments.simsuite import run_failures_suite
+    from repro_torch.experiments.sweep import SWEEP_TOPOLOGIES
+    from repro_torch.kernels.segment_fairshare import (LAUNCHES,
+                                                       reset_launch_counts)
+    from repro_torch.routing.protection import ProtectedRouter
+    from repro_torch.sim.failures import degrade_graph, parse_failure_spec
+    from repro_torch.telemetry import collecting
+
+    t_phase = time.perf_counter()
+    by_path = {}
+    card = torch.cuda.get_device_name(0)
+
+    def emit_failures(**fields):
+        emit("failures", phase_s=time.perf_counter() - t_phase, **fields)
+
+    def compare_failure_rows(got, want, where, exact=False):
+        """``compare_rows`` on each pair of ``--suite failures`` rows, with
+        the same keys; of ``time_to_90_s`` whether it is None, and each
+        side's ``conservation_residual`` below 1e-9.  Returns the count
+        of routed rows."""
+        if len(got) != len(want):
+            raise AssertionError(f"{where}: {len(got)} rows, not "
+                                 f"{len(want)}")
+        for a, b in zip(got, want):
+            name = f"{where} {a.get('topology')}/{a.get('failures')}/" \
+                   f"{a.get('reroute')}/{a.get('phase', a.get('kind'))}"
+            if a.keys() != b.keys():
+                raise AssertionError(f"{name}: keys {sorted(a)} != "
+                                     f"{sorted(b)}")
+            compare_rows(a, b, name, FAILURE_UNCOMPARED_KEYS, exact)
+            if (a.get("time_to_90_s") is None) \
+                    != (b.get("time_to_90_s") is None) \
+                    or not all(r.get("conservation_residual", 0.0) < 1e-9
+                               for r in (a, b)):
+                raise AssertionError(f"{name}: {a} vs {b}")
+        return sum(1 for r in got if not r.get("skipped"))
+
+    def launched(path):
+        by_path[path] = dict(LAUNCHES)
+        missing = [k for k in KERNELS if by_path[path][k] == 0]
+        if missing:
+            raise AssertionError(f"{path} launched no {missing} kernel")
+
+    # (a) --suite failures through the CLI at its defaults: kernels, plain
+    # on the card, the CPU
+    payloads = {}
+    for run, dev, backend in SPRAY_RUNS:
+        out = OUT_DIR / f"failures_default_{run}"
+        reset_launch_counts()
+        rc, wall = timed(lambda: cli(["--suite", "failures", "--device",
+                                      dev, "--sim-backend", backend,
+                                      "--out", str(out)]))
+        if rc != 0:
+            raise AssertionError(f"failures default ({run}): exit {rc}")
+        if run == "cuda":
+            launched("failures default")
+        payloads[run] = json.loads((out / "failures.json").read_text())
+        emit_failures(path="failures default", run=run, suite_wall_s=wall,
+                      rows=len(payloads[run]["rows"]),
+                      device_name=payloads[run]["params"]["device_name"])
+    rows = payloads["cuda"]["rows"]
+    for other in ("torch", "cpu"):
+        routed = compare_failure_rows(rows, payloads[other]["rows"],
+                                      f"failures default cuda vs {other}",
+                                      exact=True)
+    emit_failures(path="failures default", routed_rows=routed,
+                  launches=by_path["failures default"],
+                  rows_agree_plain=True, rows_agree_cpu=True, ok=True)
+
+    # (b), (c) the Table-2 MPHX and 16 x 16: twice through the kernels
+    # (walls from the first, the local reroutes' checks in the second),
+    # the plain path (86 x 9: the first spec alone) and the CPU (16 x 16)
+    for topo_name in FAILURE_TOPOS:
+        plan = [("cuda", "cuda", "cuda", FAILURE_SPECS),
+                ("cuda again", "cuda", "cuda", FAILURE_SPECS)]
+        if topo_name == MAIN_TOPO:
+            plan.append(("torch", "cuda", "torch", FAILURE_SPECS[:1]))
+        else:
+            plan += [("torch", "cuda", "torch", FAILURE_SPECS),
+                     ("cpu", "cpu", "torch", FAILURE_SPECS[1:])]
+        runs, checks = {}, []
+        path = f"failures {topo_name}"
+        for run, dev, backend, specs in plan:
+            out = OUT_DIR / f"failures_{topo_name}_{run.replace(' ', '_')}"
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+
+            def suite():
+                return run_failures_suite(
+                    str(out), topo_names=[topo_name],
+                    failure_specs=specs, protection_layers=FAILURE_LAYERS,
+                    sim_backend=backend, device=dev)
+
+            with collecting() as mx:
+                if run == "cuda again":
+                    (payload, wall), checks = spy_reroutes(
+                        lambda: timed(suite))
+                else:
+                    payload, wall = timed(suite)
+            if run == "cuda":
+                launched(path)
+            runs[run] = payload["rows"]
+            snap = mx.snapshot()
+            emit_failures(
+                path=path, run=run, specs=specs,
+                reduced=specs != FAILURE_SPECS,
+                suite_wall_s=wall,
+                peak_bytes=torch.cuda.max_memory_allocated()
+                if dev == "cuda" else None,
+                launches=dict(LAUNCHES) if dev == "cuda" else None,
+                timers={k: v for k, v in snap["timers"].items()
+                        if k.startswith(("protection.", "failures."))},
+                counters={k: v for k, v in snap["counters"].items()
+                          if k.startswith(("protection.", "failures."))},
+                device_name=payload["params"]["device_name"])
+        compare_failure_rows(runs["cuda"], runs["cuda again"],
+                             f"{path} repeat", exact=True)
+        for run, *_, specs in plan[2:]:
+            labels = {parse_failure_spec(s).label() for s in specs}
+            compare_failure_rows(
+                [r for r in runs["cuda"] if r.get("failures") in labels],
+                runs[run], f"{path} cuda vs {run}")
+        for c in checks:
+            if c["max_load_on_failed"] != 0.0 \
+                    or c["conservation_residual"] >= 1e-9:
+                raise AssertionError(f"{path}: local reroute {c}")
+        emit_failures(path=path, local_reroutes=checks,
+                      rows_repeat=True, rows_agree_plain=True,
+                      rows_agree_cpu="cpu" in runs, ok=True)
+        # the summary a spec: every mode's phase walls and time to 90 %
+        for spec in FAILURE_SPECS:
+            label = parse_failure_spec(spec).label()
+            mine = [r for r in runs["cuda"] if r.get("failures") == label]
+            t90 = {r["reroute"]: r["time_to_90_s"] for r in mine
+                   if r.get("kind") == "recovery_summary"}
+            emit_failures(
+                path=path, failures=label,
+                throughput={k: v for r in mine
+                            if r.get("kind") == "throughput"
+                            for k, v in r.items()},
+                phases=[{k: r.get(k) for k in (
+                    "reroute", "phase", "delivered_fraction",
+                    "stalled_share", "max_util", "phase_wall_s",
+                    "t_offset_s", "conservation_residual")}
+                    for r in mine if r.get("kind") == "recovery"],
+                time_to_90_s=t90,
+                # does the local reroute reach 90 % before the global
+                # recompute does (None: neither reaches it)
+                local_first=None if t90.get("local") is None
+                else t90.get("none") is None or t90["local"] < t90["none"],
+                protection_coverage=next(
+                    (r["protection_coverage"] for r in mine
+                     if "protection_coverage" in r), None),
+                device_name=card)
+
+    # (d) #1 and #2 at the protection's shapes at mphx-4p-86x9: a local
+    # reroute pull's ECMP denominators (surviving downhill multiplicity
+    # by source, one lane a segment) under the first spec, and the
+    # backup table's first-downhill min in protection layer 1
+    topo = SWEEP_TOPOLOGIES[MAIN_TOPO]
+    pr = ProtectedRouter(topo, n_layers=FAILURE_LAYERS, device="cuda")
+    csr = pr.csr
+    S = csr.n_switches
+    C = min(pr.dst_chunk, S)
+    dests = torch.arange(C, device="cuda")
+    dg = degrade_graph(pr.graph, parse_failure_spec(FAILURE_SPECS[0]))
+    surv_mult = pr._degraded_state(dg)[0]
+    ids, plan = pr.router._block("src", C)
+    case = f"{MAIN_TOPO} uniform, {C} destinations"
+    dist = pr.layer_hops(0)[:, dests]
+    d_src = dist[csr.src]
+    down = (dist[csr.dst] == d_src - 1) & (d_src > 0)
+    w = surv_mult[:, None] * (down & (surv_mult > 0)[:, None])
+    kernel_row("segment_sum", case, "protection pull: ECMP denominators",
+               w.reshape(-1), ids, S * C, plan, True)
+    dist = pr.layer_hops(1)[:, dests]
+    d_src = dist[csr.src]
+    down = pr.layer_mask[1][:, None] & (dist[csr.dst] == d_src - 1) \
+        & (d_src > 0)
+    first = torch.where(down, csr.dst.to(torch.float64)[:, None],
+                        torch.inf)
+    kernel_row("segment_min", case,
+               "backup table: first-downhill min, layer 1",
+               first.reshape(-1), ids, S * C, plan, True)
+    del pr, dg, surv_mult, dist, d_src, down, w, first
+    torch.cuda.empty_cache()
+    emit_failures(launches=by_path, ok=True)
+    return by_path
+
+
 def phase_build() -> None:
     """nvcc for the five libraries at once (one process each)."""
     from concurrent.futures import ThreadPoolExecutor
@@ -3350,6 +3619,7 @@ def main() -> int:
     by_path.update(phase_graph())
     by_path.update(phase_table2_trace())
     by_path.update(phase_spray())
+    by_path.update(phase_failures())
     kernel_results.update(phase_model_kernels())
     by_path[f"{SERVE_ARCH} serve"] = phase_serve(card)
     by_path[f"{MOE_ARCH} serve"], ragged = phase_moe_serve(card)

@@ -32,6 +32,13 @@ def resolve_device(device: "str | torch.device | None" = None
     return dev
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for off
+    the card), so that a wall clock read next includes it."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def _resolve_backend(backend: "str | None", what: str) -> str:
     backend = "cuda" if backend is None else backend
     if backend not in SIM_BACKENDS:

@@ -154,17 +154,23 @@ class CSRGraph:
         self.nic_counts = torch.tensor(graph.nic_counts(), dtype=I64,
                                        device=device)
 
-    def all_pairs_hops(self) -> torch.Tensor:
-        """(S, S) int32 switch-to-switch hop distances by batched frontier
-        BFS: one boolean (S, S) frontier per level, expanded by one
-        frontier x adjacency matmul (only ``> 0`` is read).  Raises on a
-        disconnected graph."""
+    def masked_hops(self, edge_mask: "torch.Tensor | None" = None
+                    ) -> torch.Tensor:
+        """(S, S) int32 switch-to-switch hop distances over the edges of
+        ``edge_mask`` (all by default) by batched frontier BFS: one
+        boolean (S, S) frontier per level, expanded by one frontier x
+        adjacency matmul (only ``> 0`` is read).  ``-1`` marks unreachable
+        pairs."""
         S, dev = self.n_switches, self.device
+        src, dst = self.src, self.dst
+        if edge_mask is not None:
+            src, dst = src[edge_mask], dst[edge_mask]
         adj = torch.zeros((S, S), dtype=torch.float32, device=dev)
-        adj[self.src, self.dst] = 1.0
+        adj[src, dst] = 1.0
         frontier = torch.eye(S, dtype=torch.bool, device=dev)
         visited = frontier.clone()
-        dist = torch.zeros((S, S), dtype=torch.int32, device=dev)
+        dist = torch.full((S, S), -1, dtype=torch.int32, device=dev)
+        dist.fill_diagonal_(0)
         d = 0
         while True:
             d += 1
@@ -174,7 +180,13 @@ class CSRGraph:
             dist[nxt] = d
             visited |= nxt
             frontier = nxt
-        if not bool(visited.all()):
+        return dist
+
+    def all_pairs_hops(self) -> torch.Tensor:
+        """(S, S) int32 hop distances over every edge
+        (:meth:`masked_hops`).  Raises on a disconnected graph."""
+        dist = self.masked_hops()
+        if bool((dist < 0).any()):
             raise ValueError(f"{self.graph.name}: graph is disconnected")
         return dist
 
@@ -248,33 +260,40 @@ class GraphRouter(IncidenceCacheMixin):
 
     # --------------------------------------------------- ordered sums ----
 
-    def _block(self, col: str, C: int):
+    def _block(self, col: str, C: int, cache: bool = True):
         """``(ids, plan)`` of an ``(E, C)`` block scattered by the ``src``
         or ``dst`` column: flat ids ``col[e] * C + c``, and for ``dst``
         first the ``S * C`` ids of the block it adds into (so each bin
         starts from its old value, as ``np.add.at`` does).  The plan (card
-        only, one lane a segment) is built once per router and width."""
+        only, one lane a segment) is built once per router and width;
+        ``cache=False`` builds a block for one call and keeps nothing (at
+        mphx-4p-86x9 a width's ids alone take ``E * C * 8`` bytes, 64 MB
+        at the chunk width)."""
         key = (col, C)
-        if key not in self._blocks:
-            csr, dev = self.csr, self.device
-            cols = torch.arange(C, device=dev)
-            ids = (getattr(csr, col)[:, None] * C + cols).reshape(-1)
-            if col == "dst":
-                ids = torch.cat([torch.arange(csr.n_switches * C,
-                                              device=dev), ids])
-            plan = None
-            if dev.type == "cuda":
-                plan = dataclasses.replace(
-                    make_plan(ids, csr.n_switches * C), lanes=1)
+        hit = self._blocks.get(key)
+        if hit is not None:
+            return hit
+        csr, dev = self.csr, self.device
+        cols = torch.arange(C, device=dev)
+        ids = (getattr(csr, col)[:, None] * C + cols).reshape(-1)
+        if col == "dst":
+            ids = torch.cat([torch.arange(csr.n_switches * C, device=dev),
+                             ids])
+        plan = None
+        if dev.type == "cuda":
+            plan = dataclasses.replace(
+                make_plan(ids, csr.n_switches * C), lanes=1)
+        if cache:
             self._blocks[key] = (ids, plan)
-        return self._blocks[key]
+        return ids, plan
 
     def _row_sum(self, vals: torch.Tensor, col: str, backend: str,
-                 into: "torch.Tensor | None" = None) -> torch.Tensor:
+                 into: "torch.Tensor | None" = None,
+                 cache: bool = True) -> torch.Tensor:
         """(S, C): ``np.add.at(into or zeros, csr.<col>, vals)`` for an
-        ``(E, C)`` block, in its bits."""
+        ``(E, C)`` block, in its bits (``cache``: :meth:`_block`'s)."""
         C = vals.shape[1]
-        ids, plan = self._block(col, C)
+        ids, plan = self._block(col, C, cache)
         flat = vals.reshape(-1)
         if into is not None:
             flat = torch.cat([into.reshape(-1), flat])
@@ -282,18 +301,23 @@ class GraphRouter(IncidenceCacheMixin):
         return routing_vec.ordered_sum(flat, ids, S * C, backend,
                                        plan=plan).view(S, C)
 
-    def _row_max(self, vals: torch.Tensor, backend: str) -> torch.Tensor:
-        """(S, C): ``np.maximum.at(full(-inf), csr.src, vals)`` for an
-        ``(E, C)`` block, as ``-segment_min(-vals)`` (empty bins -inf)."""
+    def _row_min(self, vals: torch.Tensor, backend: str) -> torch.Tensor:
+        """(S, C): ``np.minimum.at(full(inf), csr.src, vals)`` for an
+        ``(E, C)`` block (empty bins +inf; exact in any order)."""
         C = vals.shape[1]
         ids, plan = self._block("src", C)
         n = self.csr.n_switches * C
-        neg = -vals.reshape(-1)
+        flat = vals.reshape(-1)
         if backend == "cuda":
-            m = segment_min(neg, ids, n, plan=plan)
+            m = segment_min(flat, ids, n, plan=plan)
         else:
-            m = segment_min_ref(neg, ids, n)
-        return (-m).view(self.csr.n_switches, C)
+            m = segment_min_ref(flat, ids, n)
+        return m.view(self.csr.n_switches, C)
+
+    def _row_max(self, vals: torch.Tensor, backend: str) -> torch.Tensor:
+        """(S, C): ``np.maximum.at(full(-inf), csr.src, vals)`` for an
+        ``(E, C)`` block, as ``-segment_min(-vals)`` (empty bins -inf)."""
+        return -self._row_min(-vals, backend)
 
     def _sum_into(self, vals: torch.Tensor, ids: torch.Tensor, n: int,
                   backend: str) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Experiment suites of the port (``--suite table2``, ``--suite sim`` and
-``--suite sweep``): scenario registry, topology presets, artifact
-writers and the CLI."""
+"""Experiment suites of the port (``--suite table2``, ``--suite sim``,
+``--suite sweep`` and ``--suite failures``): scenario registry, topology
+presets, artifact writers and the CLI."""
 
 from .sweep import run_table2_suite
 

@@ -1,8 +1,10 @@
 """CLI of the port's experiment suites: ``table2`` (the paper's Table 2
 joined with the closed-form latency/throughput/all-reduce model), ``sim``
 (measured flow-completion times from the event loop, and measured
-collectives sprayed over the planes) and ``sweep``
-(routed latency/throughput vs offered load in the three routing modes).
+collectives sprayed over the planes), ``sweep`` (routed
+latency/throughput vs offered load in the three routing modes) and
+``failures`` (degraded fabrics: healthy-vs-degraded throughput and the
+recovery curves of the three reroute modes).
 
 Examples::
 
@@ -17,6 +19,10 @@ Examples::
     PYTHONPATH=src python -m repro_torch.experiments.run --suite sweep \\
         --topos mphx-2p-16x16 --modes minimal valiant adaptive \\
         --loads 0.5 1.0 --simulate --out results/experiments_torch
+    PYTHONPATH=src python -m repro_torch.experiments.run --suite failures \\
+        --topos mphx-4p-86x9 --failures link:0.01,plane:1 \\
+        switch:0.02,seed:3 --reroute-modes none local global \\
+        --out results/experiments_torch
 
 MPHX presets route on the array engine and the Table-2 baselines
 (``ft3-*``, ``mpft-*``, ``dragonfly-*``, ``dfplus-*``) on the graph
@@ -26,6 +32,9 @@ engine; ``--engine graph`` routes MPHX on the graph engine too, and
 ``--device cpu``.  ``--sim-backend`` picks the fair-share solver's and
 the router's reductions (``cuda``: the hand-written kernels; ``torch``:
 the plain versions).  ``table2`` is host arithmetic and ignores both.
+``--suite failures`` always re-routes on the graph engine (``--engine
+array`` turns every topology into a skip record); a malformed
+``--failures`` spec exits 2, naming its bad part.
 Artifacts: ``<out>/<suite>.json`` and ``<out>/<suite>.md`` (schema v7
 rows, see :mod:`repro_torch.experiments.artifacts`).
 
@@ -44,13 +53,16 @@ import sys
 from contextlib import nullcontext
 
 from .._device import SIM_BACKENDS
+from ..routing.protection import REROUTE_MODES
+from ..sim.failures import parse_failure_spec
 from ..telemetry import TraceRecorder, recording
 from .scenarios import SCENARIOS
-from .simsuite import DEFAULT_SIM_SCENARIOS, DEFAULT_SIM_TOPOS, run_sim_suite
+from .simsuite import (DEFAULT_FAILURE_SPECS, DEFAULT_SIM_SCENARIOS,
+                       DEFAULT_SIM_TOPOS, run_failures_suite, run_sim_suite)
 from .sweep import (DEFAULT_OUTDIR, DEFAULT_SWEEP_TOPOS, ROUTING_MODES,
                     SWEEP_TOPOLOGIES, run_sweep_suite, run_table2_suite)
 
-SUITES = ["table2", "sim", "sweep"]
+SUITES = ["table2", "sim", "sweep", "failures"]
 
 # why a suite leaves no trace events (the reference's reasons)
 UNTRACED = {
@@ -59,6 +71,7 @@ UNTRACED = {
     "sweep": "analytic routing sweep without --simulate — nothing "
              "crosses the simulator",
     "sim": "suite produced no trace events (all cells skipped)",
+    "failures": "suite produced no trace events (all cells skipped)",
 }
 
 
@@ -72,12 +85,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help=f"artifact directory (default {DEFAULT_OUTDIR})")
     p.add_argument("--topos", nargs="+", choices=sorted(SWEEP_TOPOLOGIES),
                    default=None,
-                   help=f"topologies (default: sim {' '.join(DEFAULT_SIM_TOPOS)}"
-                   f"; sweep {' '.join(DEFAULT_SWEEP_TOPOS)})")
+                   help="topologies (default: sim and failures "
+                   f"{' '.join(DEFAULT_SIM_TOPOS)}; sweep "
+                   f"{' '.join(DEFAULT_SWEEP_TOPOS)})")
     p.add_argument("--scenarios", nargs="+", choices=sorted(SCENARIOS),
                    default=None, help="scenarios (default: sim "
-                   f"{' '.join(DEFAULT_SIM_SCENARIOS)}; sweep all, "
-                   "inapplicable ones recorded as skipped)")
+                   f"{' '.join(DEFAULT_SIM_SCENARIOS)}; failures uniform; "
+                   "sweep all, inapplicable ones recorded as skipped)")
     p.add_argument("--modes", nargs="+", choices=list(ROUTING_MODES),
                    default=None,
                    help="sweep: routing modes (default: all three; the sim "
@@ -86,7 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default="auto",
                    help="routing engine (auto: array for MPHX, graph for "
                    "the baseline topologies; a topology the forced engine "
-                   "cannot route is recorded as skipped)")
+                   "cannot route is recorded as skipped; failures always "
+                   "re-route on graph, so array yields skip records)")
     p.add_argument("--loads", nargs="+", type=float, default=None,
                    help="offered load fractions of NIC bandwidth (default: "
                    "0.5 0.9 for sim, 0.1..1.0 for sweep)")
@@ -107,6 +122,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="all-reduce payload for the table2 suite")
     p.add_argument("--sim-collective-mb", type=float, default=16.0,
                    help="sim suite: measured-collective payload per NIC")
+    p.add_argument("--failures", nargs="+", default=None, metavar="SPEC",
+                   help="failure specs for the failures suite, e.g. "
+                   "'link:0.01' 'link:0.01,plane:1' 'switch:0.02,seed:3' "
+                   f"(default: {' '.join(DEFAULT_FAILURE_SPECS)})")
+    p.add_argument("--failure-load", type=float, default=0.5,
+                   help="offered load fraction for the failures suite")
+    p.add_argument("--failure-mode", choices=list(ROUTING_MODES),
+                   default="adaptive",
+                   help="routing mode for degraded-fabric re-routing")
+    p.add_argument("--reroute-modes", nargs="+", default=None,
+                   choices=list(REROUTE_MODES), metavar="MODE",
+                   help="recovery-curve reroute modes for the failures "
+                   "suite: none (global recompute), local (precomputed "
+                   "backup paths, no BFS), global (local bridge + full "
+                   "reconvergence); default: all three")
+    p.add_argument("--protection-layers", type=int, default=4,
+                   help="FatPaths/MRC protection layers for the local and "
+                   "global reroute modes (default 4)")
     p.add_argument("--trace", default=None, metavar="OUT.json",
                    help="run the suite under the fabric flight recorder "
                    "and export a Chrome/Perfetto trace_event JSON; the "
@@ -122,6 +155,14 @@ def _note_if_untraced(rec, suite: str) -> None:
 
 def main(argv: "list[str] | None" = None) -> int:
     args = build_parser().parse_args(argv)
+    args.failure_specs = None
+    if args.failures is not None:
+        try:
+            args.failure_specs = [parse_failure_spec(s)
+                                  for s in args.failures]
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
     rec, ctx = None, nullcontext()
     if args.trace:
         rec = TraceRecorder()
@@ -156,6 +197,19 @@ def _run(args) -> int:
               f"{payload['params']['n_skipped']} skipped on "
               f"{payload['params']['device_name']} -> {args.out}/sweep.json, "
               f"{args.out}/sweep.md")
+        return 0
+    if args.suite == "failures":
+        payload = run_failures_suite(
+            args.out, topo_names=args.topos, scenario_names=args.scenarios,
+            failure_specs=args.failure_specs,
+            offered_fraction=args.failure_load, mode=args.failure_mode,
+            engine=args.engine, reroute_modes=args.reroute_modes,
+            protection_layers=args.protection_layers,
+            sim_backend=args.sim_backend, device=args.device)
+        print(f"failures: {payload['params']['n_rows']} rows, "
+              f"{payload['params']['n_skipped']} skipped on "
+              f"{payload['params']['device_name']} -> "
+              f"{args.out}/failures.json, {args.out}/failures.md")
         return 0
     payload = run_sim_suite(
         args.out, topo_names=args.topos, scenario_names=args.scenarios,

@@ -19,11 +19,13 @@ decide whether to go on.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 
 import torch
 
 from .._device import resolve_device, resolve_sim_backend
+from ..core.routing_vec import ordered_sum
 from ..kernels.segment_fairshare import (SegmentPlan, make_plan,
                                          segment_min, segment_min_ref,
                                          segment_sum, segment_sum_ref)
@@ -131,6 +133,26 @@ class FlowIncidence:
         per_entry = self.capacity[self.edge] / self.frac
         return _seg_min(per_entry, self.flow, self.n_flows, backend,
                         self.flow_plan(backend))
+
+    def edge_share(self, edges, backend: "str | None" = None
+                   ) -> torch.Tensor:
+        """(F,) fraction of each flow's rate crossing any edge in
+        ``edges`` (clipped to 1): the first-order stalled share when those
+        edges fail before re-routing (:mod:`repro_torch.sim.failures`).
+        Each flow adds its selected entries one by one in entry order
+        (``np.add.at``'s bits), through a plan with one lane a segment on
+        the card."""
+        backend = resolve_sim_backend(backend)
+        edges = torch.as_tensor(edges, dtype=torch.int64, device=self.device)
+        sel = torch.isin(self.edge, edges)
+        flow = self.flow[sel]
+        plan = None
+        if flow.is_cuda:
+            plan = dataclasses.replace(
+                make_plan(flow, self.n_flows, presorted=True), lanes=1)
+        out = ordered_sum(self.frac[sel], flow, self.n_flows, backend,
+                          plan=plan)
+        return out.clamp_max(1.0)
 
 
 def flow_incidence(router, demands, mode: str = "minimal",

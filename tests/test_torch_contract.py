@@ -43,7 +43,8 @@ from repro_torch.core.routing_graph import (  # noqa: E402
 from repro_torch.experiments.run import main as cli_main  # noqa: E402
 from repro_torch.experiments.sweep import (SWEEP_TOPOLOGIES,  # noqa: E402
                                            run_sweep_suite)
-from repro_torch.experiments.simsuite import run_sim_suite  # noqa: E402
+from repro_torch.experiments.simsuite import (  # noqa: E402
+    run_failures_suite, run_sim_suite)
 from repro_torch.kernels.flash_attention import flash_attention  # noqa
 from repro_torch.kernels.grouped_matmul import (  # noqa: E402
     grouped_matmul, ragged_grouped_matmul)
@@ -54,9 +55,12 @@ from repro_torch.launch.serve import main as serve_main  # noqa: E402
 from repro_torch.models.registry import get_config, get_model  # noqa: E402
 from repro_torch.models.rglru import RGLRUModel  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
+from repro_torch.routing.protection import ProtectedRouter  # noqa: E402
 from repro_torch.sim.events import (FlowSpec, flows_to_demands,  # noqa
                                     simulate_incidence)
 from repro_torch.sim.collective_sim import simulate_collective  # noqa
+from repro_torch.sim.failures import (  # noqa: E402
+    degraded_router, failure_throughput, parse_failure_spec, recovery_curve)
 from repro_torch.sim.fairshare import max_min_rates  # noqa: E402
 from repro_torch.sim.spray import flowlet_split, simulate_sprayed  # noqa
 
@@ -160,6 +164,11 @@ def no_cuda():
 def test_entry_points_refuse_to_run_on_the_cpu_unasked(no_cuda, tmp_path):
     topo = MPHX(n=2, p=8, dims=(8, 8))
     inc = incidence_from_arrays([0], [0], [1.0], 1, [1.0], device="cpu")
+    spec = parse_failure_spec("link:0.05")
+
+    def build(*args):
+        raise AssertionError("demands built before the device was checked")
+
     calls = [
         lambda: make_router(topo),
         lambda: VectorizedHyperXRouter(topo),
@@ -205,6 +214,13 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(no_cuda, tmp_path):
         lambda: flowlet_split(np.ones(3), 2, 0.5),
         lambda: cli_main(["--sim-collective-mb", "1", "--out",
                           str(tmp_path)]),
+        lambda: run_failures_suite(str(tmp_path)),
+        lambda: cli_main(["--suite", "failures", "--out", str(tmp_path)]),
+        lambda: ProtectedRouter(topo),
+        lambda: degraded_router(topo, spec),
+        lambda: failure_throughput(topo, build, spec, 400.0),
+        lambda: recovery_curve(topo, build, spec, 400.0),
+        lambda: recovery_curve(topo, build, spec, 400.0, reroute="local"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -212,6 +228,7 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(no_cuda, tmp_path):
     assert not (tmp_path / "sim.json").exists()
     assert not (tmp_path / "sweep.json").exists()
     assert not (tmp_path / "t.json").exists()
+    assert not (tmp_path / "failures.json").exists()
 
 
 def test_unknown_backend_raises():

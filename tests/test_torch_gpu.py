@@ -19,6 +19,11 @@ backend.
 Sprayed runs (chunk and flowlet split, skewed and dead planes) through
 the kernels: per-plane bytes bit for bit and completions within 1e-9 of
 the plain path's and the CPU's.
+Fast-reroute protection through the kernels (the first-downhill table's
+segment min, the pulls' ordered sums): tables and local-reroute loads
+bit for bit equal to the plain path's and the CPU's; the failures
+suite's rows equal across the three; each recovery phase's wall closed
+by one device synchronize.
 The adaptive router's load update through the sum kernel bit for bit
 equal to the plain path's (the ordered twin) and repeatable; the
 valiant incidence coalesced on the card equal to the CPU's, ``frac``
@@ -75,6 +80,9 @@ from repro_torch.models.registry import get_config, get_model  # noqa: E402
 from repro_torch.core.planes import SprayConfig  # noqa: E402
 from repro_torch.sim.events import FlowSpec, simulate_incidence  # noqa
 from repro_torch.sim.spray import flowlet_split, simulate_sprayed  # noqa
+from repro_torch.routing.protection import ProtectedRouter  # noqa: E402
+from repro_torch.sim import failures  # noqa: E402
+from repro_torch.experiments.simsuite import run_failures_suite  # noqa
 from repro_torch.sim.fairshare import (SolveProblem,  # noqa: E402
                                        flow_incidence)
 from repro_torch.telemetry import (LinkSeriesPolicy,  # noqa: E402
@@ -1731,3 +1739,173 @@ def test_hybrid_through_kernels_matches_plain(cuda, dtype):
     assert rg_lru.LAUNCHES["lru_scan"] == n_rec
     assert fa.LAUNCHES["flash_attention"] == 5 * n_attn
     assert rn.LAUNCHES["rmsnorm"] == 5 * (2 * cfg.n_layers + 1)
+
+
+# ------------------------------------------------------------- failures ----
+
+
+PROTECTED_FABRIC = "mphx-2p-16x16"
+REROUTE_SPECS = ["link:0.15,seed:4", "switch:0.03,seed:1"]
+
+
+def reroute_routers(cuda):
+    topo = SWEEP_TOPOLOGIES[PROTECTED_FABRIC]
+    return {name: ProtectedRouter(topo, n_layers=4, backend=backend,
+                                  device=dev)
+            for name, dev, backend in (("cuda", cuda, "cuda"),
+                                       ("torch", cuda, "torch"),
+                                       ("cpu", "cpu", "torch"))}
+
+
+def same_bits(a, b) -> bool:
+    return torch.equal(a.cpu().view(torch.int64), b.cpu().view(torch.int64))
+
+
+def test_protection_tables_through_kernels_equal_plain_and_cpu(cuda):
+    """The first-downhill table (a segment min over each (source,
+    destination) block) and the backup next-hops through the min kernel,
+    on the plain path and on the CPU: equal; the plain path launches
+    nothing."""
+    prs = reroute_routers(cuda)
+    reset_launch_counts()
+    tables = [prs["cuda"]._first_downhill_table(l) for l in range(1, 4)]
+    assert LAUNCHES["segment_min"] > 0
+    launched = dict(LAUNCHES)
+    for name in ("torch", "cpu"):
+        for l, want in zip(range(1, 4), tables):
+            assert torch.equal(prs[name]._first_downhill_table(l).cpu(),
+                               want.cpu())
+    assert LAUNCHES == launched
+    bnh = prs["cuda"].backup_next_hops()
+    for name in ("torch", "cpu"):
+        assert torch.equal(prs[name].backup_next_hops().cpu(), bnh.cpu())
+        assert prs[name].protection_coverage() == \
+            prs["cuda"].protection_coverage()
+
+
+@pytest.mark.parametrize("spec", REROUTE_SPECS)
+def test_local_reroute_through_kernels_equals_plain_and_cpu(cuda, spec):
+    """``local_reroute_loads`` (pulls with their ECMP denominators and
+    row scatters through the sum kernel at one lane a segment, diversions
+    into protection layers) bit for bit equal to the plain path's and
+    the CPU's, twice; one pull of it alone too."""
+    prs = reroute_routers(cuda)
+    topo = SWEEP_TOPOLOGIES[PROTECTED_FABRIC]
+    out = {}
+    for name, pr in prs.items():
+        dev = pr.device
+        dem = get_scenario("uniform").build(topo, 0.5 * topo.nic_bw_gbps,
+                                            graph=pr.graph, device=dev)
+        dg = failures.degrade_graph(pr.graph,
+                                    failures.parse_failure_spec(spec))
+        reset_launch_counts()
+        out[name] = pr.local_reroute_loads(dem, dg)
+        if name == "cuda":
+            assert LAUNCHES["segment_sum"] > 0
+            assert same_bits(pr.local_reroute_loads(dem, dg).loads,
+                             out[name].loads)
+            # one pull alone: delivered and loads
+            surv_mult, _, alive = pr._degraded_state(dg)
+            dests = torch.arange(16, device=dev)
+            inject = torch.rand((256, 16), dtype=torch.float64,
+                                device=dev, generator=torch.Generator(
+                                    dev).manual_seed(0))
+            pulls = []
+            for backend in ("cuda", "torch"):
+                pr.backend = backend
+                loads = torch.zeros(pr.csr.n_edges, dtype=torch.float64,
+                                    device=dev)
+                d, st, divs = pr._pull(0, dests, inject, surv_mult > 0,
+                                       surv_mult, alive, loads)
+                pulls.append((d, st, divs, loads))
+            pr.backend = "cuda"
+            (d1, s1, v1, l1), (d2, s2, v2, l2) = pulls
+            assert same_bits(d1, d2) and same_bits(l1, l2) and s1 == s2
+            assert v1.keys() == v2.keys()
+            assert all(same_bits(v1[k], v2[k]) for k in v1)
+        else:
+            assert LAUNCHES["segment_sum"] == 0
+    want = out["cuda"]
+    assert want.conservation_residual < 1e-9
+    for name in ("torch", "cpu"):
+        got = out[name]
+        assert same_bits(got.loads, want.loads)
+        for k in ("injected_gbps", "delivered_gbps", "stalled_gbps",
+                  "diverted_gbps", "n_pulls"):
+            assert getattr(got, k) == getattr(want, k), k
+        assert np.array_equal(got.layer_gbps, want.layer_gbps)
+
+
+def test_failures_suite_through_kernels_equals_plain_and_cpu(cuda, tmp_path):
+    """``--suite failures`` at its defaults (mphx-2p-8x8, dragonfly-small;
+    link:0.01, link:0.05; uniform; three reroute modes): every column
+    but the walls equal on the kernels, the plain path and the CPU."""
+    rows = {}
+    for name, dev, backend in (("cuda", cuda, "cuda"),
+                               ("torch", cuda, "torch"),
+                               ("cpu", "cpu", "torch")):
+        reset_launch_counts()
+        payload = run_failures_suite(str(tmp_path / name),
+                                     sim_backend=backend, device=dev)
+        if name == "cuda":
+            assert LAUNCHES["segment_sum"] > 0
+            assert LAUNCHES["segment_min"] > 0
+        rows[name] = payload["rows"]
+    walls = ("phase_wall_s", "t_offset_s", "sim_wall_s", "time_to_90_s")
+    assert len(rows["cuda"]) == 56
+    for name in ("torch", "cpu"):
+        assert len(rows[name]) == len(rows["cuda"])
+        for a, b in zip(rows["cuda"], rows[name]):
+            assert {k: v for k, v in a.items() if k not in walls} == \
+                {k: v for k, v in b.items() if k not in walls}
+
+
+@pytest.mark.parametrize("reroute", ["none", "local", "global"])
+def test_recovery_walls_end_with_a_device_synchronize(cuda, monkeypatch,
+                                                      reroute):
+    """Each phase wall of ``recovery_curve`` is closed by one device
+    synchronize (the clock read right after it), and there is no other:
+    a wall holds its phase's device work, not only the launches.  The
+    synchronizing calls torch's sync debug mode sees inside the curve
+    (host reads) are counted beside."""
+    import time
+    import types
+    import warnings
+
+    topo = SWEEP_TOPOLOGIES[PROTECTED_FABRIC]
+    pr = ProtectedRouter(topo, n_layers=4, device=cuda)
+    pr.backup_next_hops()
+    spec = failures.parse_failure_spec("link:0.05")
+
+    def build(t, o, g):
+        return get_scenario("uniform").build(t, o, graph=g, device=cuda)
+
+    log = []
+
+    def sync(device):
+        log.append(("sync", torch.cuda.current_stream(device).query()))
+        torch.cuda.synchronize(device)
+
+    def clock():
+        log.append(("clock", None))
+        return time.perf_counter()
+
+    monkeypatch.setattr(failures, "synchronize", sync)
+    monkeypatch.setattr(failures, "time",
+                        types.SimpleNamespace(perf_counter=clock))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            rows = failures.recovery_curve(
+                topo, build, spec, 0.5 * topo.nic_bw_gbps,
+                reroute=reroute, protection=pr if reroute != "none"
+                else None, device=cuda)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [i for i, (kind, _) in enumerate(log) if kind == "sync"]
+    assert len(syncs) == len(rows) == {"none": 3, "local": 3,
+                                       "global": 4}[reroute]
+    # every synchronize is followed at once by the clock that ends a wall
+    assert all(log[i + 1][0] == "clock" for i in syncs)
+    assert sum("synchronizing" in str(w.message) for w in caught) > 0
