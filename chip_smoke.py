@@ -130,7 +130,27 @@ nonzero:
    segment
    kernels at the protection's shapes at 86 x 9: a local-reroute pull's
    ECMP denominators and the backup table's first-downhill min.
-12. ``model_kernel``: RMSNorm and flash attention against their plain
+12. ``cosim_serving``: training-step co-simulation and multi-tenant
+   serving, each line stamped with ``phase_s``.  (a) ``--suite cosim``
+   and ``--suite serving --tenants chat burst train web`` through the
+   CLI at their defaults, through the kernels (launch counts read
+   around that run alone), on the plain path and on the CPU, and
+   ``--suite cosim --cosim-method batches`` through the kernels and on
+   the CPU: rows equal but the walls; ``--suite cosim --trace``: the
+   phase spans add up to the rows' ``comm_ms``.  (b) ``--suite cosim
+   --topos mphx-4p-86x9 --ranks 16384`` (kimi-k2-1t-a32b dp 1,024 x tp
+   16 x ep 8 and mixtral-8x22b dp 2,048 x tp 8 x ep 8; array engine
+   linear and mapped, graph engine linear) twice through the kernels
+   (rows equal but the walls) and once on the plain path (1e-9), then
+   ``--topos mphx-2p-16x16 --ranks 4096`` through the kernels and on
+   the CPU (1e-9); each run's wall, peak device memory and launches,
+   each row's wall, phase flows and steps and ``comm_over_analytic``.
+   (c) ``--suite serving --topos mphx-2p-8x8 --serving-rate-scale 4``
+   with the four tenants, seed 0, twice through the kernels
+   (``serving.json`` byte for byte) and once on the plain path (rows
+   equal): the mixed run's flows and epochs, the wall and epochs a
+   second.
+13. ``model_kernel``: RMSNorm and flash attention against their plain
    versions (edge cases: ragged sizes, decode, GQA and MQA, a window, a
    ring cache with empty and wrapped slots, float32 and bfloat16), at
    the serve path's shapes (float32 at 2e-5; bfloat16, and for
@@ -159,7 +179,7 @@ nonzero:
    shape 1), and each line carries its ``splits``; its device
    times come from the profiler and from CUDA graphs as attention's,
    beside ``torch.bmm``'s, with the SM clock around each timing.
-13. ``serve``: yi-9b at full width and depth (random bf16 weights drawn
+14. ``serve``: yi-9b at full width and depth (random bf16 weights drawn
    on the card from a seed) serves 8 requests of 1,024 prompt tokens and
    32 new tokens each in waves of 4 through the kernels, with the launch
    counts read around that run alone (97 RMSNorm and 48 attention
@@ -169,7 +189,7 @@ nonzero:
    Prefill and teacher-forced decode logits of the two paths must agree,
    and a float32 2-layer yi-9b must agree at 2e-5; a decode wave is
    profiled for the device's idle share.
-14. ``moe_serve``: mixtral-8x22b at full width and 12 of its 56 layers
+15. ``moe_serve``: mixtral-8x22b at full width and 12 of its 56 layers
    (60.9 GB of random bf16 weights drawn on the card after yi-9b's are
    freed) serves the same traffic through the kernels, with the launch
    counts read around that run alone (25 RMSNorm, 12 attention and 36
@@ -190,7 +210,7 @@ nonzero:
    runs through mixtral's 4,096-token window, a decode wave is profiled,
    and a float32 2-layer mixtral must agree at 2e-5 with no routing
    flipped.
-15. ``hybrid_serve``: the RG-LRU scan bit for bit equal to its plain
+16. ``hybrid_serve``: the RG-LRU scan bit for bit equal to its plain
    version, with each shape's plan, at ``tests/test_kernels.py``'s edge
    shapes, ragged widths and lengths, recurrentgemma-2b prefill's (4,
    1024, 2560) (timed: event, device and CUDA-graph ms, GB/s and the
@@ -208,7 +228,7 @@ nonzero:
    wave is
    profiled, and a float32 model at full width and 5 of its 26 layers
    must agree at 2e-5.
-16. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
+17. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
@@ -310,6 +330,20 @@ FAILURE_LAYERS = 4
 # each side)
 FAILURE_UNCOMPARED_KEYS = ("phase_wall_s", "t_offset_s", "sim_wall_s",
                            "time_to_90_s", "conservation_residual")
+# the cosim_serving phase: --suite serving with the four tenant presets;
+# one training step of kimi-k2 and mixtral on 16,384 ranks of the paper's
+# Table-2 MPHX (twice through the kernels, once on the plain path) and on
+# 4,096 ranks of mphx-2p-16x16 (kernels and the CPU); the serving mix at
+# 4 x its rates on mphx-2p-8x8 (the many-epoch host-bound cell)
+SERVING_TENANTS = ["chat", "burst", "train", "web"]
+COSIM_CELLS = [
+    (MAIN_TOPO, 16_384, (("cuda", "cuda", "cuda"),
+                         ("cuda again", "cuda", "cuda"),
+                         ("torch", "cuda", "torch"))),
+    (COLLECTIVE_TOPO, 4096, (("cuda", "cuda", "cuda"),
+                             ("cpu", "cpu", "torch"))),
+]
+SERVING_TOPO, SERVING_RATE_SCALE = "mphx-2p-8x8", 4.0
 
 KERNELS = {
     "segment_sum": "src/repro/kernels/segment_fairshare/kernel.py:97",
@@ -660,20 +694,29 @@ def kernel_row(name: str, case: str, site: str, vals, ids, n_seg: int,
             "library_ms": lib_ms, "lanes": lanes, **b}
 
 
-def compare_rows(a: dict, b: dict, where: str,
-                 uncompared: tuple = UNCOMPARED_KEYS,
+def compare_rows(a, b, where: str, uncompared: tuple = UNCOMPARED_KEYS,
                  exact: bool = False) -> None:
-    """Every key of ``a`` but ``uncompared``: ints and strings exact,
-    floats at 1e-9 relative (exactly with ``exact``)."""
-    for k, v in a.items():
-        if k in uncompared:
-            continue
-        w = b.get(k)
-        if isinstance(v, float) and isinstance(w, float) and not exact:
-            if abs(v - w) > 1e-9 * max(abs(v), abs(w)):
-                raise AssertionError(f"{where}: {k} {v} != {w}")
-        elif v != w:
-            raise AssertionError(f"{where}: {k} {v!r} != {w!r}")
+    """Rows, lists of rows and the dicts and lists inside them (a cosim
+    row's ``phases`` and ``mesh``): the same keys, every value but the
+    ``uncompared`` keys' equal, ints and strings exactly, floats at 1e-9
+    relative (exactly with ``exact``)."""
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or a.keys() != b.keys():
+            raise AssertionError(f"{where}: keys {sorted(a)} != "
+                                 f"{sorted(b) if isinstance(b, dict) else b}")
+        for k, v in a.items():
+            if k not in uncompared:
+                compare_rows(v, b[k], f"{where}: {k}", uncompared, exact)
+    elif isinstance(a, list):
+        if not isinstance(b, list) or len(a) != len(b):
+            raise AssertionError(f"{where}: {a} != {b}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            compare_rows(x, y, f"{where}[{i}]", uncompared, exact)
+    elif isinstance(a, float) and isinstance(b, float) and not exact:
+        if abs(a - b) > 1e-9 * max(abs(a), abs(b)):
+            raise AssertionError(f"{where}: {a} != {b}")
+    elif a != b:
+        raise AssertionError(f"{where}: {a!r} != {b!r}")
 
 
 def run_suite(backend: str, topo: str, out: str) -> "tuple[dict, float]":
@@ -855,6 +898,40 @@ def timed(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, time.perf_counter() - t0
+
+
+def launched(by_path: dict, path: str, kernels=tuple(KERNELS),
+             counts=None) -> None:
+    """Keep ``path``'s launch counts in ``by_path`` (default: the counts
+    now); each of ``kernels`` must have launched."""
+    from repro_torch.kernels.segment_fairshare import LAUNCHES
+
+    by_path[path] = dict(LAUNCHES if counts is None else counts)
+    missing = [k for k in kernels if by_path[path][k] == 0]
+    if missing:
+        raise AssertionError(f"{path} launched no {missing} kernel")
+
+
+def run_cli(args: list, out: Path, dev: str, backend: str) -> tuple:
+    """``python -m repro_torch.experiments.run`` with ``args`` on ``dev``
+    and ``backend`` into ``out``, from an emptied cache and zeroed launch
+    counts: (the suite's payload, wall, peak bytes on the card (None on
+    the CPU), launch counts)."""
+    from repro_torch.experiments.run import main as cli
+    from repro_torch.kernels.segment_fairshare import (LAUNCHES,
+                                                       reset_launch_counts)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    rc, wall = timed(lambda: cli(args + ["--device", dev, "--sim-backend",
+                                         backend, "--out", str(out)]))
+    if rc != 0:
+        raise AssertionError(f"{args} on {dev} ({backend}): exit {rc}")
+    suite = args[args.index("--suite") + 1]
+    payload = json.loads((out / f"{suite}.json").read_text())
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else None
+    return payload, wall, peak, dict(LAUNCHES)
 
 
 def capture_sums(fn):
@@ -1595,15 +1672,6 @@ def phase_table2_trace() -> dict:
     def emit_t2(**fields):
         emit("table2_trace", phase_s=time.perf_counter() - t_phase, **fields)
 
-    def launched(path, kernels=("segment_sum", "segment_min"),
-                 counts=None):
-        """Keep ``path``'s launch counts (default: the counts now); each
-        of ``kernels`` must have launched."""
-        by_path[path] = dict(LAUNCHES if counts is None else counts)
-        missing = [k for k in kernels if by_path[path][k] == 0]
-        if missing:
-            raise AssertionError(f"{path} launched no {missing} kernel")
-
     # --suite table2 through the CLI, traced: the host's rows, every
     # cost the paper's, and the untraced note
     out = OUT_DIR / "table2"
@@ -1651,7 +1719,7 @@ def phase_table2_trace() -> dict:
             results[topo.name, mode] = timed(
                 lambda: adversarial_throughput_fraction(
                     topo, mode, backend="cuda", device="cuda"))
-    launched("table2 adversarial", ("segment_sum",))
+    launched(by_path, "table2 adversarial", ("segment_sum",))
     for topo in table2_mphx_rows():
         for mode in ROUTING_MODES:
             got, wall = results[topo.name, mode]
@@ -1673,16 +1741,15 @@ def phase_table2_trace() -> dict:
     reset_launch_counts()
     got, wall = timed(lambda: pattern_throughput(
         topo, dem, "minimal", simulate=True, backend="cuda", device="cuda"))
-    launched("table2 pattern_throughput", ("segment_sum",))
+    launched(by_path, "table2 pattern_throughput", ("segment_sum",))
     want, pwall = timed(lambda: pattern_throughput(
         topo, dem, "minimal", simulate=True, backend="torch",
         device="cuda"))
     if got["sim_max_abs_util_diff"] > 1e-6:
         raise AssertionError(f"pattern_throughput: util diff "
                              f"{got['sim_max_abs_util_diff']}")
-    compare_rows({k: v for k, v in got.items()
-                  if k != "sim_max_abs_util_diff"}, want,
-                 "pattern_throughput")
+    compare_rows(got, want, "pattern_throughput",
+                 UNCOMPARED_KEYS + ("sim_max_abs_util_diff",))
     emit_t2(pattern_throughput=f"{MAIN_TOPO} uniform minimal", **got,
             wall_s=wall, plain_wall_s=pwall, plain_rows_agree=True)
     del dem
@@ -1700,7 +1767,7 @@ def phase_table2_trace() -> dict:
                                       str(OUT_DIR / f"sim_trace_{name}"),
                                       "--trace", str(path)]))
         if name == "cuda":
-            launched("sim default --trace")
+            launched(by_path, "sim default --trace")
         traces[name] = json.loads(path.read_text())
         art = json.loads((OUT_DIR / f"sim_trace_{name}" / "sim.json")
                          .read_text())
@@ -1768,8 +1835,8 @@ def phase_table2_trace() -> dict:
                     buf_res, launches_buf, buf_journal = first
         if backend == "cuda":
             # the event loop alone: water-filling and the journal sum
-            launched(f"many-epoch sim {MAIN_TOPO} traced", ("segment_sum",),
-                     counts=launches_on)
+            launched(by_path, f"many-epoch sim {MAIN_TOPO} traced",
+                     ("segment_sum",), counts=launches_on)
             kernel_journal, kernel_makespan = journal, rec_res.makespan_s
             compare_journals(journal, buf_journal, kernel_makespan,
                              "many-epoch journal, a sum an epoch vs "
@@ -1854,7 +1921,7 @@ def phase_table2_trace() -> dict:
     with recording(rec):
         res, wall = timed(lambda: simulate_incidence(
             inc, size, caps, start_s=start, backend="cuda", device="cuda"))
-    launched(f"bounded series {BOUNDED_TOPO}", ("segment_sum",))
+    launched(by_path, f"bounded series {BOUNDED_TOPO}", ("segment_sum",))
     j = rec.journals[0]
     if not (res.n_epochs > 64 and len(j["t_s"]) == 64
             and j["dropped_epochs"] == res.n_epochs - 64
@@ -1958,12 +2025,6 @@ def phase_spray() -> dict:
     def emit_spray(**fields):
         emit("spray", phase_s=time.perf_counter() - t_phase, **fields)
 
-    def launched(path, kernels=("segment_sum", "segment_min")):
-        by_path[path] = dict(LAUNCHES)
-        missing = [k for k in kernels if by_path[path][k] == 0]
-        if missing:
-            raise AssertionError(f"{path} launched no {missing} kernel")
-
     # the sprayed many-epoch cell: a small run first, so that no timed
     # run pays the first use of torch's kernels
     topo = SWEEP_TOPOLOGIES[MAIN_TOPO]
@@ -1986,7 +2047,7 @@ def phase_spray() -> dict:
             path = f"spray {MAIN_TOPO} {variant}"
             if run == "cuda":
                 # a sprayed run needs no bottleneck: sums alone
-                launched(path, ("segment_sum",))
+                launched(by_path, path, ("segment_sum",))
             counters = mx.snapshot()["counters"]
             flowlet = kw["granularity"] == "flowlet"
             # plans once a run, whatever the planes: the incidence's edge
@@ -2057,7 +2118,7 @@ def phase_spray() -> dict:
             if rc != 0:
                 raise AssertionError(f"{path} ({run}): exit {rc}")
             if run == "cuda":
-                launched(path)
+                launched(by_path, path)
             runs[run] = json.loads((out / "sim.json").read_text())
             emit_spray(path=path, run=run, suite_wall_s=wall,
                        device_name=runs[run]["params"]["device_name"])
@@ -2127,8 +2188,6 @@ def phase_failures() -> dict:
     reroute modes) twice through the kernels, on the plain path and on
     the CPU, then the segment kernels at the protection's shapes.
     Returns each path's launch counts."""
-    from repro_torch.experiments.run import main as cli
-    from repro_torch.experiments.scenarios import get_scenario
     from repro_torch.experiments.simsuite import run_failures_suite
     from repro_torch.experiments.sweep import SWEEP_TOPOLOGIES
     from repro_torch.kernels.segment_fairshare import (LAUNCHES,
@@ -2145,19 +2204,16 @@ def phase_failures() -> dict:
         emit("failures", phase_s=time.perf_counter() - t_phase, **fields)
 
     def compare_failure_rows(got, want, where, exact=False):
-        """``compare_rows`` on each pair of ``--suite failures`` rows, with
-        the same keys; of ``time_to_90_s`` whether it is None, and each
-        side's ``conservation_residual`` below 1e-9.  Returns the count
-        of routed rows."""
+        """``compare_rows`` on each pair of ``--suite failures`` rows; of
+        ``time_to_90_s`` whether it is None, and each side's
+        ``conservation_residual`` below 1e-9.  Returns the count of
+        routed rows."""
         if len(got) != len(want):
             raise AssertionError(f"{where}: {len(got)} rows, not "
                                  f"{len(want)}")
         for a, b in zip(got, want):
             name = f"{where} {a.get('topology')}/{a.get('failures')}/" \
                    f"{a.get('reroute')}/{a.get('phase', a.get('kind'))}"
-            if a.keys() != b.keys():
-                raise AssertionError(f"{name}: keys {sorted(a)} != "
-                                     f"{sorted(b)}")
             compare_rows(a, b, name, FAILURE_UNCOMPARED_KEYS, exact)
             if (a.get("time_to_90_s") is None) \
                     != (b.get("time_to_90_s") is None) \
@@ -2166,26 +2222,15 @@ def phase_failures() -> dict:
                 raise AssertionError(f"{name}: {a} vs {b}")
         return sum(1 for r in got if not r.get("skipped"))
 
-    def launched(path):
-        by_path[path] = dict(LAUNCHES)
-        missing = [k for k in KERNELS if by_path[path][k] == 0]
-        if missing:
-            raise AssertionError(f"{path} launched no {missing} kernel")
-
     # (a) --suite failures through the CLI at its defaults: kernels, plain
     # on the card, the CPU
     payloads = {}
     for run, dev, backend in SPRAY_RUNS:
-        out = OUT_DIR / f"failures_default_{run}"
-        reset_launch_counts()
-        rc, wall = timed(lambda: cli(["--suite", "failures", "--device",
-                                      dev, "--sim-backend", backend,
-                                      "--out", str(out)]))
-        if rc != 0:
-            raise AssertionError(f"failures default ({run}): exit {rc}")
+        payloads[run], wall, _, launches = run_cli(
+            ["--suite", "failures"], OUT_DIR / f"failures_default_{run}",
+            dev, backend)
         if run == "cuda":
-            launched("failures default")
-        payloads[run] = json.loads((out / "failures.json").read_text())
+            launched(by_path, "failures default", counts=launches)
         emit_failures(path="failures default", run=run, suite_wall_s=wall,
                       rows=len(payloads[run]["rows"]),
                       device_name=payloads[run]["params"]["device_name"])
@@ -2230,7 +2275,7 @@ def phase_failures() -> dict:
                 else:
                     payload, wall = timed(suite)
             if run == "cuda":
-                launched(path)
+                launched(by_path, path)
             runs[run] = payload["rows"]
             snap = mx.snapshot()
             emit_failures(
@@ -2317,6 +2362,168 @@ def phase_failures() -> dict:
     del pr, dg, surv_mult, dist, d_src, down, w, first
     torch.cuda.empty_cache()
     emit_failures(launches=by_path, ok=True)
+    return by_path
+
+
+def spy_tenant_sims(fn):
+    """``(fn(), sims)``: the flows and epochs of each simulation the
+    tenant mixes of ``fn`` ran (a fabric's mixed run first, then its
+    isolated ones)."""
+    from repro_torch.workload import tenants
+
+    simulate, sims = tenants._simulate, []
+
+    def spy(router, flows, *args):
+        res = simulate(router, flows, *args)
+        sims.append({"flows": len(flows), "epochs": res.n_epochs})
+        return res
+
+    tenants._simulate = spy
+    try:
+        out = fn()
+    finally:
+        tenants._simulate = simulate
+    return out, sims
+
+
+def phase_cosim_serving() -> dict:
+    """Training-step co-simulation and multi-tenant serving on the card:
+    (a) ``--suite cosim`` and ``--suite serving`` (four tenants) through
+    the CLI at their defaults on the kernels, the plain path and the CPU,
+    ``--cosim-method batches`` on the kernels and the CPU, ``--suite
+    cosim --trace``; (b) the 16,384-rank step on mphx-4p-86x9 twice
+    through the kernels and once on the plain path, and 4,096 ranks on
+    mphx-2p-16x16 on the kernels and the CPU; (c) the serving mix at
+    4 x its rates on mphx-2p-8x8 twice through the kernels (byte-equal
+    ``serving.json``) and once on the plain path.  Returns each path's
+    launch counts."""
+    t_phase = time.perf_counter()
+    by_path = {}
+    card = torch.cuda.get_device_name(0)
+
+    def emit_cs(**fields):
+        emit("cosim_serving", phase_s=time.perf_counter() - t_phase,
+             **fields)
+
+    def out_dir(name, run):
+        return OUT_DIR / f"{name}_{run.replace(' ', '_')}"
+
+    def cosim_rows(payload):
+        return [{"arch": r["arch"], "topology": r["topology"],
+                 "engine": r["engine"], "placement": r["placement"],
+                 "sim_wall_s": r["sim_wall_s"],
+                 "comm_over_analytic": r["comm_over_analytic"],
+                 "tokens_per_s": r["tokens_per_s"],
+                 "phases": [(p["phase"], p["sim_flows_per_step"],
+                             p["steps"]) for p in r["phases"]]}
+                for r in payload["rows"] if not r.get("skipped")]
+
+    # (a) the CLI at its defaults: kernels, plain on the card, the CPU
+    serve_args = ["--suite", "serving", "--tenants", *SERVING_TENANTS]
+    for name, args in (("cosim defaults", ["--suite", "cosim"]),
+                       ("serving defaults", serve_args),
+                       ("cosim batches", ["--suite", "cosim",
+                                          "--cosim-method", "batches"])):
+        runs = {}
+        plan = SPRAY_RUNS if name != "cosim batches" \
+            else (SPRAY_RUNS[0], SPRAY_RUNS[2])
+        for run, dev, backend in plan:
+            payload, wall, peak, launches = run_cli(
+                args, out_dir(name.replace(" ", "_"), run), dev, backend)
+            if run == "cuda":
+                launched(by_path, name, ("segment_sum",), launches)
+            runs[run] = payload["rows"]
+            emit_cs(path=name, run=run, suite_wall_s=wall, peak_bytes=peak,
+                    rows=len(payload["rows"]),
+                    launches=launches if dev == "cuda" else None,
+                    device_name=payload["params"]["device_name"])
+        for other in runs:
+            if other != "cuda":
+                compare_rows(runs["cuda"], runs[other],
+                             f"{name} cuda vs {other}", exact=True)
+        emit_cs(path=name, rows_agree=sorted(runs), ok=True)
+    # --suite cosim --trace: the phase spans add up to the rows' comm
+    trace_path = OUT_DIR / "cosim_trace.json"
+    payload, wall, _, _ = run_cli(
+        ["--suite", "cosim", "--trace", str(trace_path)],
+        OUT_DIR / "cosim_trace_cuda", "cuda", "cuda")
+    trace = json.loads(trace_path.read_text())
+    spans = [e for e in trace["traceEvents"] if e.get("cat") == "phase"]
+    rows = [r for r in payload["rows"] if not r.get("skipped")]
+    span_ms = sum(e["dur"] for e in spans) / 1e3
+    comm_ms = sum(r["comm_ms"] for r in rows)
+    if len(spans) != sum(len(r["phases"]) for r in rows) \
+            or abs(span_ms - comm_ms) > 1e-4 * len(rows):
+        raise AssertionError(f"cosim trace: {len(spans)} phase spans, "
+                             f"{span_ms} ms against {comm_ms} ms")
+    emit_cs(path="cosim trace", suite_wall_s=wall, phase_spans=len(spans),
+            span_ms=span_ms, comm_ms=comm_ms,
+            cosim_phases=payload["telemetry"]["counters"]["cosim.phases"],
+            ok=True)
+
+    # (b) one training step of 16,384 ranks on the paper's Table-2 MPHX:
+    # twice through the kernels, once on the plain path; then 4,096 ranks
+    # on mphx-2p-16x16 through the kernels and on the CPU
+    for topo_name, ranks, plan in COSIM_CELLS:
+        path = f"cosim {topo_name}"
+        args = ["--suite", "cosim", "--topos", topo_name, "--ranks",
+                str(ranks)]
+        runs = {}
+        for run, dev, backend in plan:
+            payload, wall, peak, launches = run_cli(
+                args, out_dir(f"cosim_{topo_name}", run), dev, backend)
+            if run == "cuda":
+                launched(by_path, path, ("segment_sum",), launches)
+            runs[run] = payload["rows"]
+            emit_cs(path=path, run=run, ranks=ranks, suite_wall_s=wall,
+                    peak_bytes=peak,
+                    launches=launches if dev == "cuda" else None,
+                    meshes=payload["params"]["meshes"],
+                    rows=cosim_rows(payload),
+                    device_name=payload["params"]["device_name"])
+        for other in runs:
+            if other != "cuda":
+                compare_rows(runs["cuda"], runs[other],
+                             f"{path} cuda vs {other}",
+                             exact=other == "cuda again")
+        emit_cs(path=path, ranks=ranks, rows_agree=sorted(runs),
+                device_name=card, ok=True)
+
+    # (c) the serving mix at 4 x its rates on mphx-2p-8x8: the many-epoch
+    # host-bound cell; twice through the kernels (serving.json byte for
+    # byte), once on the plain path
+    path = f"serving {SERVING_TOPO} x{SERVING_RATE_SCALE:g}"
+    args = ["--suite", "serving", "--topos", SERVING_TOPO, "--tenants",
+            *SERVING_TENANTS, "--serving-rate-scale",
+            str(SERVING_RATE_SCALE), "--seed", "0"]
+    runs, files = {}, {}
+    for run, dev, backend in (("cuda", "cuda", "cuda"),
+                              ("cuda again", "cuda", "cuda"),
+                              ("torch", "cuda", "torch")):
+        out = out_dir("serving_x4", run)
+        (payload, wall, peak, launches), sims = spy_tenant_sims(
+            lambda: run_cli(args, out, dev, backend))
+        if run == "cuda":
+            # the event loop's water-filling sums; no bottleneck (min) is
+            # computed on this path
+            launched(by_path, path, ("segment_sum",), launches)
+        runs[run] = payload["rows"]
+        files[run] = (out / "serving.json").read_bytes()
+        mixed = sims[0]
+        emit_cs(path=path, run=run, suite_wall_s=wall, peak_bytes=peak,
+                launches=launches, mixed_flows=mixed["flows"],
+                mixed_epochs=mixed["epochs"], sims=sims,
+                epochs=sum(s["epochs"] for s in sims),
+                epochs_per_s=sum(s["epochs"] for s in sims) / wall,
+                device_name=payload["params"]["device_name"])
+    if files["cuda"] != files["cuda again"]:
+        raise AssertionError(f"{path}: serving.json differs run to run")
+    compare_rows(runs["cuda"], runs["torch"], f"{path} cuda vs torch",
+                 exact=True)
+    emit_cs(path=path, serving_json_bytes=len(files["cuda"]),
+            byte_identical=True, rows_agree_plain=True, device_name=card,
+            ok=True)
+    emit_cs(launches=by_path, ok=True)
     return by_path
 
 
@@ -3620,6 +3827,7 @@ def main() -> int:
     by_path.update(phase_table2_trace())
     by_path.update(phase_spray())
     by_path.update(phase_failures())
+    by_path.update(phase_cosim_serving())
     kernel_results.update(phase_model_kernels())
     by_path[f"{SERVE_ARCH} serve"] = phase_serve(card)
     by_path[f"{MOE_ARCH} serve"], ragged = phase_moe_serve(card)

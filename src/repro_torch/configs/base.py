@@ -3,8 +3,9 @@
 One :class:`ModelConfig` per ported architecture lives in
 ``repro_torch/configs/<arch>.py``, with the reference's values; every
 config also provides a ``smoke()`` reduction of the same family for CPU
-tests.  ``RunConfig`` and ``ShapeConfig`` (training and the dry run) are
-not ported yet.
+tests.  ``ShapeConfig`` / ``LM_SHAPES`` size the co-simulated training
+step (:mod:`repro_torch.cosim`); ``RunConfig`` (training and the dry
+run) is not ported yet.
 """
 
 from __future__ import annotations
@@ -121,3 +122,31 @@ class ModelConfig:
         """Total parameters N (analytic; used for MODEL_FLOPS = 6*N*D)."""
         from ..models.registry import get_model
         return get_model(self, device="meta").param_count()
+
+    def active_param_count(self) -> int:
+        """Parameters one token reads (MoE: the routed experts count
+        ``top_k / n_experts``); the co-simulator's 6ND compute term."""
+        from ..models.registry import get_model
+        return get_model(self, device="meta").active_param_count()
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell (assigned per-architecture shape set)."""
+
+    shape_id: str                 # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+LM_SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}

@@ -1,5 +1,5 @@
-"""Experiment suites of the port (``--suite table2``, ``--suite sim``,
-``--suite sweep`` and ``--suite failures``): scenario registry, topology
+"""Experiment suites of the port (``--suite table2``, ``sim``, ``sweep``,
+``failures``, ``cosim`` and ``serving``): scenario registry, topology
 presets, artifact writers and the CLI."""
 
 from .sweep import run_table2_suite

@@ -65,9 +65,12 @@ def tree_leaves(tree):
 def truncated_normal(shape, generator, device) -> torch.Tensor:
     """Standard normal truncated to [-2, 2], in float32, drawn on
     ``device`` by inverting the CDF of a uniform draw (no host round
-    trip, so a full-size model fills on the card)."""
+    trip, so a full-size model fills on the card).  On the meta device
+    (shapes only, as ``param_count`` builds) no value is drawn."""
     bound = math.erf(2.0 / math.sqrt(2.0))
     t = torch.empty(shape, dtype=torch.float32, device=device)
+    if t.is_meta:
+        return t
     t.uniform_(-bound, bound, generator=generator)
     return t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
 

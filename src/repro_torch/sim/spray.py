@@ -197,7 +197,7 @@ def simulate_sprayed(topo, flows: "list[FlowSpec]",
                      cfg: "SprayConfig | None" = None,
                      mode: str = "minimal",
                      plane_skew: "list[float] | None" = None,
-                     rate_cap_gbps: "float | None" = None,
+                     rate_cap_gbps=None,
                      net: NetParams = DEFAULT_NET,
                      engine: str = "auto", backend: "str | None" = None,
                      router=None, granularity: str = "chunk",
@@ -208,8 +208,12 @@ def simulate_sprayed(topo, flows: "list[FlowSpec]",
 
     ``plane_skew[k] >= 1`` multiplies plane ``k``'s transfer time
     (congested/degraded plane); ``inf`` marks a dead plane whose bytes are
-    re-sprayed evenly over the survivors before simulation.  All planes
-    share one incidence tensor (identical fabric copies), so the cost is
+    re-sprayed evenly over the survivors before simulation.
+    ``rate_cap_gbps`` is one plane's injection cap: a number for every
+    flow, or a per-flow array or tensor of length F (a merged flow's
+    aggregate of NIC ports), moved once to the simulation's device;
+    default the topology's port rate.  All planes share one incidence
+    tensor (identical fabric copies), so the cost is
     ``n_alive`` event-loop runs over the same routes.
 
     ``granularity`` selects the plane split: ``"chunk"`` (default) is the
@@ -271,8 +275,13 @@ def simulate_sprayed(topo, flows: "list[FlowSpec]",
     # built by the first plane's loop and reused by the others
     inc = flow_incidence(router, flows_to_demands(flows, device=dev), mode,
                          backend=backend)
-    cap = rate_cap_gbps if rate_cap_gbps is not None else topo.port_gbps
     F = sizes.shape[0]
+    cap = torch.as_tensor(
+        topo.port_gbps if rate_cap_gbps is None else rate_cap_gbps,
+        dtype=F64, device=dev)
+    if cap.dim() and tuple(cap.shape) != (F,):
+        raise ValueError(f"rate_cap_gbps has shape {tuple(cap.shape)}; "
+                         f"expected a number or ({F},)")
     plane_t = torch.zeros((F, cfg.n_planes), dtype=F64, device=dev)
     stalled = torch.zeros(F, dtype=torch.bool, device=dev)
     for k in alive:

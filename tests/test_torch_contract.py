@@ -32,6 +32,12 @@ from repro_torch.convert import (decoder_params_from_numpy,  # noqa: E402
                                  hybrid_params_from_numpy,
                                  incidence_from_arrays)
 from repro_torch.core.hyperx import MPHX  # noqa: E402
+from repro_torch.cosim import (CollectivePhase, TrainJob,  # noqa: E402
+                               simulate_step)
+from repro_torch.experiments.cosuite import run_cosim_suite  # noqa: E402
+from repro_torch.experiments.servesuite import (  # noqa: E402
+    TENANT_PRESETS, run_serving_suite)
+from repro_torch.workload import run_tenant_mix  # noqa: E402
 from repro_torch.core.netsim import (  # noqa: E402
     adversarial_throughput_fraction, make_router, pattern_throughput,
     resolve_engine)
@@ -166,6 +172,9 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(no_cuda, tmp_path):
     inc = incidence_from_arrays([0], [0], [1.0], 1, [1.0], device="cpu")
     spec = parse_failure_spec("link:0.05")
 
+    job = TrainJob("toy", 16, {"dp": 16, "tp": 1, "ep": 1}, 1, 0,
+                   (CollectivePhase("ar", "allreduce", 16, 1, 2.0**20),))
+
     def build(*args):
         raise AssertionError("demands built before the device was checked")
 
@@ -221,6 +230,14 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(no_cuda, tmp_path):
         lambda: failure_throughput(topo, build, spec, 400.0),
         lambda: recovery_curve(topo, build, spec, 400.0),
         lambda: recovery_curve(topo, build, spec, 400.0, reroute="local"),
+        lambda: simulate_step(topo, job),
+        lambda: simulate_step(topo, job, method="batches"),
+        lambda: run_tenant_mix(topo, [TENANT_PRESETS["chat"]]),
+        lambda: run_cosim_suite(str(tmp_path)),
+        lambda: run_serving_suite(str(tmp_path)),
+        lambda: cli_main(["--suite", "cosim", "--out", str(tmp_path)]),
+        lambda: cli_main(["--suite", "serving", "--out", str(tmp_path)]),
+        lambda: cli_main(["--suite", "all", "--out", str(tmp_path)]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -229,6 +246,8 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(no_cuda, tmp_path):
     assert not (tmp_path / "sweep.json").exists()
     assert not (tmp_path / "t.json").exists()
     assert not (tmp_path / "failures.json").exists()
+    for suite in ("cosim", "serving", "table2"):
+        assert not (tmp_path / f"{suite}.json").exists()
 
 
 def test_unknown_backend_raises():

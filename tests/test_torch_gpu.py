@@ -1909,3 +1909,125 @@ def test_recovery_walls_end_with_a_device_synchronize(cuda, monkeypatch,
     # every synchronize is followed at once by the clock that ends a wall
     assert all(log[i + 1][0] == "clock" for i in syncs)
     assert sum("synchronizing" in str(w.message) for w in caught) > 0
+
+
+# ------------------------------------------- co-simulation and serving ----
+
+COSIM_VARIANTS = [("array", "linear"), ("array", "mapped"),
+                  ("graph", "linear")]
+
+
+def cosim_job(arch: str, n_ranks: int):
+    from repro_torch.cosim import job_from_model
+    from repro_torch.experiments.cosuite import default_mesh
+
+    cfg = get_config(arch)
+    return job_from_model(cfg, **default_mesh(arch, n_ranks,
+                                              cfg.moe.n_experts))
+
+
+@pytest.mark.parametrize("engine,placement", COSIM_VARIANTS)
+def test_simulate_step_through_kernels_equals_plain(cuda, engine,
+                                                    placement):
+    """One training step of kimi-k2 and mixtral on 4,096 ranks of
+    mphx-2p-16x16 through the kernels (the sprayed water-filling's sums)
+    equals the plain path's bit for bit, phase by phase."""
+    from repro_torch.cosim import simulate_step
+
+    topo = SWEEP_TOPOLOGIES["mphx-2p-16x16"]
+    for arch in ("kimi-k2-1t-a32b", "mixtral-8x22b"):
+        job = cosim_job(arch, 4096)
+        res = {}
+        for backend in ("cuda", "torch"):
+            reset_launch_counts()
+            res[backend] = simulate_step(
+                topo, job, engine=engine, placement=placement,
+                backend=backend,
+                router=make_router(topo, engine=engine, device=cuda))
+            if backend == "cuda":
+                assert LAUNCHES["segment_sum"] > 0
+        a, b = res["cuda"], res["torch"]
+        assert a.comm_s == b.comm_s and a.comm_s > 0
+        assert [(p.name, p.steps, p.n_flows, p.comm_s) for p in a.phases] \
+            == [(p.name, p.steps, p.n_flows, p.comm_s) for p in b.phases]
+
+
+def test_tenant_mix_through_kernels_equals_plain(cuda):
+    """The serving suite's default tenants on mphx-2p-8x8 through the
+    kernels (the water-filling sums; the mix computes no bottleneck, so
+    no min) equal the plain path bit for bit, the isolated runs too, and
+    the SLO rows."""
+    from repro_torch.experiments.servesuite import tenant_specs
+    from repro_torch.workload import run_tenant_mix, slo_rows
+
+    topo = SWEEP_TOPOLOGIES["mphx-2p-8x8"]
+    specs = tenant_specs(["chat", "burst", "train"])
+    mixes = {}
+    for backend in ("cuda", "torch"):
+        reset_launch_counts()
+        mixes[backend] = run_tenant_mix(topo, specs, seed=0,
+                                        sim_backend=backend, device=cuda)
+        if backend == "cuda":
+            assert LAUNCHES["segment_sum"] > 0
+    a, b = mixes["cuda"], mixes["torch"]
+    assert torch.equal(a.mixed.finish_s, b.mixed.finish_s)
+    assert a.mixed.n_epochs == b.mixed.n_epochs > 0
+    for name in a.isolated:
+        assert torch.equal(a.isolated[name].finish_s,
+                           b.isolated[name].finish_s)
+    assert slo_rows(a) == slo_rows(b)
+
+
+def test_serving_suite_on_the_card_is_byte_identical(cuda, tmp_path):
+    """Two same-seed ``--suite serving`` runs through the kernels write
+    the same ``serving.json``, byte for byte."""
+    from repro_torch.experiments.servesuite import run_serving_suite
+
+    for d in ("a", "b"):
+        run_serving_suite(str(tmp_path / d), seed=3, duration_ms=50.0,
+                          tenant_names=["chat", "burst", "train", "web"],
+                          device=cuda)
+    a = (tmp_path / "a" / "serving.json").read_bytes()
+    assert a == (tmp_path / "b" / "serving.json").read_bytes()
+    assert json.loads(a)["params"]["n_rows"] > 0
+
+
+def test_cosim_walls_end_with_a_device_synchronize(cuda, monkeypatch,
+                                                   tmp_path):
+    """Each row's ``sim_wall_s`` of ``--suite cosim`` is closed by one
+    device synchronize (the clock read right after it), and there is no
+    other; the synchronizing calls torch's sync debug mode sees in the
+    suite (host reads of the event loops) are counted beside."""
+    import time
+    import types
+    import warnings
+
+    from repro_torch.experiments import cosuite
+
+    log = []
+
+    def sync(device):
+        log.append(("sync", torch.cuda.current_stream(device).query()))
+        torch.cuda.synchronize(device)
+
+    def clock():
+        log.append(("clock", None))
+        return time.perf_counter()
+
+    monkeypatch.setattr(cosuite, "synchronize", sync)
+    monkeypatch.setattr(cosuite, "time",
+                        types.SimpleNamespace(perf_counter=clock))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            payload = cosuite.run_cosim_suite(
+                str(tmp_path), config_names=["mixtral-8x22b"],
+                topo_names=["mphx-2p-8x8", "ft3-small"], device=cuda)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    rows = payload["rows"]
+    syncs = [i for i, (kind, _) in enumerate(log) if kind == "sync"]
+    assert len(syncs) == len(rows) == 4
+    assert all(log[i + 1][0] == "clock" for i in syncs)
+    assert sum("synchronizing" in str(w.message) for w in caught) > 0

@@ -212,7 +212,8 @@ def test_sweep_transpose_is_a_skip_record_on_a_non_square_grid(tmp_path):
 
 
 def test_cli_sweep_suite_on_the_cpu(tmp_path, capsys):
-    assert SUITES == ["table2", "sim", "sweep", "failures"]
+    assert SUITES == ["table2", "sim", "sweep", "failures", "cosim",
+                      "serving", "all"]
     rc = cli_main(["--suite", "sweep", "--topos", "mphx-2p-8x8",
                    "--scenarios", "neighbor_shift", "transpose",
                    "--modes", "minimal", "adaptive", "--loads", "0.5",
