@@ -9,10 +9,10 @@ Phases, each printing JSON lines; any failure raises and the exit code is
 nonzero:
 
 1. ``env``: the card (``nvidia-smi``), torch and CUDA versions.
-2. ``build``: nvcc builds the five kernel libraries from ``src/``
-   (segment reduce, RMSNorm, flash attention, grouped matmul, RG-LRU
-   scan), one nvcc each, all started together, with each kernel's
-   registers and spills.
+2. ``build``: nvcc builds the seven kernel libraries from ``src/``
+   (segment reduce, RMSNorm and its backward, flash attention and its
+   backward, grouped matmul, RG-LRU scan), one nvcc each, all started
+   together, with each kernel's registers and spills.
 3. ``kernel``: the segment kernels against their plain PyTorch versions
    on the card, at edge-case sizes (two leave the last warp part-filled)
    and at the sim path's shapes (mphx-4p-86x9 uniform: the incidence's
@@ -150,7 +150,32 @@ nonzero:
    (``serving.json`` byte for byte) and once on the plain path (rows
    equal): the mixed run's flows and epochs, the wall and epochs a
    second.
-13. ``model_kernel``: RMSNorm and flash attention against their plain
+13. ``train``: training through the port's entry points (``Trainer``,
+   ``launch.train``), each line stamped with ``phase_s``.  yi-9b at full
+   width and 8 of its 48 layers (1.91 B parameters, random bf16 weights
+   from seed 0; the whole model's ~106 GB of state does not fit one
+   card: reduced), the ``RunConfig`` defaults with lr 3e-3 and a warmup
+   of one step, the reference's lcg stream at 4,096 tokens, global batch
+   2: four steps through the kernels (each step's loss and wall,
+   tokens/s, peak memory, and the launch counts of that run alone: 17
+   RMSNorm forwards and backwards and 8 attention forwards (``tc``) and
+   backwards a step), again with the same bits, and on the plain path
+   (remat full): losses within 2e-2 relative, step-1 gradients within
+   5e-2 of each leaf's max |g|, and each parameter leaf after the steps
+   within 0.25 of the plain path's own update (L2) from the init.
+   ``remat`` full and dots and ``microbatches=2`` through the kernels at
+   the same tolerances of remat none; 2 layers in float32 (the
+   CUDA-core forward, the float32 backward) at 2e-5; a checkpoint round
+   trip at the smoke config (step 3 from the restored state with the
+   uninterrupted run's bits); ``python -m repro_torch.launch.train
+   --arch yi-9b --smoke --steps 20`` and its ``--resume``.  Then the two
+   backward kernels against their plain versions (RMSNorm's: narrow,
+   unaligned, wide and the cell's (8,192, 4,096); attention's: causal, a
+   binding window, G 1, 4 and 8, Dh 64, 128 and 256, and the cell's q
+   (2, 4096, 4, 8, 128)), float32 at 2e-5 and bf16 at 2e-2 of each
+   gradient's max, twice for bitwise repeatability, the cell timed
+   (events and profiler) beside ``F.rms_norm``'s and SDPA's backward.
+14. ``model_kernel``: RMSNorm and flash attention against their plain
    versions (edge cases: ragged sizes, decode, GQA and MQA, a window, a
    ring cache with empty and wrapped slots, float32 and bfloat16), at
    the serve path's shapes (float32 at 2e-5; bfloat16, and for
@@ -179,7 +204,7 @@ nonzero:
    shape 1), and each line carries its ``splits``; its device
    times come from the profiler and from CUDA graphs as attention's,
    beside ``torch.bmm``'s, with the SM clock around each timing.
-14. ``serve``: yi-9b at full width and depth (random bf16 weights drawn
+15. ``serve``: yi-9b at full width and depth (random bf16 weights drawn
    on the card from a seed) serves 8 requests of 1,024 prompt tokens and
    32 new tokens each in waves of 4 through the kernels, with the launch
    counts read around that run alone (97 RMSNorm and 48 attention
@@ -189,7 +214,7 @@ nonzero:
    Prefill and teacher-forced decode logits of the two paths must agree,
    and a float32 2-layer yi-9b must agree at 2e-5; a decode wave is
    profiled for the device's idle share.
-15. ``moe_serve``: mixtral-8x22b at full width and 12 of its 56 layers
+16. ``moe_serve``: mixtral-8x22b at full width and 12 of its 56 layers
    (60.9 GB of random bf16 weights drawn on the card after yi-9b's are
    freed) serves the same traffic through the kernels, with the launch
    counts read around that run alone (25 RMSNorm, 12 attention and 36
@@ -210,7 +235,7 @@ nonzero:
    runs through mixtral's 4,096-token window, a decode wave is profiled,
    and a float32 2-layer mixtral must agree at 2e-5 with no routing
    flipped.
-16. ``hybrid_serve``: the RG-LRU scan bit for bit equal to its plain
+17. ``hybrid_serve``: the RG-LRU scan bit for bit equal to its plain
    version, with each shape's plan, at ``tests/test_kernels.py``'s edge
    shapes, ragged widths and lengths, recurrentgemma-2b prefill's (4,
    1024, 2560) (timed: event, device and CUDA-graph ms, GB/s and the
@@ -228,7 +253,7 @@ nonzero:
    wave is
    profiled, and a float32 model at full width and 5 of its 26 layers
    must agree at 2e-5.
-17. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
+18. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
@@ -364,7 +389,20 @@ MODEL_KERNELS = {
         "src/repro_torch/kernels/grouped_matmul/csrc/grouped_matmul.cu"),
     "lru_scan": ("src/repro/kernels/rg_lru/kernel.py:40",
                  "src/repro_torch/kernels/rg_lru/csrc/lru_scan.cu"),
+    # the gradients: no Pallas kernel has one; the reference trains
+    # through jax.grad of its plain layers
+    "rmsnorm_backward": (
+        "src/repro/models/layers.py:65",
+        "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_backward.cu"),
+    "flash_attention_backward": (
+        "src/repro/models/layers.py:227",
+        "src/repro_torch/kernels/flash_attention/csrc/"
+        "flash_attention_backward.cu"),
 }
+# what the backward rows replace: JAX's autodiff of the plain layer
+AUTODIFF_OF = {"rmsnorm_backward": "jax.grad of repro.models.layers.rmsnorm",
+               "flash_attention_backward":
+               "jax.grad of repro.models.layers.attention"}
 # the serve path: yi-9b, 8 requests of 1,024 tokens, 32 new, waves of 4
 SERVE_ARCH = "yi-9b"
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_BATCH = 8, 1024, 32, 4
@@ -402,6 +440,28 @@ LRU_TOL = 1e-5
 # mask_probe through the bf16 attention routes: exact weights summed in
 # fp32 and acc / l rounded once to bf16, so within 2^-8 of each value
 PROBE_REL_TOL = 2.0 ** -8
+# the train phase's cell: yi-9b at full width and 8 of its 48 layers (1.91
+# B parameters: bf16 params and grads and float32 AdamW moments are 22.9
+# GB; the whole model's ~106 GB of state does not fit one card), the
+# RunConfig defaults with lr 3e-3 and a warmup of one step (step 1's lr
+# scale is 0, steps 2-4 take the full lr: the defaults' 100 would scale
+# them by at most 0.03, too little to move bf16 weights), the lcg stream at
+# train_4k's 4,096 tokens, global batch 2 (8,192 tokens a step), four steps
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_F32_LAYERS = "yi-9b", 8, 2
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 4
+TRAIN_LR, TRAIN_WARMUP, TRAIN_SEED = 3e-3, 1, 0
+# a path against another: each loss within this share of the other's, and
+# each step-1 gradient leaf within the grad tolerance of its max |g| (the
+# serve gate's bf16 tolerance; float32 at 2e-5)
+TRAIN_LOSS_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+TRAIN_GRAD_TOL = {"bfloat16": 5e-2, "float32": 2e-5}
+# the kernel path's parameters after the four steps against the plain
+# path's: each leaf's L2 distance within this share of the plain path's
+# own L2 update from the init.  Twice what a sound run reads on the H100;
+# tools/train_update_gap.py reads it under faults of the attention
+# backward that start at step 2
+TRAIN_UPDATE_TOL = 0.25
+TRAIN_CKPT_DIR = ROOT / "build" / "repro_torch" / "train_ck"
 
 
 def emit(phase: str, **fields) -> None:
@@ -2528,12 +2588,16 @@ def phase_cosim_serving() -> dict:
 
 
 def phase_build() -> None:
-    """nvcc for the five libraries at once (one process each)."""
+    """nvcc for the seven libraries at once (one process each)."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from repro_torch.kernels.flash_attention.ops import (
+        BACKWARD_LIBRARY as attn_bwd_lib)
     from repro_torch.kernels.flash_attention.ops import LIBRARY as attn_lib
     from repro_torch.kernels.grouped_matmul.ops import LIBRARY as gmm_lib
     from repro_torch.kernels.rg_lru.ops import LIBRARY as lru_lib
+    from repro_torch.kernels.rmsnorm.ops import (
+        BACKWARD_LIBRARY as norm_bwd_lib)
     from repro_torch.kernels.rmsnorm.ops import LIBRARY as norm_lib
     from repro_torch.kernels.segment_fairshare.ops import LIBRARY as seg_lib
 
@@ -2543,7 +2607,8 @@ def phase_build() -> None:
         return lib, path, log, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    libs = (seg_lib, norm_lib, attn_lib, gmm_lib, lru_lib)
+    libs = (seg_lib, norm_lib, attn_lib, gmm_lib, lru_lib, norm_bwd_lib,
+            attn_bwd_lib)
     with ThreadPoolExecutor(max_workers=len(libs)) as pool:
         built = list(pool.map(build, libs))
     wall = time.perf_counter() - t0
@@ -3205,7 +3270,7 @@ def phase_serve(card: str) -> dict:
     rn.reset_launch_counts()
     fa.reset_launch_counts()
     runs = {"cuda": serve_run(cfg, kern, params)}
-    launches = {"rmsnorm": rn.LAUNCHES["rmsnorm"], **fa.LAUNCHES}
+    launches = {**rn.LAUNCHES, **fa.LAUNCHES}
     runs["torch"] = serve_run(cfg, plain, params)
     emit_serve_runs("serve", card, runs)
     # each wave: one prefill, then one decode step per new token (the
@@ -3217,7 +3282,8 @@ def phase_serve(card: str) -> dict:
     want = {"rmsnorm": passes * (2 * cfg.n_layers + 1),
             "flash_attention": passes * cfg.n_layers,
             "flash_attention_tc": waves * cfg.n_layers,
-            "flash_attention_decode": (passes - waves) * cfg.n_layers}
+            "flash_attention_decode": (passes - waves) * cfg.n_layers,
+            "rmsnorm_backward": 0, "flash_attention_backward": 0}
     if launches != want:
         raise AssertionError(f"serve launches {launches} != {want} "
                              f"({passes} forward passes)")
@@ -3475,8 +3541,7 @@ def phase_moe_serve(card: str) -> "tuple[dict, dict]":
     fa.reset_launch_counts()
     gm.reset_launch_counts()
     runs = {"cuda": serve_run(cfg, kern, params)}
-    launches = {"rmsnorm": rn.LAUNCHES["rmsnorm"], **fa.LAUNCHES,
-                **gm.LAUNCHES}
+    launches = {**rn.LAUNCHES, **fa.LAUNCHES, **gm.LAUNCHES}
     runs["torch"] = serve_run(cfg, plain, params)
     emit_serve_runs("moe_serve", card, runs)
     waves = runs["cuda"][0].waves
@@ -3504,6 +3569,7 @@ def phase_moe_serve(card: str) -> "tuple[dict, dict]":
     want = {"rmsnorm": passes * (2 * L + 1), "flash_attention": passes * L,
             "flash_attention_tc": waves * L,
             "flash_attention_decode": (passes - waves) * L,
+            "rmsnorm_backward": 0, "flash_attention_backward": 0,
             "grouped_matmul": passes * 3 * L, "ragged_grouped_matmul": 0,
             "grouped_matmul_wgmma": waves * 3 * L,
             "grouped_matmul_splitk": (passes - waves) * split_per_pass}
@@ -3720,7 +3786,7 @@ def phase_hybrid_serve(card: str) -> "tuple[dict, dict]":
     for mod in (rn, fa, rg_lru):
         mod.reset_launch_counts()
     runs = {"cuda": serve_run(cfg, kern, params)}
-    launches = {"rmsnorm": rn.LAUNCHES["rmsnorm"], **fa.LAUNCHES,
+    launches = {**rn.LAUNCHES, **fa.LAUNCHES,
                 "lru_scan": rg_lru.LAUNCHES["lru_scan"]}
     runs["torch"] = serve_run(cfg, plain, params)
     emit_serve_runs("hybrid_serve", card, runs)
@@ -3736,6 +3802,7 @@ def phase_hybrid_serve(card: str) -> "tuple[dict, dict]":
             "flash_attention_tc": waves * kern.n_blocks["attn"],
             "flash_attention_decode":
                 (passes - waves) * kern.n_blocks["attn"],
+            "rmsnorm_backward": 0, "flash_attention_backward": 0,
             "lru_scan": waves * kern.n_blocks["rec"]}
     if launches != want:
         raise AssertionError(f"hybrid_serve launches {launches} != {want} "
@@ -3795,6 +3862,558 @@ def phase_hybrid_serve(card: str) -> "tuple[dict, dict]":
     return launches, results
 
 
+# ---------------------------------------------------------------- train
+
+
+def train_batches(cfg, steps: int) -> list:
+    """The cell's ``steps`` host batches: the reference's lcg stream
+    (numpy, seed TRAIN_SEED), made once."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticDataset
+
+    ds = SyntheticDataset(DataConfig(kind="lcg", vocab_size=cfg.vocab_size,
+                                     seq_len=TRAIN_SEQ,
+                                     global_batch=TRAIN_BATCH,
+                                     seed=TRAIN_SEED))
+    return [ds.batch(i) for i in range(steps)]
+
+
+def train_launches() -> dict:
+    """The launch counts of the kernels a train step runs."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+
+    return {**rn.LAUNCHES, **fa.LAUNCHES}
+
+
+def reset_train_launches() -> None:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+
+    rn.reset_launch_counts()
+    fa.reset_launch_counts()
+
+
+def host_leaves(tree) -> list:
+    from repro_torch.models.layers import tree_leaves
+
+    return [t.detach().cpu() for t in tree_leaves(tree)]
+
+
+def leaf_gap(host: list, tree) -> float:
+    """max over leaves of max |host - tree| / max |tree|, leaf by leaf on
+    the device (``host`` the leaves of another run, on the host)."""
+    from repro_torch.models.layers import tree_leaves
+
+    worst = 0.0
+    for h, t in zip(host, tree_leaves(tree), strict=True):
+        w = t.float()
+        gap = float((h.to(t.device).float() - w).abs().max())
+        top = float(w.abs().max())
+        worst = max(worst, gap / top if top > 0 else
+                    (0.0 if gap == 0 else math.inf))
+    return worst
+
+
+def same_leaves(host: list, tree) -> bool:
+    from repro_torch.models.layers import tree_leaves
+
+    return all(torch.equal(h.to(t.device), t)
+               for h, t in zip(host, tree_leaves(tree), strict=True))
+
+
+def update_gap(host: list, tree, init) -> float:
+    """max over leaves of ||host - tree|| / ||tree - init|| (L2 norms):
+    how far another run's parameters after the steps (``host``, on the
+    host) lie from ``tree``'s, in units of ``tree``'s own update from
+    ``init``, leaf by leaf on the device."""
+    from repro_torch.models.layers import tree_leaves
+
+    worst = 0.0
+    for h, t, t0 in zip(host, tree_leaves(tree), tree_leaves(init),
+                        strict=True):
+        w = t.float()
+        gap = float(torch.linalg.vector_norm(h.to(t.device).float() - w))
+        moved = float(torch.linalg.vector_norm(w - t0.float()))
+        worst = max(worst, gap / moved if moved > 0 else
+                    (0.0 if gap == 0 else math.inf))
+    return worst
+
+
+def train_run(trainer, batches: list) -> dict:
+    """TRAIN_STEPS steps from ``init_state(TRAIN_SEED)``: each step's loss
+    and wall (ending in a device synchronize), the peak device memory and
+    the launch counts of that run alone; the final state under
+    ``state``."""
+    state = trainer.init_state(TRAIN_SEED)
+    step_fn = trainer.make_train_step()
+    dev = [trainer.device_batch(b) for b in batches]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_train_launches()
+    losses, walls = [], []
+    for b in dev:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, b)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite train losses {losses}")
+    step_wall = statistics.median(walls[1:])
+    return {"state": state, "losses": losses, "step_walls_s": walls,
+            "step_wall_s": step_wall,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_wall,
+            "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": train_launches()}
+
+
+def profile_train_step(trainer, state, batch) -> dict:
+    """Where the time goes in one more train step of ``state``: its wall,
+    the device's busy ms and idle share, the kernels' device ms and the
+    ten longest device ops."""
+    step_fn = trainer.make_train_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = device_events(prof)
+    busy_ms = sum(t for _, _, t in events) / 1e3
+
+    def ms(key):
+        return sum(t for n, _, t in events if key in n) / 1e3
+
+    return {"profiled": "one train step", "wall_s": wall,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
+            "attention_backward_device_ms": ms("attn_bwd"),
+            "attention_forward_device_ms": ms("flash_attention_kernel"),
+            "rmsnorm_backward_device_ms": ms("rmsnorm_backward"),
+            "rmsnorm_forward_device_ms": ms("rmsnorm_row_kernel"),
+            "top_device_ops": [{"name": n[:80], "count": c, "ms": t / 1e3}
+                               for n, c, t in events[:10]]}
+
+
+def grads_of(trainer, params, batch) -> "tuple[float, list]":
+    """The step-1 loss and gradients (host copies) of ``trainer``'s path."""
+    loss, _, grads = trainer._grads(params, batch)
+    out = float(loss), host_leaves(grads)
+    del grads
+    return out
+
+
+def check_gradients(where: str, trainer, params, batch, want_loss: float,
+                    want: list, dtype: str, **fields) -> None:
+    """``trainer``'s step-1 loss and gradients against another path's:
+    the loss within TRAIN_LOSS_TOL relative, each leaf within
+    TRAIN_GRAD_TOL of its max |g|."""
+    loss, _, grads = trainer._grads(params, batch)
+    gap = leaf_gap(want, grads)
+    del grads
+    loss_gap = abs(float(loss) - want_loss) / abs(want_loss)
+    ok = loss_gap <= TRAIN_LOSS_TOL[dtype] and gap <= TRAIN_GRAD_TOL[dtype]
+    emit("train", check=where, dtype=dtype, loss=float(loss),
+         reference_loss=want_loss, loss_rel_gap=loss_gap,
+         loss_tolerance=TRAIN_LOSS_TOL[dtype], grad_leaf_max_rel_gap=gap,
+         grad_tolerance=TRAIN_GRAD_TOL[dtype], **fields, ok=ok)
+    if not ok:
+        raise AssertionError(f"train {where}: loss gap {loss_gap}, gradient "
+                             f"gap {gap} beyond the {dtype} tolerances")
+
+
+def check_backward(name: str, got, again, want, tol: float,
+                   where: str) -> float:
+    """A backward kernel's gradients against the plain version's: each
+    within ``tol`` of its max |plain|, finite, two runs the same bits.
+    Returns the largest max abs error."""
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name} {where}: two runs differ")
+    worst = 0.0
+    for g, w in zip(got, want, strict=True):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name} {where}: {tuple(g.shape)} {g.dtype}"
+                                 f" != {tuple(w.shape)} {w.dtype}")
+        gf, wf = g.float(), w.float()
+        if not bool(torch.isfinite(gf).all()):
+            raise AssertionError(f"{name} {where}: non-finite gradient")
+        err = float((gf - wf).abs().max())
+        top = float(wf.abs().max())
+        if err > tol * top:
+            raise AssertionError(f"{name} {where}: max abs err {err} beyond "
+                                 f"{tol} of max |plain| {top}")
+        worst = max(worst, err)
+    return worst
+
+
+def rmsnorm_backward_cost(x) -> dict:
+    """Least time for one RMSNorm backward: x and dy read once, dx written
+    once (scale and dscale besides), or ~10 float32 operations an element
+    outside the tensor cores."""
+    n, d = x.shape
+    elt = x.element_size()
+    n_bytes = 3 * n * d * elt + 2 * d * elt
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, 10 * n * d / PEAK_FP32_PER_S
+    return {"bytes": n_bytes, "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def attention_backward_cost(q, k, q_pos, kv_pos, causal, window) -> dict:
+    """Least time for one attention backward: q, o, dO, dq read or written
+    once and the attended keys' k, v, dk, dv, or the five products of
+    2*Dh operations per attended (query head, key) pair (S and dP
+    recomputed, dV, dK, dQ) on the bf16 tensor cores (float32 outside
+    them)."""
+    from repro_torch.kernels.flash_attention import attention_mask
+
+    B, Sq, K, G, Dh = q.shape
+    mask = attention_mask(q_pos, kv_pos, causal, window)
+    pairs = int(mask.sum())
+    keys = int(mask.any(dim=0).sum())
+    elt = q.element_size()
+    n_bytes = 4 * q.numel() * elt + 4 * B * keys * K * Dh * elt
+    ops = 5 * 2 * Dh * B * K * G * pairs
+    peak = PEAK_BF16_PER_S if q.dtype == torch.bfloat16 else PEAK_FP32_PER_S
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, ops / peak
+    return {"bytes": n_bytes, "flops": ops,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def check_rmsnorm_backward(t_phase: float) -> dict:
+    """RMSNorm's backward kernel against its plain version: edge shapes
+    (narrow, unaligned, wider than shared memory holds) at 2e-5 / 2e-2,
+    then the cell's (8,192, 4,096) in float32 and bfloat16 (timed beside
+    ``F.rms_norm``'s backward)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rmsnorm as rn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    n_cell, d_cell = TRAIN_BATCH * TRAIN_SEQ, 4096
+    for n, d in [(37, 128), (5, 13), (4097, 2560), (3, 16384),
+                 (n_cell, d_cell)]:
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(n, d, device=dev, generator=gen).to(dt)
+            s = torch.randn(d, device=dev, generator=gen).to(dt)
+            dy = torch.randn(n, d, device=dev, generator=gen).to(dt)
+            err = check_backward(
+                "rmsnorm_backward", rn.rmsnorm_backward(x, s, dy),
+                rn.rmsnorm_backward(x, s, dy),
+                rn.rmsnorm_backward_ref(x, s, dy), tol[dt], f"({n}, {d}) {dt}")
+            emit("train", kernel="rmsnorm_backward", shape=[n, d],
+                 dtype=str(dt), max_abs_err=err, tolerance=tol[dt], ok=True)
+    # x, s, dy: the cell's bf16 inputs
+
+    def call():
+        rn.rmsnorm_backward(x, s, dy)
+
+    xl, sl = (t.detach().requires_grad_(True) for t in (x, s))
+    y = F.rms_norm(xl, (d_cell,), weight=sl, eps=1e-6)
+
+    def lib_call():
+        torch.autograd.grad(y, (xl, sl), dy, retain_graph=True)
+
+    row = {"max_abs_err": err, "ms": time_ms(call),
+           "plain_ms": time_ms(lambda: rn.rmsnorm_backward_ref(x, s, dy)),
+           "library_ms": time_ms(lib_call), **rmsnorm_backward_cost(x)}
+    emit("train", kernel="rmsnorm_backward", case="cell",
+         shape=[n_cell, d_cell], dtype="bfloat16", **row,
+         library="torch.nn.functional.rms_norm backward",
+         kernel_device_ms=device_time(call, "rmsnorm_backward")["ms"],
+         library_device_ms=device_time(lib_call, "")["ms"],
+         achieved_GBps=row["bytes"] / (row["ms"] * 1e-3) / 1e9,
+         phase_s=time.perf_counter() - t_phase, ok=True)
+    del x, s, dy, xl, sl, y
+    return row
+
+
+def check_attention_backward(t_phase: float) -> dict:
+    """Attention's backward kernel against its plain version: causal, a
+    binding window, G 1 and 8, Dh 64, 128 and 256, float32 at 2e-5 and
+    bfloat16 at 2e-2 of each gradient's max, then the cell's
+    q (2, 4,096, 4, 8, 128) causal bf16 (timed beside SDPA's backward)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    tol = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+    cases = [  # name, B, S, K, G, Dh, window
+        ("causal-g8-dh128", 1, 512, 4, 8, 128, None),
+        ("window-g8-dh128", 1, 1024, 2, 8, 128, 256),
+        ("causal-g1-dh64", 2, 384, 8, 1, 64, None),
+        ("window-g1-dh256", 1, 300, 2, 1, 256, 64),
+        ("causal-g4-dh256", 1, 256, 2, 4, 256, None),
+        ("cell", TRAIN_BATCH, TRAIN_SEQ, 4, 8, 128, None)]
+    for name, B, S, K, G, Dh, window in cases:
+        for dt in ((torch.bfloat16,) if name == "cell"
+                   else (torch.float32, torch.bfloat16)):
+            q, k, v = attention_inputs(gen, B, S, K, G, S, Dh, dt)
+            do = torch.randn(q.shape, device=dev, generator=gen).to(dt)
+            pos = positions_range(S)
+            kw = dict(causal=True, window=window)
+            with torch.no_grad():
+                o = fa.flash_attention(q, k, v, pos, pos, **kw)
+            args = (q, k, v, o, do, pos, pos)
+            err = check_backward(
+                "flash_attention_backward",
+                fa.flash_attention_backward(*args, **kw),
+                fa.flash_attention_backward(*args, **kw),
+                fa.attention_backward_ref(*args, **kw), tol[dt],
+                f"{name} {dt}")
+            torch.cuda.empty_cache()
+            emit("train", kernel="flash_attention_backward", case=name,
+                 q=list(q.shape), window=window, dtype=str(dt),
+                 max_abs_err=err, tolerance=tol[dt], ok=True)
+    # q, k, v, o, do: the cell's bf16 inputs
+
+    def call():
+        fa.flash_attention_backward(*args, causal=True)
+
+    qs = q.reshape(B, S, K * G, Dh).transpose(1, 2).detach()
+    ks, vs = (t.transpose(1, 2).detach() for t in (k, v))
+    leaves = [t.requires_grad_(True) for t in (qs, ks, vs)]
+    y = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                       enable_gqa=True)
+    dy = do.reshape(B, S, K * G, Dh).transpose(1, 2)
+
+    def lib_call():
+        torch.autograd.grad(y, leaves, dy, retain_graph=True)
+
+    row = {"max_abs_err": err, "ms": time_ms(call, reps=3, samples=3),
+           "plain_ms": time_ms(lambda: fa.attention_backward_ref(
+               *args, causal=True), reps=1, samples=3),
+           "library_ms": time_ms(lib_call, reps=5, samples=3),
+           **attention_backward_cost(q, k, pos, pos, True, None)}
+    kern_dev = device_time(call, "attn_bwd", reps=3)
+    emit("train", kernel="flash_attention_backward", case="cell",
+         q=list(q.shape), kv=list(k.shape), dtype="bfloat16", **row,
+         library="scaled_dot_product_attention(is_causal=True, "
+                 "enable_gqa=True) backward",
+         kernel_device_ms=kern_dev["ms"],
+         kernel_device_runs_recorded=kern_dev["recorded"],
+         library_device_ms=device_time(lib_call, "", reps=5)["ms"],
+         achieved_TFLOPs=row["flops"] / (row["ms"] * 1e-3) / 1e12,
+         ms_over_bound=row["ms"] / row["bound_ms"],
+         phase_s=time.perf_counter() - t_phase, ok=True)
+    del q, k, v, o, do, args, qs, ks, vs, leaves, y, dy
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_checkpoint_round_trip(t_phase: float) -> None:
+    """yi-9b's smoke config on the card: two steps, an async save, a
+    restore into a fresh template, and step 3 from it with the same bits
+    as the uninterrupted run's."""
+    import shutil
+
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticDataset
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.train import Checkpointer, Trainer
+
+    cfg = get_config(TRAIN_ARCH, smoke=True)
+    run = RunConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+    tr = Trainer(get_model(cfg, run, kernel_backend="cuda"), run)
+    ds = SyntheticDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
+                                     global_batch=8))
+    batches = [tr.device_batch(ds.batch(i)) for i in range(3)]
+    step_fn = tr.make_train_step()
+    state = tr.init_state(TRAIN_SEED)
+    for b in batches[:2]:
+        state, _ = step_fn(state, b)
+    where = TRAIN_CKPT_DIR / "round_trip"
+    shutil.rmtree(where, ignore_errors=True)
+    ck = Checkpointer(str(where))
+    ck.save(2, state, blocking=False)
+    ck.wait()
+    cont, m_direct = step_fn(state, batches[2])
+    restored, step = ck.restore(tr.init_state(TRAIN_SEED + 1))
+    again, m_replay = step_fn(restored, batches[2])
+    same = float(m_direct["loss"]) == float(m_replay["loss"]) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(cont.params),
+                                          tree_leaves(again.params)))
+    emit("train", check="checkpoint round trip, smoke config", step=step,
+         loss_direct=float(m_direct["loss"]),
+         loss_restored=float(m_replay["loss"]), bit_identical=same,
+         phase_s=time.perf_counter() - t_phase, ok=same)
+    if not same or step != 2:
+        raise AssertionError("train: the restored run's step 3 differs")
+
+
+def check_train_cli(t_phase: float) -> None:
+    """``python -m repro_torch.launch.train --arch yi-9b --smoke --steps
+    20 --ckpt-dir build/repro_torch/train_ck`` on the card through the
+    kernels, then the same with ``--resume``: both exit 0, the first
+    logs its [train] lines, the second resumes from step 20."""
+    import shutil
+
+    where = TRAIN_CKPT_DIR / "cli"
+    shutil.rmtree(where, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            TRAIN_ARCH, "--smoke", "--steps", "20", "--ckpt-dir", str(where)]
+    for extra in ([], ["--resume"]):
+        t0 = time.perf_counter()
+        proc = subprocess.run(base + extra, capture_output=True, text=True,
+                              env=env, cwd=ROOT, timeout=600)
+        lines = [json.loads(l[len("[train] "):])
+                 for l in proc.stdout.splitlines()
+                 if l.startswith("[train] {")]
+        resumed = "[train] resumed from step 20" in proc.stdout
+        ok = proc.returncode == 0 and (resumed if extra else
+                                       len(lines) == 2 and all(
+                                           math.isfinite(m["loss"])
+                                           for m in lines))
+        emit("train", check="launch.train CLI " + " ".join(extra),
+             returncode=proc.returncode, logged=lines, resumed=resumed,
+             wall_s=time.perf_counter() - t0,
+             phase_s=time.perf_counter() - t_phase, ok=ok)
+        if not ok:
+            raise AssertionError(f"train CLI {extra}: rc {proc.returncode}\n"
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+
+
+def phase_train(card: str) -> "tuple[dict, dict]":
+    """Training through the port's entry points (``Trainer``,
+    ``launch.train``): the yi-9b cell at full width and TRAIN_LAYERS of its
+    48 layers, its kernel path against itself and the plain path, the
+    float32 check, remat, accumulation, a checkpoint round trip, the CLI,
+    and the two backward kernels' rows.  Returns (the timed run's launch
+    counts, the backward kernels' rows)."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.train import Trainer
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS)
+    batches = train_batches(cfg, TRAIN_STEPS)
+    data_s = time.perf_counter() - t_phase
+    run = RunConfig(lr=TRAIN_LR)
+    kern = Trainer(get_model(cfg, run, kernel_backend="cuda"), run)
+    emit("train", card=card, arch=TRAIN_ARCH, layers=TRAIN_LAYERS,
+         of_layers=get_config(TRAIN_ARCH).n_layers,
+         params=kern.model.param_count(), seq_len=TRAIN_SEQ,
+         global_batch=TRAIN_BATCH, tokens_per_step=TRAIN_BATCH * TRAIN_SEQ,
+         steps=TRAIN_STEPS, lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+         adam_dtype=run.adam_dtype,
+         data="lcg", data_s=data_s)
+
+    # step-1 gradients through the kernels, then remat and accumulation
+    # against them (kernel path, bf16 tolerances)
+    params = kern.model.init(TRAIN_SEED)
+    batch0 = kern.device_batch(batches[0])
+    loss1, grads1 = grads_of(kern, params, batch0)
+    for where, kw in (("remat full", {"remat": "full"}),
+                      ("remat dots", {"remat": "dots"}),
+                      ("microbatches 2", {"microbatches": 2})):
+        r = RunConfig(lr=TRAIN_LR, **kw)
+        check_gradients(f"{where} vs remat none, kernels",
+                        Trainer(get_model(cfg, r, kernel_backend="cuda"), r),
+                        params, batch0, loss1, grads1, "bfloat16",
+                        phase_s=time.perf_counter() - t_phase)
+    del params
+    torch.cuda.empty_cache()
+
+    # the timed run through the kernels, again (the same bits), then the
+    # plain path (remat full: its S x S scores live a layer at a time)
+    first = kern_launches = None
+    for label, backend, remat in (("cuda", "cuda", "none"),
+                                  ("cuda again", "cuda", "none"),
+                                  ("torch", "torch", "full")):
+        r = RunConfig(lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP, remat=remat)
+        tr = Trainer(get_model(cfg, r, kernel_backend=backend), r)
+        if backend == "torch":
+            params = tr.model.init(TRAIN_SEED)
+            check_gradients("step-1 gradients, kernels vs plain", tr, params,
+                            batch0, loss1, grads1, "bfloat16",
+                            phase_s=time.perf_counter() - t_phase)
+            del params
+        out = train_run(tr, batches)
+        state = out.pop("state")
+        fields = {}
+        if label == "cuda":
+            first = out["losses"], host_leaves(state.params)
+            kern_launches = out["launches"]
+            L = cfg.n_layers
+            want = {"rmsnorm": TRAIN_STEPS * (2 * L + 1),
+                    "rmsnorm_backward": TRAIN_STEPS * (2 * L + 1),
+                    "flash_attention": TRAIN_STEPS * L,
+                    "flash_attention_tc": TRAIN_STEPS * L,
+                    "flash_attention_decode": 0,
+                    "flash_attention_backward": TRAIN_STEPS * L}
+            if kern_launches != want:
+                raise AssertionError(f"train launches {kern_launches} != "
+                                     f"{want}")
+            fields["launches_per_step"] = {
+                k: v / TRAIN_STEPS for k, v in kern_launches.items()}
+        elif label == "cuda again":
+            fields["bit_identical"] = out["losses"] == first[0] and \
+                same_leaves(first[1], state.params)
+            if not fields["bit_identical"]:
+                raise AssertionError("train: two kernel runs differ")
+            fields["profile"] = profile_train_step(tr, state, batch0)
+        else:
+            gaps = [abs(a - b) / abs(b) for a, b in zip(first[0],
+                                                         out["losses"])]
+            init = tr.model.init(TRAIN_SEED)
+            moved = update_gap(first[1], state.params, init)
+            del init
+            fields.update(loss_rel_gaps_kernels_vs_plain=gaps,
+                          loss_tolerance=TRAIN_LOSS_TOL["bfloat16"],
+                          param_update_gap_kernels_vs_plain=moved,
+                          param_update_tolerance=TRAIN_UPDATE_TOL)
+            if max(gaps) > TRAIN_LOSS_TOL["bfloat16"]:
+                raise AssertionError(f"train: kernel losses {first[0]} vs "
+                                     f"plain {out['losses']}")
+            if moved > TRAIN_UPDATE_TOL:
+                raise AssertionError(f"train: kernel params after the steps "
+                                     f"{moved} of the plain update away")
+        emit("train", run=label, kernel_backend=backend, remat=remat,
+             card=card, **out, **fields,
+             phase_s=time.perf_counter() - t_phase, ok=True)
+        del state, tr
+        torch.cuda.empty_cache()
+    del first, grads1
+
+    # float32, 2 layers at full width: the CUDA-core forward and the
+    # float32 backward against the plain path
+    cfg32 = cfg.replace(n_layers=TRAIN_F32_LAYERS, param_dtype="float32",
+                        activation_dtype="float32")
+    k32 = Trainer(get_model(cfg32, run, kernel_backend="cuda"), run)
+    params = k32.model.init(TRAIN_SEED)
+    reset_train_launches()
+    loss32, grads32 = grads_of(k32, params, batch0)
+    launches32 = train_launches()
+    if launches32["flash_attention_backward"] != TRAIN_F32_LAYERS or \
+            launches32["flash_attention_tc"] != 0:
+        raise AssertionError(f"train float32 launches {launches32}")
+    check_gradients("step-1 gradients, kernels vs plain", Trainer(
+        get_model(cfg32, run, kernel_backend="torch"), run), params, batch0,
+        loss32, grads32, "float32", layers=TRAIN_F32_LAYERS,
+        kernel_launches=launches32, phase_s=time.perf_counter() - t_phase)
+    del params, grads32
+    torch.cuda.empty_cache()
+
+    check_checkpoint_round_trip(t_phase)
+    check_train_cli(t_phase)
+    rows = {"rmsnorm_backward": check_rmsnorm_backward(t_phase),
+            "flash_attention_backward": check_attention_backward(t_phase)}
+    emit("train", phase_s=time.perf_counter() - t_phase, ok=True)
+    return kern_launches, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3813,7 +4432,6 @@ def main() -> int:
          cuda=torch.version.cuda, python=sys.version.split()[0],
          device_name=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count())
-
     t0 = time.perf_counter()
     phase_build()
     kernel_results = phase_kernels()
@@ -3828,6 +4446,8 @@ def main() -> int:
     by_path.update(phase_spray())
     by_path.update(phase_failures())
     by_path.update(phase_cosim_serving())
+    by_path[f"{TRAIN_ARCH} train"], train_rows = phase_train(card)
+    kernel_results.update(train_rows)
     kernel_results.update(phase_model_kernels())
     by_path[f"{SERVE_ARCH} serve"] = phase_serve(card)
     by_path[f"{MOE_ARCH} serve"], ragged = phase_moe_serve(card)
@@ -3852,6 +4472,10 @@ def main() -> int:
                 "library_ms": kernel_results[name]["library_ms"],
                 "ok": True}
                for name, (replaces, source) in sources.items()]
+    # the backward rows replace JAX's autodiff of a plain layer, and time
+    # the train cell's shape
+    for name, what in AUTODIFF_OF.items():
+        next(k for k in kernels if k["name"] == name)["replaces_what"] = what
     # the segment kernels' rows time their first main-path shape, at the
     # lanes of its plan
     for name in KERNELS:

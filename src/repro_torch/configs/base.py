@@ -4,8 +4,13 @@ One :class:`ModelConfig` per ported architecture lives in
 ``repro_torch/configs/<arch>.py``, with the reference's values; every
 config also provides a ``smoke()`` reduction of the same family for CPU
 tests.  ``ShapeConfig`` / ``LM_SHAPES`` size the co-simulated training
-step (:mod:`repro_torch.cosim`); ``RunConfig`` (training and the dry
-run) is not ported yet.
+step (:mod:`repro_torch.cosim`); ``RunConfig`` holds a training launch's
+hyperparameters (:mod:`repro_torch.train`), every field with the
+reference's default.  The port has no mesh yet (ROADMAP.md queue 1), so
+its sharding knobs have no effect, as in the reference without a mesh;
+of the rest the trainer reads the optimizer's fields, ``remat``,
+``microbatches``, ``grad_compression``, the schedule's steps and
+``seed``.
 """
 
 from __future__ import annotations
@@ -150,3 +155,34 @@ LM_SHAPES: dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
 }
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Distribution / training hyperparameters for a launch."""
+
+    arch: str = "yi-9b"
+    shape: str = "train_4k"
+    multi_pod: bool = False
+    # sharding knobs (no effect without a mesh)
+    fsdp_params: bool = True           # ZeRO-3 param sharding on data axis
+    fsdp_pod: bool = False             # extend ZeRO over the pod (DCN) axis
+    sequence_parallel: bool = False    # shard activations' seq dim on model
+    remat: str = "none"                # none | full | dots
+    microbatches: int = 1              # gradient accumulation
+    ep_moe: bool = True                # expert-parallel MoE via shard_map A2A
+    moe_tp_f: bool = False             # few-expert MoE: f-sharded experts
+    moe_weight_stationary: bool = False  # shard expert FFN dim over fsdp
+    grad_compression: str = "none"     # none | int8_ef (cross-pod axis)
+    decomposed_allreduce: bool = False # RS+AG instead of AR (plane analogue)
+    # optimizer
+    lr: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    adam_dtype: str = "float32"        # bf16 for the 1T config to fit HBM
+    master_weights: bool = False
+    seed: int = 0

@@ -5,9 +5,12 @@ The simulator's state is the routed flow set (the incidence COO and the
 edge capacities) and the demand matrix: an incidence's ``flow``,
 ``edge``, ``frac``, ``n_flows`` and ``capacity``, a demand set's
 ``src``, ``dst`` and ``gbps``.  A model's state (the decoder LM's, the
-hybrid's) is its parameter tree.  The functions take plain numpy arrays
-(nested dicts of them for a parameter tree), so nothing of the reference
-package is imported.
+hybrid's) is its parameter tree; a trainer's is its ``TrainState``
+(params, AdamW's step, moments and master weights, the error-feedback
+residual).  The functions take plain numpy arrays (nested dicts of them
+for a parameter tree), so nothing of the reference package is imported;
+``decoder_params_to_numpy`` goes the other way, so that a test can hold
+the port's parameters against the reference's after training steps.
 """
 
 from __future__ import annotations
@@ -51,10 +54,14 @@ def demands_from_arrays(src, dst, gbps, device=None) -> DemandArrays:
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
+    """``a`` as a tensor in ``dtype`` (None: ``a``'s own, ml_dtypes'
+    bfloat16 kept) on ``device``."""
     a = np.asarray(a)
     if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
         a = a.astype(np.float32)       # ml_dtypes' bfloat16: exact in fp32
-    return torch.tensor(a, device=device).to(dtype)
+        dtype = dtype or torch.bfloat16
+    t = torch.tensor(a, device=device)
+    return t if dtype is None else t.to(dtype)
 
 
 # subtrees that stay float32 whatever the parameters' dtype, as the
@@ -64,17 +71,39 @@ FLOAT32_SUBTREES = ("router", "lru", "conv")
 
 
 def _tree(tree, dtype, device):
+    """A tree of arrays as tensors in ``dtype`` (float32 under
+    FLOAT32_SUBTREES), or each in its own dtype where ``dtype`` is None."""
     if isinstance(tree, dict):
-        return {k: _tree(v, torch.float32 if k in FLOAT32_SUBTREES
-                         else dtype, device) for k, v in tree.items()}
+        return {k: _tree(v, torch.float32 if dtype is not None
+                         and k in FLOAT32_SUBTREES else dtype, device)
+                for k, v in tree.items()}
     return _tensor(tree, dtype, device)
 
 
 def _layer(i, tree):
-    """Layer ``i`` of a tree stacked on a leading axis."""
+    """Layer ``i`` of a tree stacked on a leading axis, a tensor of its own
+    (the trainer updates it in place)."""
     if isinstance(tree, dict):
         return {k: _layer(i, v) for k, v in tree.items()}
-    return tree[i].contiguous()
+    return tree[i].clone()
+
+
+def _unstack(tree: dict, cfg: ModelConfig, dev, dtype) -> dict:
+    """A reference decoder tree (layer groups stacked) in the port's layout,
+    a list of per-layer dicts under each group, through :func:`_tree`."""
+    out = {k: _tree(v, dtype, dev) for k, v in tree.items()
+           if k not in GROUPS}
+    n = 0
+    for group in GROUPS:
+        if group not in tree:
+            continue
+        stacked = _tree(tree[group], dtype, dev)
+        size = len(tree[group]["attn_norm"]["scale"])
+        out[group] = [_layer(i, stacked) for i in range(size)]
+        n += size
+    if n != cfg.n_layers:
+        raise ValueError(f"tree has {n} layers, config {cfg.n_layers}")
+    return out
 
 
 def decoder_params_from_numpy(tree: dict, cfg: ModelConfig,
@@ -89,21 +118,8 @@ def decoder_params_from_numpy(tree: dict, cfg: ModelConfig,
     if cfg.family not in DECODER_FAMILIES:
         raise NotImplementedError("decoder parameters are of the families "
                                   f"{DECODER_FAMILIES}, not {cfg.family!r}")
-    dev = resolve_device(device)
-    dtype = torch_dtype(cfg.param_dtype)
-    out = {k: _tree(v, dtype, dev) for k, v in tree.items()
-           if k not in GROUPS}
-    n = 0
-    for group in GROUPS:
-        if group not in tree:
-            continue
-        stacked = _tree(tree[group], dtype, dev)
-        size = len(tree[group]["attn_norm"]["scale"])
-        out[group] = [_layer(i, stacked) for i in range(size)]
-        n += size
-    if n != cfg.n_layers:
-        raise ValueError(f"tree has {n} layers, config {cfg.n_layers}")
-    return out
+    return _unstack(tree, cfg, resolve_device(device),
+                    torch_dtype(cfg.param_dtype))
 
 
 def hybrid_params_from_numpy(tree: dict, cfg: ModelConfig,
@@ -132,3 +148,50 @@ def hybrid_params_from_numpy(tree: dict, cfg: ModelConfig,
     if n != cfg.n_layers:
         raise ValueError(f"tree has {n} layers, config {cfg.n_layers}")
     return out
+
+
+def train_state_from_numpy(state: dict, cfg: ModelConfig, device=None):
+    """The reference trainer's ``TrainState`` as numpy (a dict: ``params``,
+    ``step``, ``m``, ``v``, ``master`` (None without master weights) and
+    ``ef`` (None without int8 error feedback), the trees in the
+    reference's stacked layout) as the port's
+    :class:`~repro_torch.train.trainer.TrainState` on ``device`` (default
+    ``cuda``): params in ``cfg.param_dtype``, the moments in their own
+    dtype (float32 or bfloat16), master weights and the residual float32,
+    the step an int32 scalar."""
+    from .optim.adamw import AdamWState
+    from .train.trainer import TrainState
+
+    if cfg.family not in DECODER_FAMILIES:
+        raise NotImplementedError("decoder train states are of the families "
+                                  f"{DECODER_FAMILIES}, not {cfg.family!r}")
+    dev = resolve_device(device)
+    params = _unstack(state["params"], cfg, dev, torch_dtype(cfg.param_dtype))
+    tree = lambda t: None if t is None else _unstack(t, cfg, dev, None)
+    step = torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                        device=dev)
+    opt = AdamWState(step, tree(state["m"]), tree(state["v"]),
+                     tree(state.get("master")))
+    return TrainState(params, opt, tree(state.get("ef")))
+
+
+def decoder_params_to_numpy(params: dict) -> dict:
+    """The inverse of :func:`decoder_params_from_numpy`: the port's decoder
+    parameters as the reference's tree, layer groups stacked on a leading
+    axis, float32 numpy arrays (bf16 values are exact in float32)."""
+    def host(t):
+        return t.detach().to(torch.float32).cpu().numpy()
+
+    def stack(layers):
+        first = layers[0]
+        if isinstance(first, dict):
+            return {k: stack([layer[k] for layer in layers]) for k in first}
+        return np.stack([host(t) for t in layers])
+
+    def tree(sub):
+        if isinstance(sub, dict):
+            return {k: tree(v) for k, v in sub.items()}
+        return host(sub)
+
+    return {k: stack(v) if k in GROUPS else tree(v)
+            for k, v in params.items()}

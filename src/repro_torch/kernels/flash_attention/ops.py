@@ -19,9 +19,11 @@ with one query position, in bfloat16 and float32; the tensor-core kernel
 CUDA-core kernel (``"simt"``) for float32 with more than one.
 ``LAUNCHES["flash_attention"]`` counts the calls of every route,
 ``LAUNCHES["flash_attention_tc"]`` and
-``LAUNCHES["flash_attention_decode"]`` those of their routes; one is
+``LAUNCHES["flash_attention_decode"]`` those of their routes, and
+``LAUNCHES["flash_attention_backward"]`` the backward kernel's; one is
 added where a kernel is launched, and nowhere else (the decode route's
-two passes, split and combine, are one launch).
+two passes, split and combine, are one launch, and so are the backward's
+three, LSE, dK/dV and dQ).
 """
 
 from __future__ import annotations
@@ -34,10 +36,11 @@ from typing import Optional
 import torch
 
 from .._build import CudaLibrary
-from .ref import attention_ref
+from .._grad import refuse_graph_inputs
+from .ref import attention_backward_ref, attention_ref
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0,
-            "flash_attention_decode": 0}
+            "flash_attention_decode": 0, "flash_attention_backward": 0}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 # the decode route's split count: enough (batch, kv head, split) blocks for
 # two on each of the H100's 132 SMs, and no more splits than the kernel's
@@ -120,12 +123,41 @@ def _check(q, k, v, q_pos, kv_pos, window) -> None:
                          f"{window}")
 
 
+def _head_stride(q: torch.Tensor, name: str = "q") -> int:
+    """The element stride of the flattened query head k*G+g of a
+    (B, S, K, G, Dh) tensor, which lies at k*stride(2) + g*stride(3)."""
+    K, G = q.shape[2], q.shape[3]
+    if K > 1 and G > 1 and q.stride(2) != G * q.stride(3):
+        raise ValueError(f"flash_attention: {name}'s (K, G) axes must step "
+                         "as one head axis")
+    return q.stride(3) if G > 1 else q.stride(2)
+
+
+def _loadable(t: torch.Tensor) -> bool:
+    """Whether the kernels' 16-byte loads can read ``t``: a contiguous
+    last axis, the other strides multiples of 16 bytes, a 16-byte
+    aligned start."""
+    vec = 16 // t.element_size()
+    strides = [s for s, n in zip(t.stride()[:-1], t.shape) if n > 1]
+    return t.stride(-1) == 1 and not any(s % vec for s in strides) \
+        and not t.data_ptr() % 16
+
+
+def _check_strides(kernel: str, name: str, t: torch.Tensor) -> None:
+    if not _loadable(t):
+        raise ValueError(f"{kernel}: {name} must have a contiguous last "
+                         "axis, strides that are multiples of "
+                         f"{16 // t.element_size()} and a 16-byte aligned "
+                         f"start, got strides {t.stride()}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """The model's attention -> (B, Sq, K, G, Dh) in q's dtype."""
     _check(q, k, v, q_pos, kv_pos, window)
+    refuse_graph_inputs("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, q_pos, kv_pos, causal=causal,
                              window=window)
@@ -134,23 +166,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Sq, K, G, Dh = q.shape
     if Dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {Dh} not in {HEAD_DIMS}")
-    # query head k*G+g lies at k*stride(2) + g*stride(3): one head stride
-    head_stride = q.stride(3) if G > 1 else q.stride(2)
-    if K > 1 and G > 1 and q.stride(2) != G * q.stride(3):
-        raise ValueError("flash_attention: q's (K, G) axes must step as one "
-                         "head axis")
+    head_stride = _head_stride(q)
     for name, t in (("q_pos", q_pos), ("kv_pos", kv_pos)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
-    vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        strides = [s for s, n in zip(t.stride()[:-1], t.shape) if n > 1]
-        if t.stride(-1) != 1 or any(s % vec for s in strides) \
-                or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} must have a "
-                             "contiguous last axis, strides that are "
-                             f"multiples of {vec} and a 16-byte aligned "
-                             f"start, got strides {t.stride()}")
+        _check_strides("flash_attention", name, t)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if out.numel() == 0:
         return out
@@ -204,3 +225,123 @@ def flash_attention_kernel_layout(q: torch.Tensor, k: torch.Tensor,
     out = flash_attention(qm, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
                           q_pos, kv_pos, causal=causal, window=window)
     return out.flatten(2, 3).permute(0, 2, 1, 3)
+
+
+# ----------------------------------------------------------------- backward
+
+BACKWARD_LIBRARY = CudaLibrary(
+    "flash_attention_backward",
+    Path(__file__).resolve().parent / "csrc" / "flash_attention_backward.cu",
+    {"flash_attention_backward": [ctypes.c_void_p] * 10
+     + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p]})
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, q_pos: torch.Tensor,
+                             kv_pos: torch.Tensor, *, causal: bool = True,
+                             window: Optional[int] = None
+                             ) -> "tuple[torch.Tensor, torch.Tensor, torch.Tensor]":
+    """The gradient of :func:`flash_attention`: ``o`` its output and
+    ``do`` the output's gradient, both (B, Sq, K, G, Dh) -> (dq
+    (B, Sq, K, G, Dh), dk and dv (B, Skv, K, Dh)), contiguous, in q's
+    dtype.  On the CPU the plain version
+    (:func:`~.ref.attention_backward_ref`); on the card the three passes
+    of ``csrc/flash_attention_backward.cu``, or it raises."""
+    _check(q, k, v, q_pos, kv_pos, window)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype or o.device != q.device \
+            or do.device != q.device:
+        raise ValueError("flash_attention_backward: o and do must match q "
+                         f"{tuple(q.shape)} {q.dtype}, got "
+                         f"{tuple(o.shape)} {o.dtype} and "
+                         f"{tuple(do.shape)} {do.dtype}")
+    refuse_graph_inputs("flash_attention_backward", q, k, v, o, do)
+    if q.device.type == "cpu":
+        return attention_backward_ref(q, k, v, o, do, q_pos, kv_pos,
+                                      causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention_backward: no kernel for device "
+                         f"{q.device}")
+    B, Sq, K, G, Dh = q.shape
+    Skv = k.shape[1]
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_backward: head dim {Dh} not in "
+                         f"{HEAD_DIMS}")
+    for name, t in (("q_pos", q_pos), ("kv_pos", kv_pos)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention_backward: {name} must be "
+                             "contiguous")
+    if not _loadable(do):
+        do = do.contiguous()     # autograd may hand over any layout
+    heads = {}
+    for name, t in (("q", q), ("o", o), ("do", do)):
+        heads[name] = _head_stride(t, name)
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        _check_strides("flash_attention_backward", name, t)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    dims = (ctypes.c_int64 * 23)(
+        B, Sq, Skv, K, G, Dh,
+        q.stride(0), q.stride(1), heads["q"],
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        o.stride(0), o.stride(1), heads["o"],
+        do.stride(0), do.stride(1), heads["do"],
+        int(causal), 0 if window is None else int(window))
+    # each row's LSE, then its D = sum dO . O
+    ws = torch.empty(2 * B * K * Sq * G, dtype=torch.float32,
+                     device=q.device)
+    with torch.cuda.device(q.device):
+        BACKWARD_LIBRARY.call(
+            "flash_attention_backward", "flash_attention_backward",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            q_pos.data_ptr(), kv_pos.data_ptr(), dims, 1.0 / math.sqrt(Dh),
+            _DTYPE_CODES[q.dtype], ws.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    LAUNCHES["flash_attention_backward"] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with its gradient from
+    :func:`flash_attention_backward`: the forward kernels (every route as
+    it is) and the backward kernel on the card, their plain versions on
+    the CPU.  The positions and masks get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, causal, window):
+        o = flash_attention(q, k, v, q_pos, kv_pos, causal=causal,
+                            window=window)
+        ctx.save_for_backward(q, k, v, o, q_pos, kv_pos)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, q_pos, kv_pos = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, o, do, q_pos, kv_pos, causal=ctx.causal,
+            window=ctx.window)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_differentiable(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, q_pos: torch.Tensor,
+                                   kv_pos: torch.Tensor, *,
+                                   causal: bool = True,
+                                   window: Optional[int] = None
+                                   ) -> torch.Tensor:
+    """:func:`flash_attention` where autograd may follow it: through
+    :class:`FlashAttention` when grad mode is on and q, k or v requires
+    grad, else the wrapper itself (no autograd node on the serve path)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, q_pos, kv_pos, causal, window)
+    return flash_attention(q, k, v, q_pos, kv_pos, causal=causal,
+                           window=window)

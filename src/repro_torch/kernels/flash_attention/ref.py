@@ -144,3 +144,35 @@ def mask_probe(B: int, K: int, G: int, Dh: int, q_pos: torch.Tensor,
     mask = attention_mask(q_pos, kv_pos, causal, window).double()
     want = (mask @ hit.double()) / mask.sum(dim=1, keepdim=True).clamp_min(1)
     return q, k, v, want
+
+
+def attention_backward_ref(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, o: torch.Tensor,
+                           do: torch.Tensor, q_pos: torch.Tensor,
+                           kv_pos: torch.Tensor, *, causal: bool = True,
+                           window: Optional[int] = None
+                           ) -> "tuple[torch.Tensor, torch.Tensor, torch.Tensor]":
+    """The gradient of :func:`attention_ref` as FlashAttention-2 computes
+    it, in fp32: ``s = q . k / sqrt(Dh)`` over the attended keys,
+    ``P = exp(s - LSE)`` (0 where masked), ``D_i = sum_d dO_i . O_i``,
+    ``dS = P * (dO V^T - D)``; ``dQ = dS K / sqrt(Dh)``,
+    ``dK = dS^T Q / sqrt(Dh)``, ``dV = P^T dO``.  ``o`` is the forward's
+    output.  Returns (dq (B,Sq,K,G,Dh), dk and dv (B,Skv,K,Dh)) in the
+    inputs' dtypes.  A row that attends no key gets no gradient.  The
+    CPU path of the backward wrapper and the yardstick its kernel is held
+    against on the card."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf = q.float(), k.float(), v.float()
+    dof = do.float()
+    mask = attention_mask(q_pos, kv_pos, causal, window)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
+    s = s.masked_fill(~mask, -math.inf)
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    p = torch.exp(s - lse.clamp_min(NEG_INF)).masked_fill(~mask, 0.0)
+    d = (dof * o.float()).sum(dim=-1)                    # (B,Sq,K,G)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    ds = p * (dp - d.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf) * scale
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -54,6 +54,7 @@ from pathlib import Path
 import torch
 
 from .._build import CudaLibrary
+from .._grad import refuse_graph_inputs
 from .ref import K_TILE, grouped_matmul_ref, ragged_grouped_matmul_masked_ref
 
 LAUNCHES = {"grouped_matmul": 0, "ragged_grouped_matmul": 0,
@@ -237,6 +238,7 @@ def _launch(name: str, x, w, out, group_sizes, dims, route: str,
 def grouped_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (E, M, K), w (E, K, N), contiguous -> (E, M, N) in x's dtype."""
     _check("grouped_matmul", x, w, 3)
+    refuse_graph_inputs("grouped_matmul", x, w)
     if x.device.type == "cpu":
         return grouped_matmul_ref(x, w)
     out = x.new_empty((x.shape[0], x.shape[1], w.shape[2]))
@@ -265,6 +267,7 @@ def ragged_grouped_matmul(x: torch.Tensor, w: torch.Tensor,
     if block_m < 1:
         raise ValueError(f"ragged_grouped_matmul: block_m must be >= 1, got "
                          f"{block_m}")
+    refuse_graph_inputs("ragged_grouped_matmul", x, w)
     if x.device.type == "cpu":
         return ragged_grouped_matmul_masked_ref(x, w, group_sizes, block_m)
     out = x.new_empty((x.shape[0], w.shape[2]))

@@ -38,6 +38,7 @@ from pathlib import Path
 import torch
 
 from .._build import CudaLibrary, LaunchWord
+from .._grad import refuse_graph_inputs
 from .ref import lru_scan_ref
 
 LAUNCHES = {"lru_scan": 0}
@@ -132,6 +133,7 @@ def lru_scan(a: torch.Tensor, b: torch.Tensor,
     """a, b: (B, S, W) float32, h0: (B, W) float32 or None, all
     contiguous -> (y (B,S,W), h_last (B,W))."""
     dev, B, S, W = check_inputs(a, b, h0)
+    refuse_graph_inputs("lru_scan", a, b, h0)
     if not a.is_cuda:   # not dev.type, which builds a string each call
         if dev.type == "cpu":
             return lru_scan_ref(a, b, h0)

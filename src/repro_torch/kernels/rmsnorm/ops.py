@@ -42,9 +42,12 @@ from typing import NamedTuple
 import torch
 
 from .._build import CudaLibrary, LaunchWord
-from .ref import rmsnorm_ref
+from .._grad import refuse_graph_inputs
+from .ref import rmsnorm_backward_ref, rmsnorm_ref
 
-LAUNCHES = {"rmsnorm": 0}
+# the forward's launches and the backward's (csrc/rmsnorm_backward.cu; its
+# two passes, rows then dscale, are one launch)
+LAUNCHES = {"rmsnorm": 0, "rmsnorm_backward": 0}
 
 LIBRARY = CudaLibrary(
     "rmsnorm", Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu",
@@ -167,6 +170,8 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     allowed); scale: (D,) of x's dtype, contiguous.  Returns a contiguous
     (N, D)."""
     dev, dtype, n, d, ld = check_inputs(x, scale)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        refuse_graph_inputs("rmsnorm", x, scale)
     if not x.is_cuda:   # not dev.type, which builds a string each call
         if dev.type == "cpu":
             return rmsnorm_ref(x, scale, eps)
@@ -187,3 +192,91 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
         LIBRARY.fail("rmsnorm", rc)
     LAUNCHES["rmsnorm"] += 1
     return out
+
+
+# ----------------------------------------------------------------- backward
+
+BACKWARD_LIBRARY = CudaLibrary(
+    "rmsnorm_backward",
+    Path(__file__).resolve().parent / "csrc" / "rmsnorm_backward.cu",
+    {"rmsnorm_backward": [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 5
+     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]})
+# blocks the backward spreads the rows over: four a streaming
+# multiprocessor of the H100's 132, a constant so that a shape's grouping
+# (and so dscale's bits) is the same on every card
+BACKWARD_BLOCKS = 4 * 132
+
+
+def backward_rows_per_block(n: int, d: int) -> int:
+    """Rows each block of the backward kernel owns: about N /
+    BACKWARD_BLOCKS, a multiple of the rows a block has in flight (8 for
+    D < NARROW_BELOW, one a warp; 1 else)."""
+    rows = 8 if d < NARROW_BELOW else 1
+    slots = -(-n // rows)
+    return rows * max(1, -(-slots // BACKWARD_BLOCKS))
+
+
+def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                     eps: float = 1e-6
+                     ) -> "tuple[torch.Tensor, torch.Tensor]":
+    """The gradient of :func:`rmsnorm`: x (N, D) (a row stride allowed),
+    scale (D,), dy (N, D) the output's gradient -> (dx (N, D) contiguous
+    in x's dtype, dscale (D,)).  On the CPU the plain version
+    (:func:`~.ref.rmsnorm_backward_ref`); on the card the kernel of
+    ``csrc/rmsnorm_backward.cu``, or it raises."""
+    dev, dtype, n, d, ld = check_inputs(x, scale)
+    if dy.shape != x.shape or dy.dtype != dtype or dy.device != dev:
+        raise ValueError(f"rmsnorm_backward: dy must match x {tuple(x.shape)}"
+                         f" {dtype}, got {tuple(dy.shape)} {dy.dtype}")
+    refuse_graph_inputs("rmsnorm_backward", x, scale, dy)
+    if dev.type == "cpu":
+        return rmsnorm_backward_ref(x, scale, dy, eps)
+    if dev.type != "cuda":
+        raise ValueError(f"rmsnorm_backward: no kernel for device {dev}")
+    if (dy.stride(-1) != 1 and d > 1) or (n > 1 and dy.stride(0) < d):
+        dy = dy.contiguous()     # autograd may hand over an expanded one
+    ld_dy = dy.stride(0) if n > 1 else d
+    dx = torch.empty((n, d), dtype=dtype, device=dev)
+    dscale = torch.empty_like(scale)
+    if n == 0 or d == 0:
+        return dx, dscale.zero_()
+    rpb = backward_rows_per_block(n, d)
+    partial = torch.empty((-(-n // rpb), d), dtype=torch.float32,
+                          device=dev)
+    idx = dev.index
+    rc = BACKWARD_LIBRARY.function("rmsnorm_backward")(
+        x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        dscale.data_ptr(), partial.data_ptr(), n, d, ld, ld_dy, rpb, eps,
+        _DTYPE_CODES[dtype], idx, torch._C._cuda_getCurrentRawStream(idx))
+    if rc:
+        BACKWARD_LIBRARY.fail("rmsnorm_backward", rc)
+    LAUNCHES["rmsnorm_backward"] += 1
+    return dx, dscale
+
+
+class RMSNorm(torch.autograd.Function):
+    """:func:`rmsnorm` with its gradient from :func:`rmsnorm_backward`:
+    the forward kernel and the backward kernel on the card, their plain
+    versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rmsnorm(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_backward(x, scale, dy, ctx.eps)
+        return dx, dscale, None
+
+
+def rmsnorm_differentiable(x: torch.Tensor, scale: torch.Tensor,
+                           eps: float = 1e-6) -> torch.Tensor:
+    """:func:`rmsnorm` where autograd may follow it: through
+    :class:`RMSNorm` when grad mode is on and an input requires grad,
+    else the wrapper itself (no autograd node on the serve path)."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RMSNorm.apply(x, scale, eps)
+    return rmsnorm(x, scale, eps)

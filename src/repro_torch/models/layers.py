@@ -32,9 +32,9 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..kernels.flash_attention import attention_ref, flash_attention
-from ..kernels.rmsnorm import rmsnorm as rmsnorm_kernel
-from ..kernels.rmsnorm import rmsnorm_ref
+from ..kernels.flash_attention import (attention_ref,
+                                      flash_attention_differentiable)
+from ..kernels.rmsnorm import rmsnorm_differentiable, rmsnorm_ref
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -55,6 +55,18 @@ def tree_leaves(tree):
             yield from tree_leaves(v)
     else:
         yield tree
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` of each leaf (and the same leaf of each of ``rest``, trees of
+    the same structure), as a tree of that structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
 
 
 # --------------------------------------------------------------------------
@@ -99,8 +111,12 @@ def rmsnorm_init(d: int, dtype, device):
 
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6, *,
             backend: str = "cuda") -> torch.Tensor:
-    """RMSNorm over the last axis of x (any leading shape)."""
-    fn = rmsnorm_kernel if backend == "cuda" else rmsnorm_ref
+    """RMSNorm over the last axis of x (any leading shape).  With grad
+    mode on and an input that requires grad, the ``cuda`` backend goes
+    through the kernels' autograd function (forward and backward
+    kernels); the ``torch`` backend is plain PyTorch, which autograd
+    follows."""
+    fn = rmsnorm_differentiable if backend == "cuda" else rmsnorm_ref
     d = x.shape[-1]
     return fn(x.reshape(-1, d), p["scale"], eps).reshape(x.shape)
 
@@ -141,8 +157,10 @@ def attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
               window: Optional[int] = None,
               backend: str = "cuda") -> torch.Tensor:
     """q (B,Sq,K,G,Dh), k/v (B,Skv,K,Dh), q_pos (Sq,), kv_pos (Skv,)
-    -> (B,Sq,K,G,Dh)."""
-    fn = flash_attention if backend == "cuda" else attention_ref
+    -> (B,Sq,K,G,Dh).  The ``cuda`` backend is differentiable as
+    :func:`rmsnorm`'s is."""
+    fn = flash_attention_differentiable if backend == "cuda" \
+        else attention_ref
     return fn(q, k, v, q_pos, kv_pos, causal=causal, window=window)
 
 
@@ -296,3 +314,22 @@ def swiglu_init(generator, d: int, d_ff: int, dtype, device):
 def swiglu(p, x):
     g = F.silu((x @ p["w_gate"]).float()).to(x.dtype)
     return (g * (x @ p["w_up"])) @ p["w_down"]
+
+
+# --------------------------------------------------------------------------
+# loss
+# --------------------------------------------------------------------------
+
+
+def cross_entropy_loss(logits, labels, valid=None):
+    """logits (B,S,V) [any dtype, upcast to float32], labels (B,S)
+    integers -> the mean of logsumexp minus the gold logit, over the
+    positions where ``valid`` (B,S) is set when it is given."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if valid is None:
+        return torch.mean(nll)
+    valid = valid.to(torch.float32)
+    return torch.sum(nll * valid) / torch.clamp_min(torch.sum(valid), 1.0)

@@ -48,12 +48,14 @@ def get_config(arch_id: str, smoke: bool = False) -> ModelConfig:
     return mod.smoke() if smoke else mod.CONFIG
 
 
-def get_model(cfg: ModelConfig, *, device=None,
+def get_model(cfg: ModelConfig, run=None, *, device=None,
               kernel_backend: "str | None" = None):
-    """The model of ``cfg``'s family on ``device`` (default ``cuda``)."""
+    """The model of ``cfg``'s family on ``device`` (default ``cuda``);
+    ``run`` (a ``RunConfig``) sets the decoder's ``remat``."""
     if cfg.family in DECODER_FAMILIES:
         from .transformer import DecoderLM
-        return DecoderLM(cfg, device=device, kernel_backend=kernel_backend)
+        return DecoderLM(cfg, run, device=device,
+                         kernel_backend=kernel_backend)
     if cfg.family == "hybrid":
         from .rglru import RGLRUModel
         return RGLRUModel(cfg, device=device, kernel_backend=kernel_backend)

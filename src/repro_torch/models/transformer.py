@@ -12,26 +12,50 @@ attention and the experts' matmuls go through the hand-written CUDA
 kernels (``kernel_backend="cuda"``) or their plain PyTorch versions
 (``"torch"``).
 
+Training (:mod:`repro_torch.train`): ``forward`` runs with grad mode as
+the caller has it (the serving calls, ``prefill`` and ``decode_step``,
+run under ``torch.no_grad()``), ``loss`` is the reference's (cross
+entropy plus ``AUX_LOSS_WEIGHT`` times the MoE load-balance loss), and
+``run.remat`` recomputes each block in the backward pass: ``full`` keeps
+nothing of a block (``torch.utils.checkpoint``, non-reentrant), ``dots``
+keeps its matrix products without batch dimensions (the counterpart of
+``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: the
+projections' ``aten.mm``; attention's kernel is recomputed).  On the
+``cuda`` backend the gradients of RMSNorm and attention are the backward
+kernels (their autograd functions).
+
 Not ported yet (ROADMAP.md queue 1): the expert-parallel and TP-f MoE
 paths (they need a mesh: one device always takes the dispatch path, as the
-reference does without a mesh), the VLM prefix, sharding constraints,
-remat and the training loss ("Training"); a config of another family
-raises ``NotImplementedError`` (the hybrid family is
-:class:`repro_torch.models.rglru.RGLRUModel`).
+reference does without a mesh), the VLM prefix and sharding constraints;
+a config of another family raises ``NotImplementedError`` (the hybrid
+family is :class:`repro_torch.models.rglru.RGLRUModel`).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as ckpt
 
 from .._device import resolve_device, resolve_kernel_backend
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, RunConfig
 from . import layers as L
 from . import moe as M
 from .registry import DECODER_FAMILIES
 
 # the layer groups of a parameter tree and of a cache, in forward order
 GROUPS = ("dense_layers", "layers")
+AUX_LOSS_WEIGHT = 0.01
+REMAT = ("none", "full", "dots")
+# what ``remat="dots"`` keeps of a block: products without batch dims
+SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in SAVED_DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
 class DecoderLM:
@@ -42,13 +66,17 @@ class DecoderLM:
     versions).
     """
 
-    def __init__(self, cfg: ModelConfig, *, device=None,
-                 kernel_backend: "str | None" = None):
+    def __init__(self, cfg: ModelConfig, run: "RunConfig | None" = None, *,
+                 device=None, kernel_backend: "str | None" = None):
         if cfg.family not in DECODER_FAMILIES:
             raise NotImplementedError(
                 f"DecoderLM serves the families {DECODER_FAMILIES}, not "
                 f"{cfg.family!r} (registry.get_model picks a family's "
                 "model)")
+        self.run = run or RunConfig()
+        if self.run.remat not in REMAT:
+            raise ValueError(f"unknown remat {self.run.remat!r}; expected "
+                             f"one of {REMAT}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.backend = resolve_kernel_backend(kernel_backend)
@@ -170,20 +198,41 @@ class DecoderLM:
     def _positions(self, S: int):
         return torch.arange(S, dtype=torch.int32, device=self.device)
 
-    @torch.no_grad()
+    def _block_remat(self, p, x, positions, *, window):
+        """``_block`` under ``run.remat``; no recomputation without grad."""
+        remat = self.run.remat
+        if remat == "none" or not torch.is_grad_enabled():
+            return self._block(p, x, positions, window=window)
+        kw = {} if remat == "full" else {"context_fn": functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)}
+        return ckpt.checkpoint(self._block, p, x, positions, window=window,
+                               use_reentrant=False, **kw)
+
     def forward(self, params, tokens):
         """Training/prefill forward over the full sequence -> (logits
         (B,S,V), aux); aux, the MoE load-balance loss summed over layers,
-        is 0 for the dense family."""
+        is 0 for the dense family.  Autograd follows it where grad mode
+        is on and the parameters require grad."""
         cfg = self.cfg
         x = self._embed_tokens(params, tokens)
         positions = self._positions(x.shape[1])
         aux = torch.zeros((), device=x.device)
         for _, _, p in _walk(params):
-            x, a = self._block(p, x, positions, window=cfg.sliding_window)
+            x, a = self._block_remat(p, x, positions,
+                                     window=cfg.sliding_window)
             aux = aux + a
         x = self._norm(params["final_norm"], x)
         return self._unembed(params, x), aux
+
+    def loss(self, params, batch):
+        """The reference's training loss: (ce + AUX_LOSS_WEIGHT * aux,
+        {"ce", "aux"}); ``batch`` holds ``tokens`` and ``labels`` (B, S)
+        and optionally ``valid`` (B, S), a mask of the positions that
+        count."""
+        logits, aux = self.forward(params, batch["tokens"])
+        ce = L.cross_entropy_loss(logits, batch["labels"],
+                                  batch.get("valid"))
+        return ce + AUX_LOSS_WEIGHT * aux, {"ce": ce, "aux": aux}
 
     def _unembed(self, params, x):
         w = params["embed"].T if self.cfg.tie_embeddings \

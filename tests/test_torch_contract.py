@@ -9,8 +9,14 @@
   recurrentgemma-2b) and a yi-9b and a mixtral-8x22b smoke forward pass
   (a subprocess).
 * With no CUDA device, entry points called without ``device="cpu"`` raise
-  instead of running on the CPU; unknown backends raise; a wrapper handed
-  a tensor that is neither on the CPU nor on a GPU raises.
+  instead of running on the CPU (the trainer, ``launch.train`` and a
+  checkpoint's restore among them); unknown backends raise; a wrapper
+  handed a tensor that is neither on the CPU nor on a GPU raises.
+* The training slice (the train CLI with a checkpoint and its resume,
+  the backward wrappers) runs with ``jax`` and ``repro`` blocked.
+* A kernel wrapper handed an input that requires grad, with grad mode
+  on, raises (its output would cut the autograd graph); the autograd
+  functions take the same inputs.
 """
 
 import ast
@@ -58,6 +64,14 @@ from repro_torch.kernels.rg_lru import lru_scan  # noqa: E402
 from repro_torch.kernels.rmsnorm import rmsnorm  # noqa: E402
 from repro_torch.kernels.segment_fairshare import segment_sum  # noqa: E402
 from repro_torch.launch.serve import main as serve_main  # noqa: E402
+from repro_torch.launch.train import main as train_main  # noqa: E402
+from repro_torch.configs.base import RunConfig  # noqa: E402
+from repro_torch.convert import train_state_from_numpy  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_backward, flash_attention_differentiable)
+from repro_torch.kernels.rmsnorm import (  # noqa: E402
+    rmsnorm_backward, rmsnorm_differentiable)
+from repro_torch.train import Checkpointer, Trainer  # noqa: E402
 from repro_torch.models.registry import get_config, get_model  # noqa: E402
 from repro_torch.models.rglru import RGLRUModel  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
@@ -329,3 +343,107 @@ def test_convert_checks_flow_order():
     with pytest.raises(ValueError, match="sorted by flow"):
         incidence_from_arrays(np.array([1, 0]), [0, 1], [1.0, 1.0], 2,
                               [1.0, 1.0], device="cpu")
+
+
+def test_training_entry_points_refuse_to_run_on_the_cpu_unasked(no_cuda,
+                                                                 tmp_path):
+    cfg = get_config("yi-9b", smoke=True)
+    model = get_model(cfg, device="cpu")
+    state = Trainer(model, RunConfig()).init_state(0)
+    ck = Checkpointer(str(tmp_path / "ck"))
+    ck.save(1, state)
+    calls = [
+        lambda: Trainer(get_model(cfg), RunConfig()),
+        lambda: train_main(["--smoke"]),
+        lambda: train_main(["--smoke", "--steps", "2", "--ckpt-dir",
+                            str(tmp_path / "cli")]),
+        lambda: ck.restore(state),
+        lambda: train_state_from_numpy({}, cfg),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not (tmp_path / "cli").exists()
+    restored, step = ck.restore(state, device="cpu")
+    assert step == 1 and torch.equal(restored.params["embed"],
+                                     state.params["embed"])
+
+
+def test_training_slice_runs_with_jax_blocked(tmp_path):
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import torch
+        from repro_torch.launch.train import main
+        args = ["--arch", "yi-9b", "--smoke", "--device", "cpu",
+                "--seq-len", "16", "--global-batch", "2", "--log-every", "1",
+                "--ckpt-dir", {str(tmp_path)!r}]
+        hist = main(args + ["--steps", "2"])
+        assert [h["step"] for h in hist] == [1, 2], hist
+        hist = main(args + ["--steps", "3", "--resume"])
+        assert [h["step"] for h in hist] == [3], hist
+        from repro_torch.kernels.rmsnorm import rmsnorm_backward
+        from repro_torch.kernels.flash_attention import (
+            flash_attention_backward)
+        x = torch.randn(3, 8)
+        dx, ds = rmsnorm_backward(x, torch.ones(8), torch.ones(3, 8))
+        assert dx.shape == (3, 8) and ds.shape == (8,)
+        q = torch.randn(1, 4, 1, 2, 16)
+        k = torch.randn(1, 4, 1, 16)
+        pos = torch.arange(4, dtype=torch.int32)
+        dq, dk, dv = flash_attention_backward(q, k, k, q, q, pos, pos)
+        assert dq.shape == q.shape and dk.shape == k.shape
+        assert "jax" not in sys.modules or sys.modules["jax"] is None
+    """)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_backward_wrappers_have_no_fallback_off_the_cpu():
+    x = torch.zeros(3, 16, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        rmsnorm_backward(x, torch.ones(16, device="meta"), x)
+    q = torch.zeros(1, 2, 1, 2, 16, device="meta")
+    k = torch.zeros(1, 3, 1, 16, device="meta")
+    pos = torch.zeros(2, dtype=torch.int32, device="meta")
+    kv_pos = torch.zeros(3, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        flash_attention_backward(q, k, k, q, q, pos, kv_pos)
+
+
+def test_kernel_wrappers_refuse_inputs_that_require_grad():
+    """The guard runs on every device: with grad mode on, an input that
+    requires grad is refused; under no_grad, or through the autograd
+    function, the same call runs."""
+    x = torch.randn(4, 16, requires_grad=True)
+    scale = torch.ones(16)
+    q = torch.randn(1, 4, 1, 2, 16, requires_grad=True)
+    k = torch.randn(1, 4, 1, 16)
+    pos = torch.arange(4, dtype=torch.int32)
+    a = torch.rand(2, 5, 8, requires_grad=True)
+    xe = torch.randn(2, 3, 16, requires_grad=True)
+    w = torch.randn(2, 16, 8)
+    calls = {
+        "rmsnorm": lambda: rmsnorm(x, scale),
+        "flash_attention": lambda: flash_attention(q, k, k, pos, pos),
+        "lru_scan": lambda: lru_scan(a, a.detach()),
+        "grouped_matmul": lambda: grouped_matmul(xe, w),
+        "ragged_grouped_matmul": lambda: ragged_grouped_matmul(
+            xe.reshape(6, 16), w, torch.tensor([3, 3])),
+        "rmsnorm_backward": lambda: rmsnorm_backward(x, scale, x.detach()),
+        "flash_attention_backward": lambda: flash_attention_backward(
+            q, k, k, q.detach(), q.detach(), pos, pos),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name}: an input requires "
+                           "grad"):
+            call()
+        with torch.no_grad():
+            call()
+    y = rmsnorm_differentiable(x, scale)
+    o = flash_attention_differentiable(q, k, k, pos, pos)
+    gx, gq = torch.autograd.grad(y.sum() + o.sum(), (x, q))
+    assert gx.shape == x.shape and gq.shape == q.shape

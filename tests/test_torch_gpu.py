@@ -45,6 +45,12 @@ split S of the ``mma`` route, whose S = 1 is the unsplit kernel's bits.  The RG-
 bit for bit equal to ``lru_scan_ref`` at every shape, with either width
 of moves, with other blocks and rings compiled in, and in a CUDA graph,
 two kernel runs bitwise equal.
+The backward kernels (RMSNorm's, attention's): each gradient within
+2e-5 (float32) or 2e-2 (bfloat16) of its max |plain|, two runs bitwise
+equal; their autograd functions against float64 autograd at 1e-5 and a
+central difference at 1e-4; every wrapper refuses an input that
+requires grad with grad mode on; a ``Trainer`` step through the kernels
+against the plain path (2e-5 / 5e-2 of each leaf's max), repeatable.
 """
 
 import dataclasses
@@ -916,7 +922,8 @@ def test_flash_attention_kernel_layout_bidirectional_bf16(cuda):
     cpu = fa.flash_attention_kernel_layout(q.cpu(), k.cpu(), v.cpu(),
                                            causal=False)
     assert fa.LAUNCHES == {"flash_attention": 1, "flash_attention_tc": 1,
-                           "flash_attention_decode": 0}
+                           "flash_attention_decode": 0,
+                           "flash_attention_backward": 0}
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                cpu.float().numpy(), atol=5e-2, rtol=5e-2)
 
@@ -1030,7 +1037,8 @@ def test_flash_attention_decode_kernel_matches_plain(cuda, dtype, name):
     check_twice(fa.flash_attention, fa.attention_ref, q, k, v, q_pos, kv_pos,
                 causal=True, window=window)
     assert fa.LAUNCHES == {"flash_attention": 2, "flash_attention_tc": 0,
-                           "flash_attention_decode": 2}
+                           "flash_attention_decode": 2,
+                           "flash_attention_backward": 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -2031,3 +2039,264 @@ def test_cosim_walls_end_with_a_device_synchronize(cuda, monkeypatch,
     assert len(syncs) == len(rows) == 4
     assert all(log[i + 1][0] == "clock" for i in syncs)
     assert sum("synchronizing" in str(w.message) for w in caught) > 0
+
+
+# --------------------------------------------------------------------------
+# The backward kernels (RMSNorm's and attention's), their autograd
+# functions and the wrappers' grad guard.  Tolerance: each gradient within
+# 2e-5 (float32) or 2e-2 (bfloat16: one rounding of the output, 2^-8 of
+# it) of its max |plain|; two runs bit for bit equal (no atomics).
+
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def grads_close(got, want, tol, what):
+    for name, g, w in zip(("first", "second", "third"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, (what, name)
+        assert bool(torch.isfinite(g).all()), (what, name)
+        top = float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * max(top, 1e-30), (what, name, err, top)
+
+
+# (N, D): the narrow route (a warp a row), the model widths, unaligned D,
+# a width whose accumulator leaves shared memory (16,384 > 12,288), ragged
+# row counts
+RMSNORM_BWD_SHAPES = [(1, 16), (7, 64), (37, 128), (5, 13), (33, 1000),
+                      (4097, 2560), (8192, 4096), (19, 6144), (9, 8200),
+                      (3, 16384), (1000, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", RMSNORM_BWD_SHAPES)
+def test_rmsnorm_backward_kernel_matches_plain(cuda, dtype, n, d):
+    gen = torch.Generator(device=cuda).manual_seed(n + d)
+    x = torch.randn(n, d, device=cuda, generator=gen).to(dtype)
+    scale = torch.randn(d, device=cuda, generator=gen).to(dtype)
+    dy = torch.randn(n, d, device=cuda, generator=gen).to(dtype)
+    rn.reset_launch_counts()
+    got = rn.rmsnorm_backward(x, scale, dy, 1e-6)
+    again = rn.rmsnorm_backward(x, scale, dy, 1e-6)
+    torch.cuda.synchronize()
+    assert rn.LAUNCHES["rmsnorm_backward"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    grads_close(got, rn.rmsnorm_backward_ref(x, scale, dy, 1e-6),
+                BWD_TOL[dtype], (n, d))
+
+
+@pytest.mark.parametrize("pad", [3, 8])
+def test_rmsnorm_backward_kernel_reads_strided_rows(cuda, pad):
+    gen = torch.Generator(device=cuda).manual_seed(pad)
+    x = torch.randn(64, 4096 + pad, device=cuda, generator=gen)[:, :4096]
+    dy = torch.randn(64, 4096 + pad, device=cuda, generator=gen)[:, :4096]
+    scale = torch.randn(4096, device=cuda, generator=gen)
+    grads_close(rn.rmsnorm_backward(x, scale, dy),
+                rn.rmsnorm_backward_ref(x, scale, dy), 2e-5, pad)
+
+
+def test_rmsnorm_autograd_function_against_float64(cuda):
+    """The autograd function's gradients (forward and backward kernels)
+    against float64 autograd of the formula, and a central difference of
+    the float64 loss along a random direction (gradcheck's test)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(24, 1024, device=cuda, generator=gen, requires_grad=True)
+    scale = torch.randn(1024, device=cuda, generator=gen, requires_grad=True)
+    w = torch.randn(24, 1024, device=cuda, generator=gen)
+    loss = (rn.RMSNorm.apply(x, scale, 1e-6) * w).sum()
+    gx, gs = torch.autograd.grad(loss, (x, scale))
+
+    def f64(xx, ss):
+        r = torch.rsqrt((xx * xx).mean(-1, keepdim=True) + 1e-6)
+        return (xx * r * ss * w.double()).sum()
+
+    x64 = x.detach().double().requires_grad_(True)
+    s64 = scale.detach().double().requires_grad_(True)
+    wx, ws = torch.autograd.grad(f64(x64, s64), (x64, s64))
+    grads_close((gx.double(), gs.double()), (wx, ws), 1e-5, "float64")
+    vx = torch.randn_like(x64)
+    vs = torch.randn_like(s64)
+    h = 1e-6
+    with torch.no_grad():
+        fd = (f64(x64 + h * vx, s64 + h * vs)
+              - f64(x64 - h * vx, s64 - h * vs)) / (2 * h)
+    dirderiv = float((gx.double() * vx).sum() + (gs.double() * vs).sum())
+    assert abs(dirderiv - float(fd)) <= 1e-4 * abs(float(fd)) + 1e-6
+
+
+# (B, Sq, K, G, Skv, Dh, window, positions): "aligned" = right-aligned
+# contiguous (training's Sq = Skv causal), "ring" = a decode-style ring with
+# empty slots holding NaN
+ATTN_BWD_CASES = {
+    "causal-g8-dh128": (2, 130, 2, 8, 130, 128, None, "aligned"),
+    "causal-g1-dh64": (1, 200, 4, 1, 200, 64, None, "aligned"),
+    "window-g8-dh128": (1, 256, 1, 8, 256, 128, 40, "aligned"),
+    "window-g1-dh256": (2, 97, 2, 1, 97, 256, 17, "aligned"),
+    "causal-g4-dh256": (1, 70, 2, 4, 70, 256, None, "aligned"),
+    "cross-ragged-dh32": (1, 33, 2, 2, 77, 32, None, "aligned"),
+    "g6-dh16": (2, 50, 1, 6, 50, 16, 9, "aligned"),
+    "ring-empty-dh64": (2, 20, 2, 4, 64, 64, None, "ring"),
+}
+
+
+def attn_bwd_inputs(cuda, case, dtype, seed):
+    B, Sq, K, G, Skv, Dh, window, pos = case
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, Sq, K, G, Dh, device=cuda, generator=gen).to(dtype)
+    k, v = (torch.randn(B, Skv, K, Dh, device=cuda, generator=gen).to(dtype)
+            for _ in range(2))
+    do = torch.randn(B, Sq, K, G, Dh, device=cuda, generator=gen).to(dtype)
+    if pos == "aligned":
+        q_pos, kv_pos = fa.right_aligned_positions(Sq, Skv, cuda)
+    else:
+        # 44 of 64 slots filled, queries at the last 20 written positions
+        kv_pos = ring_positions(Skv, 44, cuda)
+        q_pos = torch.arange(24, 44, dtype=torch.int32, device=cuda)
+        k[:, kv_pos < 0] = 1e4
+        v[:, kv_pos < 0] = -1e4
+    return q, k, v, do, q_pos, kv_pos, window
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(ATTN_BWD_CASES))
+def test_flash_attention_backward_kernel_matches_plain(cuda, dtype, name):
+    q, k, v, do, q_pos, kv_pos, window = attn_bwd_inputs(
+        cuda, ATTN_BWD_CASES[name], dtype, len(name))
+    kw = dict(causal=True, window=window)
+    with torch.no_grad():
+        o = fa.flash_attention(q, k, v, q_pos, kv_pos, **kw)
+    fa.reset_launch_counts()
+    got = fa.flash_attention_backward(q, k, v, o, do, q_pos, kv_pos, **kw)
+    again = fa.flash_attention_backward(q, k, v, o, do, q_pos, kv_pos, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_backward"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = fa.attention_backward_ref(q, k, v, o, do, q_pos, kv_pos, **kw)
+    grads_close(got, want, BWD_TOL[dtype], name)
+    if ATTN_BWD_CASES[name][-1] == "ring":
+        # empty slots get no gradient, and NaN there (a ring cache's empty
+        # slot may hold any bits) changes no bit of the others
+        empty = kv_pos < 0
+        assert bool((got[1][:, empty] == 0).all())
+        assert bool((got[2][:, empty] == 0).all())
+        k[:, empty] = float("nan")
+        v[:, empty] = float("nan")
+        nan = fa.flash_attention_backward(q, k, v, o, do, q_pos, kv_pos,
+                                          **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, nan))
+
+
+@pytest.mark.parametrize("window", [None, 24])
+def test_flash_attention_autograd_function_against_float64(cuda, window):
+    """Gradients through the autograd function (forward and backward
+    kernels, float32) against float64 autograd of the attention formula,
+    and a central difference of the float64 loss along a random direction
+    (gradcheck's test)."""
+    B, S, K, G, Dh = 1, 96, 2, 4, 64
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn(B, S, K, G, Dh, device=cuda, generator=gen,
+                    requires_grad=True)
+    k, v = (torch.randn(B, S, K, Dh, device=cuda, generator=gen,
+                        requires_grad=True) for _ in range(2))
+    w = torch.randn(B, S, K, G, Dh, device=cuda, generator=gen)
+    pos = torch.arange(S, dtype=torch.int32, device=cuda)
+    mask = fa.attention_mask(pos, pos, True, window)
+    fa.reset_launch_counts()
+    out = fa.flash_attention_differentiable(q, k, v, pos, pos, causal=True,
+                                            window=window)
+    got = torch.autograd.grad((out * w).sum(), (q, k, v))
+    assert fa.LAUNCHES["flash_attention"] == 1
+    assert fa.LAUNCHES["flash_attention_backward"] == 1
+
+    def f64(qq, kk, vv):
+        s = torch.einsum("bqkgd,bskd->bkgqs", qq, kk) / Dh ** 0.5
+        p = torch.softmax(s.masked_fill(~mask, -torch.inf), dim=-1)
+        o = torch.einsum("bkgqs,bskd->bqkgd", p, vv)
+        return (o * w.double()).sum()
+
+    leaves = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(f64(*leaves), leaves)
+    grads_close([g.double() for g in got], want, 1e-5, "float64")
+    dirs = [torch.randn_like(t) for t in leaves]
+    h = 1e-6
+    with torch.no_grad():
+        fd = (f64(*(t + h * d for t, d in zip(leaves, dirs)))
+              - f64(*(t - h * d for t, d in zip(leaves, dirs)))) / (2 * h)
+    dirderiv = sum(float((g.double() * d).sum()) for g, d in zip(got, dirs))
+    assert abs(dirderiv - float(fd)) <= 1e-4 * abs(float(fd)) + 1e-6
+
+
+def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda):
+    """Each wrapper raises where grad mode is on and an input requires
+    grad (its output would cut the graph), and runs under no_grad."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(8, 64, device=cuda, generator=gen, requires_grad=True)
+    scale = torch.ones(64, device=cuda)
+    q = torch.randn(1, 16, 1, 2, 32, device=cuda, generator=gen,
+                    requires_grad=True)
+    kv = torch.randn(1, 16, 1, 32, device=cuda, generator=gen)
+    pos = torch.arange(16, dtype=torch.int32, device=cuda)
+    a = torch.rand(2, 8, 32, device=cuda, generator=gen, requires_grad=True)
+    xe = torch.randn(2, 8, 16, device=cuda, generator=gen,
+                     requires_grad=True)
+    we = torch.randn(2, 16, 8, device=cuda, generator=gen)
+    sizes = torch.tensor([8, 8], dtype=torch.int32, device=cuda)
+    calls = {"rmsnorm": lambda: rn.rmsnorm(x, scale),
+             "flash_attention": lambda: fa.flash_attention(q, kv, kv, pos,
+                                                           pos),
+             "lru_scan": lambda: rg_lru.lru_scan(a, a.detach()),
+             "grouped_matmul": lambda: gm.grouped_matmul(xe, we),
+             "ragged_grouped_matmul": lambda: gm.ragged_grouped_matmul(
+                 xe.reshape(16, 16), we, sizes)}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="requires grad"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_trainer_step_through_the_kernels(cuda, dtype):
+    """yi-9b's smoke config: step-1 gradients through the forward and
+    backward kernels against the plain path's (every leaf within 2e-5 /
+    5e-2 of its max |g|), each kernel launched once a use (2L+1 RMSNorms
+    and L attentions, forward and backward: no gap in the graph), and
+    one train step twice with the same bits."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticDataset
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.train import Trainer
+
+    cfg = get_config("yi-9b", smoke=True).replace(param_dtype=dtype,
+                                                  activation_dtype=dtype)
+    run = RunConfig(lr=3e-3, warmup_steps=1, total_steps=10)
+    ds = SyntheticDataset(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                     global_batch=2))
+    kern = Trainer(get_model(cfg, run, device=cuda, kernel_backend="cuda"),
+                   run)
+    plain = Trainer(get_model(cfg, run, device=cuda,
+                              kernel_backend="torch"), run)
+    batch = kern.device_batch(ds.batch(0))
+    params = kern.model.init(0)
+    rn.reset_launch_counts()
+    fa.reset_launch_counts()
+    loss, _, grads = kern._grads(params, batch)
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    assert rn.LAUNCHES["rmsnorm"] == 2 * L + 1
+    assert rn.LAUNCHES["rmsnorm_backward"] == 2 * L + 1
+    assert fa.LAUNCHES["flash_attention"] == L
+    assert fa.LAUNCHES["flash_attention_backward"] == L
+    want_loss, _, want = plain._grads(params, batch)
+    tol = 2e-5 if dtype == "float32" else 5e-2
+    assert abs(float(loss) - float(want_loss)) <= tol * float(want_loss)
+    for g, w in zip(tree_leaves(grads), tree_leaves(want)):
+        top = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= tol * top
+    runs = []
+    for _ in range(2):
+        state = kern.state_from_params(tree_map(torch.clone, params))
+        state, metrics = kern.make_train_step()(state, batch)
+        runs.append((float(metrics["loss"]), list(tree_leaves(state.params))))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
