@@ -158,8 +158,9 @@ nonzero:
    of one step, the reference's lcg stream at 4,096 tokens, global batch
    2: four steps through the kernels (each step's loss and wall,
    tokens/s, peak memory, and the launch counts of that run alone: 17
-   RMSNorm forwards and backwards and 8 attention forwards (``tc``) and
-   backwards a step), again with the same bits, and on the plain path
+   RMSNorm forwards and backwards and 8 attention forwards (``tc``, each
+   saving its rows' LSE) and backwards (``tc``, on the tensor cores, with
+   that LSE) a step), again with the same bits, and on the plain path
    (remat full): losses within 2e-2 relative, step-1 gradients within
    5e-2 of each leaf's max |g|, and each parameter leaf after the steps
    within 0.25 of the plain path's own update (L2) from the init.
@@ -172,9 +173,13 @@ nonzero:
    backward kernels against their plain versions (RMSNorm's: narrow,
    unaligned, wide and the cell's (8,192, 4,096); attention's: causal, a
    binding window, G 1, 4 and 8, Dh 64, 128 and 256, and the cell's q
-   (2, 4096, 4, 8, 128)), float32 at 2e-5 and bf16 at 2e-2 of each
-   gradient's max, twice for bitwise repeatability, the cell timed
-   (events and profiler) beside ``F.rms_norm``'s and SDPA's backward.
+   (2, 4096, 4, 8, 128), each with the forward's saved LSE and without
+   it), float32 (CUDA cores) at 2e-5 and bf16 (tensor cores) at 2e-2 of
+   each gradient's max, twice for bitwise repeatability, the cell timed
+   (events, the profiler's device ms of each pass) beside
+   ``F.rms_norm``'s and SDPA's backward; and the forward's LSE (``tc``
+   and ``simt`` routes, the cell among them) against its plain version
+   at 1e-5, the outputs bit for bit those of a call without it.
 14. ``model_kernel``: RMSNorm and flash attention against their plain
    versions (edge cases: ragged sizes, decode, GQA and MQA, a window, a
    ring cache with empty and wrapped slots, float32 and bfloat16), at
@@ -1877,7 +1882,7 @@ def phase_table2_trace() -> dict:
     sim("torch")
     sim("cuda", TraceRecorder(), buffered=True)
     for backend in ("cuda", "torch"):
-        turns = ("off", "on", "buffered", "buffered", "on", "off") * 3 \
+        turns = ("off", "on", "buffered", "buffered", "on", "off") * 2 \
             if backend == "cuda" else ("off", "on", "on", "off")
         walls = {turn: [] for turn in turns}
         for turn in turns:
@@ -3283,7 +3288,8 @@ def phase_serve(card: str) -> dict:
             "flash_attention": passes * cfg.n_layers,
             "flash_attention_tc": waves * cfg.n_layers,
             "flash_attention_decode": (passes - waves) * cfg.n_layers,
-            "rmsnorm_backward": 0, "flash_attention_backward": 0}
+            "rmsnorm_backward": 0, "flash_attention_backward": 0,
+            "flash_attention_backward_tc": 0}
     if launches != want:
         raise AssertionError(f"serve launches {launches} != {want} "
                              f"({passes} forward passes)")
@@ -3570,6 +3576,7 @@ def phase_moe_serve(card: str) -> "tuple[dict, dict]":
             "flash_attention_tc": waves * L,
             "flash_attention_decode": (passes - waves) * L,
             "rmsnorm_backward": 0, "flash_attention_backward": 0,
+            "flash_attention_backward_tc": 0,
             "grouped_matmul": passes * 3 * L, "ragged_grouped_matmul": 0,
             "grouped_matmul_wgmma": waves * 3 * L,
             "grouped_matmul_splitk": (passes - waves) * split_per_pass}
@@ -3803,6 +3810,7 @@ def phase_hybrid_serve(card: str) -> "tuple[dict, dict]":
             "flash_attention_decode":
                 (passes - waves) * kern.n_blocks["attn"],
             "rmsnorm_backward": 0, "flash_attention_backward": 0,
+            "flash_attention_backward_tc": 0,
             "lru_scan": waves * kern.n_blocks["rec"]}
     if launches != want:
         raise AssertionError(f"hybrid_serve launches {launches} != {want} "
@@ -3990,6 +3998,8 @@ def profile_train_step(trainer, state, batch) -> dict:
             "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
             "attention_backward_device_ms": ms("attn_bwd"),
+            "attention_backward_pass_device_ms": {
+                n[:60]: t / 1e3 for n, _, t in events if "attn_bwd" in n},
             "attention_forward_device_ms": ms("flash_attention_kernel"),
             "rmsnorm_backward_device_ms": ms("rmsnorm_backward"),
             "rmsnorm_forward_device_ms": ms("rmsnorm_row_kernel"),
@@ -4133,11 +4143,74 @@ def check_rmsnorm_backward(t_phase: float) -> dict:
     return row
 
 
+def pass_device_ms(fn, key: str, reps: int) -> dict:
+    """Each kernel name containing ``key`` that ``fn`` runs: its device ms
+    a run, the mean over the runs the profiler recorded (``reps`` calls),
+    and the runs recorded."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {n[:80]: {"ms": t / c / 1e3, "runs": c}
+            for n, c, t in device_events(prof) if key in n}
+
+
+def check_forward_lse(t_phase: float) -> None:
+    """The LSE the forward saves for the backward: the ``tc`` route at the
+    train cell and at head dim 256 with a window, the ``simt`` route in
+    float32, against ``attention_lse_ref`` within 1e-5 (relative, or
+    absolute below 1); the output bit for bit that of a call without it;
+    the decode route writes none."""
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    cases = [  # name, B, Sq, Skv, K, G, Dh, window, dtype
+        ("cell", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 4, 8, 128, None,
+         torch.bfloat16),
+        ("window-g1-dh256", 1, 300, 300, 2, 1, 256, 64, torch.bfloat16),
+        ("causal-g4-dh64", 1, 256, 256, 2, 4, 64, None, torch.float32),
+        ("decode", 2, 1, 300, 4, 8, 128, None, torch.bfloat16)]
+    for name, B, S, Skv, K, G, Dh, window, dt in cases:
+        q, k, v = attention_inputs(gen, B, S, K, G, Skv, Dh, dt)
+        kv_pos = positions_range(Skv)
+        q_pos = kv_pos[Skv - S:]
+        kw = dict(causal=True, window=window)
+        out = fa.flash_attention(q, k, v, q_pos, kv_pos, **kw)
+        got, lse = fa.flash_attention_with_lse(q, k, v, q_pos, kv_pos, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(out, got):
+            raise AssertionError(f"forward lse {name}: the output moved")
+        route = fa.ops._route(dt, S)
+        gap = None
+        if route == "decode":
+            if lse is not None:
+                raise AssertionError("forward lse: the decode route wrote one")
+        else:
+            want = fa.attention_lse_ref(q, k, q_pos, kv_pos, **kw)
+            rel = (lse - want).abs() / want.abs().clamp_min(1.0)
+            gap = float(rel.max())
+            del want, rel
+            if not gap <= 1e-5:
+                raise AssertionError(f"forward lse {name}: {gap} of the "
+                                     "plain LSE away")
+        emit("train", check="forward lse", case=name, q=list(q.shape),
+             dtype=str(dt), kernel_route=route, lse_max_rel_gap=gap,
+             tolerance=1e-5, output_bits_equal=True,
+             phase_s=time.perf_counter() - t_phase, ok=True)
+        del q, k, v, out, got, lse
+    torch.cuda.empty_cache()
+
+
 def check_attention_backward(t_phase: float) -> dict:
-    """Attention's backward kernel against its plain version: causal, a
-    binding window, G 1 and 8, Dh 64, 128 and 256, float32 at 2e-5 and
-    bfloat16 at 2e-2 of each gradient's max, then the cell's
-    q (2, 4,096, 4, 8, 128) causal bf16 (timed beside SDPA's backward)."""
+    """Attention's backward kernels against their plain version: causal, a
+    binding window, G 1 and 8, Dh 64, 128 and 256, float32 (CUDA cores)
+    at 2e-5 and bfloat16 (tensor cores) at 2e-2 of each gradient's max,
+    each with the forward's saved LSE and without it; then the cell's
+    q (2, 4,096, 4, 8, 128) causal bf16, the train path's call (with the
+    LSE) timed beside SDPA's backward, with each pass's device ms, and
+    without the LSE."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -4160,21 +4233,35 @@ def check_attention_backward(t_phase: float) -> dict:
             pos = positions_range(S)
             kw = dict(causal=True, window=window)
             with torch.no_grad():
-                o = fa.flash_attention(q, k, v, pos, pos, **kw)
+                o, lse = fa.flash_attention_with_lse(q, k, v, pos, pos, **kw)
             args = (q, k, v, o, do, pos, pos)
-            err = check_backward(
-                "flash_attention_backward",
-                fa.flash_attention_backward(*args, **kw),
-                fa.flash_attention_backward(*args, **kw),
-                fa.attention_backward_ref(*args, **kw), tol[dt],
-                f"{name} {dt}")
+            want = fa.attention_backward_ref(*args, **kw)
+            for saved in (None, lse):
+                fa.reset_launch_counts()
+                err = check_backward(
+                    "flash_attention_backward",
+                    fa.flash_attention_backward(*args, **kw, lse=saved),
+                    fa.flash_attention_backward(*args, **kw, lse=saved),
+                    want, tol[dt],
+                    f"{name} {dt} {'with' if saved is not None else 'no'} "
+                    "lse")
+                route = fa.ops._backward_route(dt)
+                if fa.LAUNCHES["flash_attention_backward_tc"] != \
+                        (2 if route == "tc" else 0):
+                    raise AssertionError(f"attention backward {name}: "
+                                         f"launches {fa.LAUNCHES}")
+                emit("train", kernel="flash_attention_backward", case=name,
+                     q=list(q.shape), window=window, dtype=str(dt),
+                     kernel_route=route, with_lse=saved is not None,
+                     max_abs_err=err, tolerance=tol[dt], ok=True)
+            del want
             torch.cuda.empty_cache()
-            emit("train", kernel="flash_attention_backward", case=name,
-                 q=list(q.shape), window=window, dtype=str(dt),
-                 max_abs_err=err, tolerance=tol[dt], ok=True)
-    # q, k, v, o, do: the cell's bf16 inputs
+    # q, k, v, o, lse, do: the cell's bf16 inputs; err: with the LSE
 
     def call():
+        fa.flash_attention_backward(*args, causal=True, lse=lse)
+
+    def call_without_lse():
         fa.flash_attention_backward(*args, causal=True)
 
     qs = q.reshape(B, S, K * G, Dh).transpose(1, 2).detach()
@@ -4187,23 +4274,29 @@ def check_attention_backward(t_phase: float) -> dict:
     def lib_call():
         torch.autograd.grad(y, leaves, dy, retain_graph=True)
 
-    row = {"max_abs_err": err, "ms": time_ms(call, reps=3, samples=3),
+    row = {"max_abs_err": err, "ms": time_ms(call, reps=5, samples=5),
            "plain_ms": time_ms(lambda: fa.attention_backward_ref(
                *args, causal=True), reps=1, samples=3),
            "library_ms": time_ms(lib_call, reps=5, samples=3),
            **attention_backward_cost(q, k, pos, pos, True, None)}
-    kern_dev = device_time(call, "attn_bwd", reps=3)
+    kern_dev = device_time(call, "attn_bwd", reps=5)
     emit("train", kernel="flash_attention_backward", case="cell",
-         q=list(q.shape), kv=list(k.shape), dtype="bfloat16", **row,
+         q=list(q.shape), kv=list(k.shape), dtype="bfloat16",
+         kernel_route=fa.ops._backward_route(q.dtype), with_lse=True, **row,
          library="scaled_dot_product_attention(is_causal=True, "
                  "enable_gqa=True) backward",
          kernel_device_ms=kern_dev["ms"],
          kernel_device_runs_recorded=kern_dev["recorded"],
+         pass_device_ms=pass_device_ms(call, "attn_bwd", reps=5),
+         ms_without_lse=time_ms(call_without_lse, reps=5, samples=3),
+         pass_device_ms_without_lse=pass_device_ms(call_without_lse, "",
+                                                   reps=5),
          library_device_ms=device_time(lib_call, "", reps=5)["ms"],
          achieved_TFLOPs=row["flops"] / (row["ms"] * 1e-3) / 1e12,
+         bound_TFLOPs=row["flops"] / (row["bound_ms"] * 1e-3) / 1e12,
          ms_over_bound=row["ms"] / row["bound_ms"],
          phase_s=time.perf_counter() - t_phase, ok=True)
-    del q, k, v, o, do, args, qs, ks, vs, leaves, y, dy
+    del q, k, v, o, lse, do, args, qs, ks, vs, leaves, y, dy
     torch.cuda.empty_cache()
     return row
 
@@ -4352,7 +4445,8 @@ def phase_train(card: str) -> "tuple[dict, dict]":
                     "flash_attention": TRAIN_STEPS * L,
                     "flash_attention_tc": TRAIN_STEPS * L,
                     "flash_attention_decode": 0,
-                    "flash_attention_backward": TRAIN_STEPS * L}
+                    "flash_attention_backward": TRAIN_STEPS * L,
+                    "flash_attention_backward_tc": TRAIN_STEPS * L}
             if kern_launches != want:
                 raise AssertionError(f"train launches {kern_launches} != "
                                      f"{want}")
@@ -4397,7 +4491,8 @@ def phase_train(card: str) -> "tuple[dict, dict]":
     loss32, grads32 = grads_of(k32, params, batch0)
     launches32 = train_launches()
     if launches32["flash_attention_backward"] != TRAIN_F32_LAYERS or \
-            launches32["flash_attention_tc"] != 0:
+            launches32["flash_attention_tc"] != 0 or \
+            launches32["flash_attention_backward_tc"] != 0:
         raise AssertionError(f"train float32 launches {launches32}")
     check_gradients("step-1 gradients, kernels vs plain", Trainer(
         get_model(cfg32, run, kernel_backend="torch"), run), params, batch0,
@@ -4408,6 +4503,7 @@ def phase_train(card: str) -> "tuple[dict, dict]":
 
     check_checkpoint_round_trip(t_phase)
     check_train_cli(t_phase)
+    check_forward_lse(t_phase)
     rows = {"rmsnorm_backward": check_rmsnorm_backward(t_phase),
             "flash_attention_backward": check_attention_backward(t_phase)}
     emit("train", phase_s=time.perf_counter() - t_phase, ok=True)
@@ -4490,6 +4586,15 @@ def main() -> int:
             path: counts[f"flash_attention_{route}"]
             for path, counts in by_path.items()
             if counts.get(f"flash_attention_{route}")}
+    # the attention backward's row times its tensor-core route (bf16, the
+    # train path's); its launches count both routes, the tc ones beside
+    attn_bwd = next(k for k in kernels
+                    if k["name"] == "flash_attention_backward")
+    attn_bwd["kernel_route"] = "tc"
+    attn_bwd["launches_tc_by_path"] = {
+        path: counts["flash_attention_backward_tc"]
+        for path, counts in by_path.items()
+        if counts.get("flash_attention_backward_tc")}
     # the grouped matmuls' rows time the wgmma route (mixtral prefill
     # gate/up, the routed rows) with its K splits (1); their launches
     # count every route, the wgmma ones (both variants) and the split-K

@@ -3,8 +3,10 @@
 Every kernel library of the port has a plain C interface (no PyTorch
 headers), so a build takes seconds.  It is built at first use, from the
 sources in this checkout, into ``build/repro_torch/`` at the repository
-root; the file name carries a hash of the source and the flags, so an
-edited source is rebuilt and never mixed up with an old library.
+root; the file name carries a hash of the source, of every local header
+it includes (``#include "..."``, beside it, followed through the headers'
+own includes) and of the flags, so an edited source or header is rebuilt
+and never mixed up with an old library.
 
 Each entry point returns ``cudaGetLastError()`` of its launch (0 on
 success); each library exports ``<name>_error_string(int)`` to turn that
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -23,6 +26,22 @@ from pathlib import Path
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_LOCAL_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def local_includes(source: Path) -> "list[Path]":
+    """The headers ``source`` includes with ``#include "..."``, resolved
+    beside the file that names them, then theirs, each once, in the order
+    met."""
+    found, todo = [], [Path(source)]
+    while todo:
+        path = todo.pop(0)
+        for name in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            header = (path.parent / name.decode()).resolve()
+            if header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
 
 
 def find_nvcc() -> str:
@@ -92,9 +111,13 @@ class CudaLibrary:
         self._error_string = None
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        return BUILD_DIR / f"lib{self.name}-{digest[:16]}.so"
+        """The library's path, named by a hash of the source, its local
+        headers and the flags."""
+        digest = hashlib.sha256(self.source.read_bytes())
+        for header in local_includes(self.source):
+            digest.update(header.name.encode() + b"\0" + header.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"lib{self.name}-{digest.hexdigest()[:16]}.so"
 
     def build(self) -> "tuple[Path, str]":
         """Compile the library unless it is already built.  Returns its

@@ -11,7 +11,13 @@
 //   flash_attention_kernel         float32 calls with Sq > 1; CUDA cores.
 //
 // The wrapper (ops.py, `_route`) chooses among the three entry points from
-// the dtype and Sq alone.
+// the dtype and Sq alone.  The tc and CUDA-core routes also write each
+// row's natural-log LSE (the log-sum-exp of its scaled, attended scores;
+// -1e30 for a row that attends no key) where the caller passes a buffer,
+// for the backward (flash_attention_backward.cu) to reuse: one store a row
+// after the output, which stays bit for bit the same.  The decode route
+// writes none.  The tensor-core and copy helpers live in mma_sync.cuh,
+// shared with the backward.
 //
 // Replaces the Pallas kernel of repro/kernels/flash_attention/kernel.py
 // (flash_attention -> _attn_kernel).  That kernel walks the kv blocks as
@@ -136,6 +142,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_sync.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -174,6 +182,9 @@ struct Params {
   int causal;
   int window;  // 0 = no window
   float scale;
+  // each row's natural-log LSE, (B, K, Sq * G) fp32, or null: written by
+  // the simt and tc routes when given (the backward's saved LSE)
+  float* lse;
 };
 
 // 16 bytes of T from global memory, as kVec floats.
@@ -417,6 +428,13 @@ flash_attention_kernel(const Params p) {
     __syncthreads();
   }
 
+  if (p.lse != nullptr) {
+    float* lse = p.lse + (static_cast<int64_t>(b) * gridDim.y + kh) * rows +
+                 row0;
+    for (int r = tid; r < live_rows; r += kThreads) {
+      lse[r] = l_s[r] > 0.f ? m_s[r] + logf(l_s[r]) : kLseEmpty;
+    }
+  }
   T* o = static_cast<T*>(p.o);
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
@@ -475,8 +493,7 @@ int launch(const Params& p, int batch, int kv_heads, int dh,
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kTcRows = 64;     // rows of the flattened (s, g) index a block
-constexpr int kTcChunk = 2048;  // keys whose tile flags one scan reads
+constexpr int kTcRows = 64;  // rows of the flattened (s, g) index a block
 
 template <int DH>
 struct TcShape {
@@ -488,89 +505,9 @@ struct TcShape {
       sizeof(bf16) * (kTcRows * kStride + 4 * kTile) + sizeof(int) * 2 * kBK;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-// 16 bytes global -> shared, zero-filled when !ok (src is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(ptr)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
-                                                  const void* ptr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(ptr)));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats as one bf16 pair, the first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 __device__ __forceinline__ bool attends(int kp, int qp, const Params& p) {
   return kp >= 0 && (!p.causal || kp <= qp) &&
          (p.window <= 0 || qp - kp < p.window);
-}
-
-// Flags of the 32 kv tiles of keys [c * kTcChunk, (c + 1) * kTcChunk),
-// bit t for tile 32c + t: `live` if some query in [q_lo, q_hi] attends one
-// of its keys, `full` if every such query attends all 64.  Computed by each
-// warp alone (coalesced reads of kv_pos, warp votes), so every warp of the
-// block holds the same flags with no barrier.
-__device__ __forceinline__ void scan_tiles(const Params& p, int c, int q_lo,
-                                           int q_hi, uint32_t& live,
-                                           uint32_t& full) {
-  const int lane = threadIdx.x % 32;
-  const int base = c * kTcChunk;
-  live = 0u;
-  full = ~0u;
-#pragma unroll 8
-  for (int i = 0; i < kTcChunk / 32; ++i) {
-    const int j = base + i * 32 + lane;
-    const int kp = j < p.skv ? __ldg(p.kv_pos + j) : -1;
-    const bool any = kp >= 0 && (!p.causal || kp <= q_hi) &&
-                     (p.window <= 0 || q_lo - kp < p.window);
-    const bool all = kp >= 0 && (!p.causal || kp <= q_lo) &&
-                     (p.window <= 0 || q_hi - kp < p.window);
-    const uint32_t bit = 1u << (i / 2);  // 64 keys = 2 steps of 32
-    if (__any_sync(0xffffffffu, any)) live |= bit;
-    if (!__all_sync(0xffffffffu, all)) full &= ~bit;
-  }
 }
 
 template <int DH>
@@ -638,7 +575,8 @@ flash_attention_kernel_tc(const Params p) {
     while (t < ntiles) {
       const int c = t / 32;
       if (c != chunk) {
-        scan_tiles(p, c, q_lo, q_hi, live, full);
+        scan_kv_tiles<kBK>(p.kv_pos, p.skv, p.causal, p.window, c,
+                           q_lo, q_hi, live, full);
         chunk = c;
       }
       const uint32_t rest = live >> (t % 32);
@@ -807,6 +745,19 @@ flash_attention_kernel_tc(const Params p) {
   for (int off = 1; off <= 2; off *= 2) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  if (p.lse != nullptr && lane % 4 == 0) {
+    // m is in log2 units: LSE = (m + log2 l) ln 2
+    float* lse = p.lse + (static_cast<int64_t>(b) * gridDim.y + kh) * rows +
+                 row0;
+    if (r_lo < live_rows) {
+      lse[r_lo] = l0 > 0.f ? (m0 + log2f(l0)) * 0.6931471805599453f
+                           : kLseEmpty;
+    }
+    if (r_lo + 8 < live_rows) {
+      lse[r_lo + 8] = l1 > 0.f ? (m1 + log2f(l1)) * 0.6931471805599453f
+                               : kLseEmpty;
+    }
   }
   bf16* o = static_cast<bf16*>(p.o);
 #pragma unroll
@@ -1322,6 +1273,7 @@ int make_params(const void* q, const void* k, const void* v, void* o,
   p->causal = static_cast<int>(dims[18]);
   p->window = static_cast<int>(dims[19]);
   p->scale = scale;
+  p->lse = nullptr;
   return 0;
 }
 
@@ -1337,30 +1289,35 @@ extern "C" {
 // k, v, o alike).  Every stride and pointer must be 16-byte aligned.
 
 // The CUDA-core kernel (flash_attention_kernel), float32 with Sq > 1 only.
+// lse: null, or B * K * Sq * G fp32 on the device for each row's LSE.
 int flash_attention_forward(const void* q, const void* k, const void* v,
                             void* o, const void* q_pos, const void* kv_pos,
                             const int64_t* dims, float scale, int dtype,
-                            void* stream) {
+                            void* lse, void* stream) {
   if (dtype != 0 || dims[1] == 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
   const int err = make_params(q, k, v, o, q_pos, kv_pos, dims, scale, &p);
   if (err != 0) return err;
+  p.lse = static_cast<float*>(lse);
   return launch<float>(p, static_cast<int>(dims[0]),
                        static_cast<int>(dims[3]), static_cast<int>(dims[5]),
                        static_cast<cudaStream_t>(stream));
 }
 
 // The tensor-core kernel (flash_attention_kernel_tc), bfloat16 only.
+// lse: null, or B * K * Sq * G fp32 on the device for each row's LSE.
 int flash_attention_forward_tc(const void* q, const void* k, const void* v,
                                void* o, const void* q_pos,
                                const void* kv_pos, const int64_t* dims,
-                               float scale, int dtype, void* stream) {
+                               float scale, int dtype, void* lse,
+                               void* stream) {
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   const int err = make_params(q, k, v, o, q_pos, kv_pos, dims, scale, &p);
   if (err != 0) return err;
+  p.lse = static_cast<float*>(lse);
   return launch_tc(p, static_cast<int>(dims[0]), static_cast<int>(dims[3]),
                    static_cast<int>(dims[5]),
                    static_cast<cudaStream_t>(stream));

@@ -17,13 +17,30 @@ and Sq alone: the split-KV decode kernel (``"decode"``) for every call
 with one query position, in bfloat16 and float32; the tensor-core kernel
 (``"tc"``) for bfloat16 with more than one (prefill, window waves); the
 CUDA-core kernel (``"simt"``) for float32 with more than one.
-``LAUNCHES["flash_attention"]`` counts the calls of every route,
+
+``flash_attention_with_lse`` is the same call that also returns each
+row's natural-log LSE, (B, K, Sq, G) float32 (the log-sum-exp of the
+row's scaled, attended scores; ``ref.NEG_INF`` for a row that attends
+nothing), which the ``tc`` and ``simt`` routes write beside the output
+(the output keeps its bits), and ``None`` on the decode route, which
+writes none; :func:`~.ref.attention_lse_ref` is its plain twin.  The
+autograd function saves it for the backward.
+
+The backward has two routes, chosen by :func:`_backward_route` from the
+dtype alone: ``"tc"`` (tensor cores) for bfloat16, ``"simt"`` (CUDA
+cores, fp32) for float32.  Given the forward's LSE, neither recomputes
+it; without it the ``simt`` route's pre-pass does, and the ``tc`` route
+takes it from a launch of the forward's ``tc`` kernel.
+
+``LAUNCHES["flash_attention"]`` counts the calls of every forward route,
 ``LAUNCHES["flash_attention_tc"]`` and
-``LAUNCHES["flash_attention_decode"]`` those of their routes, and
-``LAUNCHES["flash_attention_backward"]`` the backward kernel's; one is
-added where a kernel is launched, and nowhere else (the decode route's
+``LAUNCHES["flash_attention_decode"]`` those of their routes,
+``LAUNCHES["flash_attention_backward"]`` the backward's calls and
+``LAUNCHES["flash_attention_backward_tc"]`` those of its ``tc`` route; one
+is added where a kernel is launched, and nowhere else (the decode route's
 two passes, split and combine, are one launch, and so are the backward's
-three, LSE, dK/dV and dQ).
+passes: D (and the LSE where the ``simt`` route computes it), dK/dV and
+dQ).
 """
 
 from __future__ import annotations
@@ -37,10 +54,11 @@ import torch
 
 from .._build import CudaLibrary
 from .._grad import refuse_graph_inputs
-from .ref import attention_backward_ref, attention_ref
+from .ref import attention_backward_ref, attention_lse_ref, attention_ref
 
 LAUNCHES = {"flash_attention": 0, "flash_attention_tc": 0,
-            "flash_attention_decode": 0, "flash_attention_backward": 0}
+            "flash_attention_decode": 0, "flash_attention_backward": 0,
+            "flash_attention_backward_tc": 0}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 # the decode route's split count: enough (batch, kv head, split) blocks for
 # two on each of the H100's 132 SMs, and no more splits than the kernel's
@@ -48,8 +66,9 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 DECODE_TARGET_BLOCKS = 2 * 132
 DECODE_TILE_KEYS = 32
 
-# q, k, v, out, q_pos, kv_pos, dims, scale, dtype code, then (decode
-# only) the workspace and the split count, then the stream
+# q, k, v, out, q_pos, kv_pos, dims, scale, dtype code, then the LSE
+# buffer (simt and tc) or the workspace and the split count (decode), then
+# the stream
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
          ctypes.c_float, ctypes.c_int]
@@ -60,8 +79,8 @@ ENTRY_POINTS = {"simt": "flash_attention_forward",
 LIBRARY = CudaLibrary(
     "flash_attention",
     Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
-    {ENTRY_POINTS["simt"]: _ARGS + [ctypes.c_void_p],
-     ENTRY_POINTS["tc"]: _ARGS + [ctypes.c_void_p],
+    {ENTRY_POINTS["simt"]: _ARGS + [ctypes.c_void_p, ctypes.c_void_p],
+     ENTRY_POINTS["tc"]: _ARGS + [ctypes.c_void_p, ctypes.c_void_p],
      ENTRY_POINTS["decode"]: _ARGS + [ctypes.c_void_p, ctypes.c_int,
                                       ctypes.c_void_p]})
 
@@ -74,6 +93,12 @@ def _route(dtype: torch.dtype, sq: int) -> str:
     Sq > 1, ``"simt"`` (CUDA cores, fp32) for float32 with Sq > 1."""
     if sq == 1:
         return "decode"
+    return "tc" if dtype == torch.bfloat16 else "simt"
+
+
+def _backward_route(dtype: torch.dtype) -> str:
+    """The backward kernel of a CUDA call: ``"tc"`` (tensor cores) for
+    bfloat16, ``"simt"`` (CUDA cores, fp32) for float32."""
     return "tc" if dtype == torch.bfloat16 else "simt"
 
 
@@ -151,38 +176,20 @@ def _check_strides(kernel: str, name: str, t: torch.Tensor) -> None:
                          f"start, got strides {t.stride()}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """The model's attention -> (B, Sq, K, G, Dh) in q's dtype."""
-    _check(q, k, v, q_pos, kv_pos, window)
-    refuse_graph_inputs("flash_attention", q, k, v)
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, q_pos, kv_pos, causal=causal,
-                             window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+def _launch_forward(route: str, q, k, v, q_pos, kv_pos, causal, window,
+                    out: torch.Tensor,
+                    lse: Optional[torch.Tensor] = None) -> None:
+    """Launch ``route``'s forward kernel on checked CUDA inputs into
+    ``out``, and each row's LSE into ``lse`` where given (``simt`` and
+    ``tc`` only), and count the launch."""
     B, Sq, K, G, Dh = q.shape
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {Dh} not in {HEAD_DIMS}")
-    head_stride = _head_stride(q)
-    for name, t in (("q_pos", q_pos), ("kv_pos", kv_pos)):
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention: {name} must be contiguous")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_strides("flash_attention", name, t)
-    out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    if out.numel() == 0:
-        return out
     dims = (ctypes.c_int64 * 20)(
         B, Sq, k.shape[1], K, G, Dh,
-        q.stride(0), q.stride(1), head_stride,
+        q.stride(0), q.stride(1), _head_stride(q),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         out.stride(0), out.stride(1), out.stride(3),
         int(causal), 0 if window is None else int(window))
-    route = _route(q.dtype, Sq)
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             q_pos.data_ptr(), kv_pos.data_ptr(), dims, 1.0 / math.sqrt(Dh),
             _DTYPE_CODES[q.dtype]]
@@ -194,12 +201,76 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             ws = torch.empty(B * K * G * splits * (Dh + 2),
                              dtype=torch.float32, device=q.device)
             args += [ws.data_ptr(), splits]
+        else:
+            args.append(None if lse is None else lse.data_ptr())
         LIBRARY.call("flash_attention", ENTRY_POINTS[route], *args,
                      torch.cuda.current_stream().cuda_stream)
     LAUNCHES["flash_attention"] += 1
     if route != "simt":
         LAUNCHES[f"flash_attention_{route}"] += 1
-    return out
+
+
+def _checked_cuda(kernel: str, q, k, v, q_pos, kv_pos) -> None:
+    """The checks of a CUDA call beyond :func:`_check`: the device, the
+    head dim, contiguous positions and loadable strides."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{kernel}: no kernel for device {q.device}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{kernel}: head dim {q.shape[-1]} not in "
+                         f"{HEAD_DIMS}")
+    _head_stride(q)
+    for name, t in (("q_pos", q_pos), ("kv_pos", kv_pos)):
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_strides(kernel, name, t)
+
+
+def _lse_buffer(q: torch.Tensor) -> torch.Tensor:
+    B, Sq, K, G, _ = q.shape
+    return torch.empty(B, K, Sq, G, dtype=torch.float32, device=q.device)
+
+
+def _attention(q, k, v, q_pos, kv_pos, causal, window, with_lse: bool
+               ) -> "tuple[torch.Tensor, Optional[torch.Tensor]]":
+    """The checked call of both forward wrappers: the output and, where
+    ``with_lse`` and the route writes one, each row's LSE."""
+    _check(q, k, v, q_pos, kv_pos, window)
+    refuse_graph_inputs("flash_attention", q, k, v)
+    route = _route(q.dtype, q.shape[1])
+    with_lse = with_lse and route != "decode"
+    if q.device.type == "cpu":
+        out = attention_ref(q, k, v, q_pos, kv_pos, causal=causal,
+                            window=window)
+        lse = attention_lse_ref(q, k, q_pos, kv_pos, causal=causal,
+                                window=window) if with_lse else None
+        return out, lse
+    _checked_cuda("flash_attention", q, k, v, q_pos, kv_pos)
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = _lse_buffer(q) if with_lse else None
+    if out.numel():
+        _launch_forward(route, q, k, v, q_pos, kv_pos, causal, window, out,
+                        lse)
+    return out, lse
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """The model's attention -> (B, Sq, K, G, Dh) in q's dtype."""
+    return _attention(q, k, v, q_pos, kv_pos, causal, window, False)[0]
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, q_pos: torch.Tensor,
+                             kv_pos: torch.Tensor, *, causal: bool = True,
+                             window: Optional[int] = None
+                             ) -> "tuple[torch.Tensor, Optional[torch.Tensor]]":
+    """:func:`flash_attention` and each row's LSE, (B, K, Sq, G) float32,
+    or ``None`` where the call's route writes none (decode, Sq = 1).  On
+    the CPU the plain versions (:func:`~.ref.attention_lse_ref`)."""
+    return _attention(q, k, v, q_pos, kv_pos, causal, window, True)
 
 
 def right_aligned_positions(sq: int, skv: int, device
@@ -229,26 +300,36 @@ def flash_attention_kernel_layout(q: torch.Tensor, k: torch.Tensor,
 
 # ----------------------------------------------------------------- backward
 
+# q, k, v, o, dO, dq, dk, dv, q_pos, kv_pos, dims, scale, dtype code, the
+# LSE (or null), the workspace, the stream
+_BACKWARD_ARGS = [ctypes.c_void_p] * 10 + [
+    ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+# the C entry point of each backward route
+BACKWARD_ENTRY_POINTS = {"simt": "flash_attention_backward",
+                         "tc": "flash_attention_backward_tc"}
 BACKWARD_LIBRARY = CudaLibrary(
     "flash_attention_backward",
     Path(__file__).resolve().parent / "csrc" / "flash_attention_backward.cu",
-    {"flash_attention_backward": [ctypes.c_void_p] * 10
-     + [ctypes.POINTER(ctypes.c_int64), ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p]})
+    {entry: _BACKWARD_ARGS for entry in BACKWARD_ENTRY_POINTS.values()})
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor, q_pos: torch.Tensor,
                              kv_pos: torch.Tensor, *, causal: bool = True,
-                             window: Optional[int] = None
+                             window: Optional[int] = None,
+                             lse: Optional[torch.Tensor] = None
                              ) -> "tuple[torch.Tensor, torch.Tensor, torch.Tensor]":
     """The gradient of :func:`flash_attention`: ``o`` its output and
     ``do`` the output's gradient, both (B, Sq, K, G, Dh) -> (dq
     (B, Sq, K, G, Dh), dk and dv (B, Skv, K, Dh)), contiguous, in q's
-    dtype.  On the CPU the plain version
-    (:func:`~.ref.attention_backward_ref`); on the card the three passes
-    of ``csrc/flash_attention_backward.cu``, or it raises."""
+    dtype.  ``lse``: the forward's (:func:`flash_attention_with_lse`),
+    (B, K, Sq, G) float32, or None.  On the CPU the plain version
+    (:func:`~.ref.attention_backward_ref`); on the card the passes of
+    ``csrc/flash_attention_backward.cu`` on :func:`_backward_route`'s
+    route, or it raises.  Without ``lse`` the ``tc`` route takes it from
+    the forward's ``tc`` kernel first (a forward launch, counted as one)."""
     _check(q, k, v, q_pos, kv_pos, window)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
             or do.dtype != q.dtype or o.device != q.device \
@@ -257,77 +338,83 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                          f"{tuple(q.shape)} {q.dtype}, got "
                          f"{tuple(o.shape)} {o.dtype} and "
                          f"{tuple(do.shape)} {do.dtype}")
+    B, Sq, K, G, Dh = q.shape
+    if lse is not None and (lse.shape != (B, K, Sq, G)
+                            or lse.dtype != torch.float32
+                            or lse.device != q.device
+                            or not lse.is_contiguous()):
+        raise ValueError("flash_attention_backward: lse must be contiguous "
+                         f"float32 {(B, K, Sq, G)} on {q.device}, got "
+                         f"{tuple(lse.shape)} {lse.dtype} on {lse.device}")
     refuse_graph_inputs("flash_attention_backward", q, k, v, o, do)
     if q.device.type == "cpu":
         return attention_backward_ref(q, k, v, o, do, q_pos, kv_pos,
-                                      causal=causal, window=window)
-    if q.device.type != "cuda":
-        raise ValueError("flash_attention_backward: no kernel for device "
-                         f"{q.device}")
-    B, Sq, K, G, Dh = q.shape
-    Skv = k.shape[1]
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_backward: head dim {Dh} not in "
-                         f"{HEAD_DIMS}")
-    for name, t in (("q_pos", q_pos), ("kv_pos", kv_pos)):
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention_backward: {name} must be "
-                             "contiguous")
+                                      causal=causal, window=window, lse=lse)
+    _checked_cuda("flash_attention_backward", q, k, v, q_pos, kv_pos)
     if not _loadable(do):
         do = do.contiguous()     # autograd may hand over any layout
     heads = {}
     for name, t in (("q", q), ("o", o), ("do", do)):
         heads[name] = _head_stride(t, name)
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+    for name, t in (("o", o), ("do", do)):
         _check_strides("flash_attention_backward", name, t)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    route = _backward_route(q.dtype)
+    if route == "tc" and lse is None:
+        lse = _lse_buffer(q)
+        scratch = torch.empty_like(q, memory_format=torch.contiguous_format)
+        _launch_forward("tc", q, k, v, q_pos, kv_pos, causal, window,
+                        scratch, lse)
     dims = (ctypes.c_int64 * 23)(
-        B, Sq, Skv, K, G, Dh,
+        B, Sq, k.shape[1], K, G, Dh,
         q.stride(0), q.stride(1), heads["q"],
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         o.stride(0), o.stride(1), heads["o"],
         do.stride(0), do.stride(1), heads["do"],
         int(causal), 0 if window is None else int(window))
-    # each row's LSE, then its D = sum dO . O
-    ws = torch.empty(2 * B * K * Sq * G, dtype=torch.float32,
-                     device=q.device)
+    # each row's D = sum dO . O, then (where none is given) its LSE
+    ws = torch.empty((1 if lse is not None else 2) * B * K * Sq * G,
+                     dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         BACKWARD_LIBRARY.call(
-            "flash_attention_backward", "flash_attention_backward",
+            "flash_attention_backward", BACKWARD_ENTRY_POINTS[route],
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             q_pos.data_ptr(), kv_pos.data_ptr(), dims, 1.0 / math.sqrt(Dh),
-            _DTYPE_CODES[q.dtype], ws.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            _DTYPE_CODES[q.dtype], None if lse is None else lse.data_ptr(),
+            ws.data_ptr(), torch.cuda.current_stream().cuda_stream)
     LAUNCHES["flash_attention_backward"] += 1
+    if route == "tc":
+        LAUNCHES["flash_attention_backward_tc"] += 1
     return dq, dk, dv
 
 
 class FlashAttention(torch.autograd.Function):
     """:func:`flash_attention` with its gradient from
     :func:`flash_attention_backward`: the forward kernels (every route as
-    it is) and the backward kernel on the card, their plain versions on
-    the CPU.  The positions and masks get no gradient."""
+    it is, the LSE saved where the route writes one) and the backward
+    kernel on the card, their plain versions on the CPU.  The positions
+    and masks get no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_pos, kv_pos, causal, window):
-        o = flash_attention(q, k, v, q_pos, kv_pos, causal=causal,
-                            window=window)
-        ctx.save_for_backward(q, k, v, o, q_pos, kv_pos)
+        o, lse = flash_attention_with_lse(q, k, v, q_pos, kv_pos,
+                                          causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, q_pos, kv_pos, lse)
         ctx.causal, ctx.window = causal, window
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, q_pos, kv_pos = ctx.saved_tensors
+        q, k, v, o, q_pos, kv_pos, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(
             q, k, v, o, do, q_pos, kv_pos, causal=ctx.causal,
-            window=ctx.window)
+            window=ctx.window, lse=lse)
         return dq, dk, dv, None, None, None, None
 
 

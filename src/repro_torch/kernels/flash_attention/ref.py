@@ -20,6 +20,10 @@ kv head ``k``; k and v (B, Skv, K, Dh), any strides.
 kernel's two passes (each split's running max, denominator and output,
 then their merge in split order), which the CPU tests hold against
 ``attention_ref``; nothing on the serve path calls it.
+
+``attention_lse_ref`` is each row's log-sum-exp, the plain twin of the LSE
+the forward kernels save for the backward; ``attention_backward_ref`` the
+plain backward, which takes that LSE where given.
 """
 
 from __future__ import annotations
@@ -146,29 +150,55 @@ def mask_probe(B: int, K: int, G: int, Dh: int, q_pos: torch.Tensor,
     return q, k, v, want
 
 
+def _masked_scores(q: torch.Tensor, k: torch.Tensor, q_pos: torch.Tensor,
+                   kv_pos: torch.Tensor, causal: bool,
+                   window: Optional[int]) -> "tuple[torch.Tensor, torch.Tensor]":
+    """The scaled fp32 scores (B, K, G, Sq, Skv), -inf where not attended,
+    and the (Sq, Skv) mask."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    mask = attention_mask(q_pos, kv_pos, causal, window)
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
+    return s.masked_fill(~mask, -math.inf), mask
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, q_pos: torch.Tensor,
+                      kv_pos: torch.Tensor, *, causal: bool = True,
+                      window: Optional[int] = None) -> torch.Tensor:
+    """Each row's natural-log LSE, the log-sum-exp of its scaled attended
+    scores in fp32, (B, K, Sq, G) float32; ``NEG_INF`` for a row that
+    attends no key (so exp(s - LSE), masked, is 0).  The rows' layout is
+    the kernels' (B, K, Sq * G)."""
+    s, _ = _masked_scores(q, k, q_pos, kv_pos, causal, window)
+    lse = torch.logsumexp(s, dim=-1).clamp_min(NEG_INF)   # (B, K, G, Sq)
+    return lse.permute(0, 1, 3, 2).contiguous()
+
+
 def attention_backward_ref(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, o: torch.Tensor,
                            do: torch.Tensor, q_pos: torch.Tensor,
                            kv_pos: torch.Tensor, *, causal: bool = True,
-                           window: Optional[int] = None
+                           window: Optional[int] = None,
+                           lse: Optional[torch.Tensor] = None
                            ) -> "tuple[torch.Tensor, torch.Tensor, torch.Tensor]":
     """The gradient of :func:`attention_ref` as FlashAttention-2 computes
     it, in fp32: ``s = q . k / sqrt(Dh)`` over the attended keys,
     ``P = exp(s - LSE)`` (0 where masked), ``D_i = sum_d dO_i . O_i``,
     ``dS = P * (dO V^T - D)``; ``dQ = dS K / sqrt(Dh)``,
     ``dK = dS^T Q / sqrt(Dh)``, ``dV = P^T dO``.  ``o`` is the forward's
-    output.  Returns (dq (B,Sq,K,G,Dh), dk and dv (B,Skv,K,Dh)) in the
-    inputs' dtypes.  A row that attends no key gets no gradient.  The
-    CPU path of the backward wrapper and the yardstick its kernel is held
-    against on the card."""
+    output, ``lse`` its saved LSE (:func:`attention_lse_ref`'s layout) or
+    None (computed here, the same bits as that function's).  Returns (dq
+    (B,Sq,K,G,Dh), dk and dv (B,Skv,K,Dh)) in the inputs' dtypes.  A row
+    that attends no key gets no gradient.  The CPU path of the backward
+    wrapper and the yardstick its kernel is held against on the card."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     qf, kf, vf = q.float(), k.float(), v.float()
     dof = do.float()
-    mask = attention_mask(q_pos, kv_pos, causal, window)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
-    s = s.masked_fill(~mask, -math.inf)
-    lse = torch.logsumexp(s, dim=-1, keepdim=True)
-    p = torch.exp(s - lse.clamp_min(NEG_INF)).masked_fill(~mask, 0.0)
+    s, mask = _masked_scores(q, k, q_pos, kv_pos, causal, window)
+    if lse is None:
+        lse = torch.logsumexp(s, dim=-1).clamp_min(NEG_INF)
+    else:
+        lse = lse.permute(0, 1, 3, 2)                     # (B,K,G,Sq)
+    p = torch.exp(s - lse[..., None]).masked_fill(~mask, 0.0)
     d = (dof * o.float()).sum(dim=-1)                    # (B,Sq,K,G)
     dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
     ds = p * (dp - d.permute(0, 2, 3, 1)[..., None])

@@ -158,7 +158,8 @@ def test_cpu_bf16_prefill_launches_nothing():
     assert out.dtype == torch.bfloat16 and out.shape == q.shape
     assert LAUNCHES == {"flash_attention": 0, "flash_attention_tc": 0,
                         "flash_attention_decode": 0,
-                        "flash_attention_backward": 0}
+                        "flash_attention_backward": 0,
+                        "flash_attention_backward_tc": 0}
 
 
 @pytest.mark.parametrize("dtype,sq", [(torch.bfloat16, 4),

@@ -17,6 +17,9 @@
 * A kernel wrapper handed an input that requires grad, with grad mode
   on, raises (its output would cut the autograd graph); the autograd
   functions take the same inputs.
+* A kernel library's build path hashes the local headers its source
+  includes, so an edited header is rebuilt; the attention sources share
+  one header of tensor-core helpers.
 """
 
 import ast
@@ -447,3 +450,34 @@ def test_kernel_wrappers_refuse_inputs_that_require_grad():
     o = flash_attention_differentiable(q, k, k, pos, pos)
     gx, gq = torch.autograd.grad(y.sum() + o.sum(), (x, q))
     assert gx.shape == x.shape and gq.shape == q.shape
+
+
+def test_library_path_follows_included_headers(tmp_path):
+    """On a copy of the attention sources, editing the shared header (or a
+    header it includes) changes both libraries' build paths, and editing
+    an unrelated file changes neither."""
+    import shutil
+
+    from repro_torch.kernels._build import CudaLibrary, local_includes
+    from repro_torch.kernels.flash_attention import ops
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(ops.LIBRARY.source.parent, csrc)
+    libs = [CudaLibrary(lib.name, csrc / lib.source.name, {})
+            for lib in (ops.LIBRARY, ops.BACKWARD_LIBRARY)]
+    header = csrc / "mma_sync.cuh"
+    for lib in libs:
+        assert local_includes(lib.source) == [header.resolve()]
+    before = [lib.library_path() for lib in libs]
+    (csrc / "unrelated.cuh").write_text("// not included\n")
+    assert [lib.library_path() for lib in libs] == before
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = [lib.library_path() for lib in libs]
+    assert all(a != b for a, b in zip(before, edited))
+    # a header the shared one includes is followed too
+    (csrc / "inner.cuh").write_text("#pragma once\n")
+    header.write_text(header.read_text() + '#include "inner.cuh"\n')
+    nested = [lib.library_path() for lib in libs]
+    (csrc / "inner.cuh").write_text("#pragma once\n// edited\n")
+    assert all(a != b for a, b in
+               zip(nested, [lib.library_path() for lib in libs]))

@@ -47,10 +47,14 @@ of moves, with other blocks and rings compiled in, and in a CUDA graph,
 two kernel runs bitwise equal.
 The backward kernels (RMSNorm's, attention's): each gradient within
 2e-5 (float32) or 2e-2 (bfloat16) of its max |plain|, two runs bitwise
-equal; their autograd functions against float64 autograd at 1e-5 and a
-central difference at 1e-4; every wrapper refuses an input that
-requires grad with grad mode on; a ``Trainer`` step through the kernels
-against the plain path (2e-5 / 5e-2 of each leaf's max), repeatable.
+equal; attention's on both routes (bfloat16 on the tensor cores), with
+the forward's saved LSE and without it; their autograd functions against
+float64 autograd at 1e-5 and a central difference at 1e-4; every wrapper
+refuses an input that requires grad with grad mode on; a ``Trainer``
+step through the kernels against the plain path (2e-5 / 5e-2 of each
+leaf's max), repeatable.  The forward's LSE: the output keeps its bits
+when the LSE is written too, and the LSE lies within 1e-5 of
+``attention_lse_ref`` (relative, or absolute below 1).
 """
 
 import dataclasses
@@ -898,6 +902,43 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, name):
     assert fa.LAUNCHES["flash_attention_decode"] == (2 if Sq == 1 else 0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(ATTN_CASES))
+def test_flash_attention_lse_keeps_the_output_bits(cuda, dtype, name):
+    """Each route with and without the LSE store: the output keeps its
+    bits, the LSE (tc and simt) lies within 1e-5 of the plain version's
+    (relative, or absolute below 1), the decode route writes none; one
+    launch a call, counted on its route."""
+    B, Sq, K, G, Skv, Dh, qp, ring, window = ATTN_CASES[name]
+    gen = torch.Generator(device=cuda).manual_seed(len(name))
+    q = torch.randn(B, Sq, K, G, Dh, device=cuda, generator=gen).to(dtype)
+    k, v = (torch.randn(B, Skv, K, Dh, device=cuda, generator=gen).to(dtype)
+            for _ in range(2))
+    if ring is None:
+        q_pos, kv_pos = fa.right_aligned_positions(Sq, Skv, cuda)
+    else:
+        q_pos = torch.tensor(qp, dtype=torch.int32, device=cuda)
+        kv_pos = ring_positions(*ring, cuda)
+    kw = dict(causal=True, window=window)
+    fa.reset_launch_counts()
+    out = fa.flash_attention(q, k, v, q_pos, kv_pos, **kw)
+    got, lse = fa.flash_attention_with_lse(q, k, v, q_pos, kv_pos, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+    route = fa.ops._route(dtype, Sq)
+    assert fa.LAUNCHES["flash_attention"] == 2
+    for r in ("tc", "decode"):
+        assert fa.LAUNCHES[f"flash_attention_{r}"] == (2 if route == r else 0)
+    if route == "decode":
+        assert lse is None
+        return
+    want = fa.attention_lse_ref(q, k, q_pos, kv_pos, **kw)
+    assert lse.shape == want.shape and lse.dtype == torch.float32
+    gap = (lse - want).abs()
+    assert bool((gap <= 1e-5 * want.abs().clamp_min(1.0)).all()), \
+        float(gap.max())
+
+
 def test_flash_attention_kernel_layout_bidirectional(cuda):
     gen = torch.Generator(device=cuda).manual_seed(2)
     q = torch.randn(1, 2, 48, 64, device=cuda, generator=gen)
@@ -923,7 +964,8 @@ def test_flash_attention_kernel_layout_bidirectional_bf16(cuda):
                                            causal=False)
     assert fa.LAUNCHES == {"flash_attention": 1, "flash_attention_tc": 1,
                            "flash_attention_decode": 0,
-                           "flash_attention_backward": 0}
+                           "flash_attention_backward": 0,
+                           "flash_attention_backward_tc": 0}
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                cpu.float().numpy(), atol=5e-2, rtol=5e-2)
 
@@ -1038,7 +1080,8 @@ def test_flash_attention_decode_kernel_matches_plain(cuda, dtype, name):
                 causal=True, window=window)
     assert fa.LAUNCHES == {"flash_attention": 2, "flash_attention_tc": 0,
                            "flash_attention_decode": 2,
-                           "flash_attention_backward": 0}
+                           "flash_attention_backward": 0,
+                           "flash_attention_backward_tc": 0}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1148,6 +1191,8 @@ def test_flash_attention_entry_points_refuse_other_routes(cuda, name):
     if splits is not None:
         ws = torch.empty(B * K * G * splits * (Dh + 2), device=cuda)
         args += [ws.data_ptr(), splits]
+    else:
+        args.append(None)  # no LSE
     call = lambda: fa.ops.LIBRARY.call(  # noqa: E731
         "flash_attention", fa.ops.ENTRY_POINTS[entry], *args,
         torch.cuda.current_stream().cuda_stream)
@@ -2156,19 +2201,29 @@ def attn_bwd_inputs(cuda, case, dtype, seed):
     return q, k, v, do, q_pos, kv_pos, window
 
 
+@pytest.mark.parametrize("with_lse", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("name", sorted(ATTN_BWD_CASES))
-def test_flash_attention_backward_kernel_matches_plain(cuda, dtype, name):
+def test_flash_attention_backward_kernel_matches_plain(cuda, dtype, name,
+                                                       with_lse):
+    """Each case on its dtype's route (bfloat16: the tensor cores), with
+    the forward's saved LSE or without it (the tc route then takes it
+    from the forward's tc kernel, a counted forward launch)."""
     q, k, v, do, q_pos, kv_pos, window = attn_bwd_inputs(
         cuda, ATTN_BWD_CASES[name], dtype, len(name))
     kw = dict(causal=True, window=window)
     with torch.no_grad():
-        o = fa.flash_attention(q, k, v, q_pos, kv_pos, **kw)
+        o, lse = fa.flash_attention_with_lse(q, k, v, q_pos, kv_pos, **kw)
+    bkw = dict(kw, lse=lse if with_lse else None)
     fa.reset_launch_counts()
-    got = fa.flash_attention_backward(q, k, v, o, do, q_pos, kv_pos, **kw)
-    again = fa.flash_attention_backward(q, k, v, o, do, q_pos, kv_pos, **kw)
+    got = fa.flash_attention_backward(q, k, v, o, do, q_pos, kv_pos, **bkw)
+    again = fa.flash_attention_backward(q, k, v, o, do, q_pos, kv_pos, **bkw)
     torch.cuda.synchronize()
+    tc = dtype == torch.bfloat16
     assert fa.LAUNCHES["flash_attention_backward"] == 2
+    assert fa.LAUNCHES["flash_attention_backward_tc"] == (2 if tc else 0)
+    assert fa.LAUNCHES["flash_attention_tc"] == \
+        (2 if tc and not with_lse else 0)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     want = fa.attention_backward_ref(q, k, v, o, do, q_pos, kv_pos, **kw)
     grads_close(got, want, BWD_TOL[dtype], name)
@@ -2181,7 +2236,7 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, dtype, name):
         k[:, empty] = float("nan")
         v[:, empty] = float("nan")
         nan = fa.flash_attention_backward(q, k, v, o, do, q_pos, kv_pos,
-                                          **kw)
+                                          **bkw)
         assert all(torch.equal(a, b) for a, b in zip(got, nan))
 
 
@@ -2206,6 +2261,7 @@ def test_flash_attention_autograd_function_against_float64(cuda, window):
     got = torch.autograd.grad((out * w).sum(), (q, k, v))
     assert fa.LAUNCHES["flash_attention"] == 1
     assert fa.LAUNCHES["flash_attention_backward"] == 1
+    assert fa.LAUNCHES["flash_attention_backward_tc"] == 0
 
     def f64(qq, kk, vv):
         s = torch.einsum("bqkgd,bskd->bkgqs", qq, kk) / Dh ** 0.5
@@ -2287,6 +2343,12 @@ def test_trainer_step_through_the_kernels(cuda, dtype):
     assert rn.LAUNCHES["rmsnorm_backward"] == 2 * L + 1
     assert fa.LAUNCHES["flash_attention"] == L
     assert fa.LAUNCHES["flash_attention_backward"] == L
+    # bfloat16 on the tensor-core route, with each layer's saved LSE (no
+    # forward launch of its own)
+    assert fa.LAUNCHES["flash_attention_backward_tc"] == \
+        (L if dtype == "bfloat16" else 0)
+    assert fa.LAUNCHES["flash_attention_tc"] == \
+        (L if dtype == "bfloat16" else 0)
     want_loss, _, want = plain._grads(params, batch)
     tol = 2e-5 if dtype == "float32" else 5e-2
     assert abs(float(loss) - float(want_loss)) <= tol * float(want_loss)

@@ -378,6 +378,11 @@ ATTN_GRAD_CASES = {  # B, S, K, G, Dh, window
 
 @pytest.mark.parametrize("name", sorted(ATTN_GRAD_CASES))
 def test_plain_attention_backward_matches_jax_vjp(name):
+    """The plain backward, without and with the forward's saved LSE
+    (``attention_lse_ref``), and the autograd function's CPU path (which
+    saves the LSE in its forward and hands it to the backward), against
+    ``jax.vjp`` of the reference's attention: each gradient within 1e-5
+    of its max, the three paths bit for bit equal."""
     B_, S_, K, G, Dh, window = ATTN_GRAD_CASES[name]
     rng = np.random.default_rng(len(name))
     q = rng.standard_normal((B_, S_, K, G, Dh)).astype(np.float32)
@@ -399,15 +404,109 @@ def test_plain_attention_backward_matches_jax_vjp(name):
     np.testing.assert_allclose(o.numpy(), np.asarray(out), atol=1e-5)
     got = fa.attention_backward_ref(t[0], t[1], t[2], o, t[3], tpos, tpos,
                                     causal=True, window=window)
-    # the autograd function's CPU path is the same plain version
+    lse = fa.attention_lse_ref(t[0], t[1], tpos, tpos, causal=True,
+                               window=window)
+    with_lse = fa.attention_backward_ref(t[0], t[1], t[2], o, t[3], tpos,
+                                         tpos, causal=True, window=window,
+                                         lse=lse)
+    # the autograd function's CPU path carries the saved LSE
     leaves = [x.clone().requires_grad_(True) for x in t[:3]]
-    fn = torch.autograd.grad(fa.flash_attention_differentiable(
-        *leaves, tpos, tpos, causal=True, window=window), leaves, t[3])
-    for g, f, w in zip(got, fn, want):
+    y = fa.flash_attention_differentiable(*leaves, tpos, tpos, causal=True,
+                                          window=window)
+    saved = y.grad_fn.saved_tensors
+    assert len(saved) == 7 and torch.equal(saved[-1], lse)
+    fn = torch.autograd.grad(y, leaves, t[3])
+    for g, gl, f, w in zip(got, with_lse, fn, want):
         w = np.asarray(w)
         tol = 1e-5 * float(np.abs(w).max())
         np.testing.assert_allclose(g.numpy(), w, atol=tol)
-        assert torch.equal(g, f)
+        np.testing.assert_allclose(gl.numpy(), w, atol=tol)
+        assert torch.equal(g, gl) and torch.equal(g, f)
+
+
+# B, K, G, q positions, kv positions (-1 = an empty slot), window: the
+# second case's first query (position 0) attends nothing, its keys
+# starting at position 1
+LSE_CASES = {
+    "causal-gqa": (2, 2, 3, np.arange(12), np.arange(12), None),
+    "window": (1, 1, 4, np.arange(3, 20), np.arange(20), 5),
+    "ring-empty-row": (2, 2, 2, np.arange(0, 9),
+                       np.array([4, 5, 6, -1, 1, 2, 3, -1, 7, 8]), None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LSE_CASES))
+def test_attention_lse_ref_matches_jax_logsumexp(name):
+    """``attention_lse_ref`` against ``jax.nn.logsumexp`` of the
+    reference's masked scores (``NEG_INF`` where masked, so a row that
+    attends nothing gives ``NEG_INF``, the sentinel the kernels write),
+    in the kernels' (B, K, Sq, G) layout, at 1e-5 relative; and through
+    ``flash_attention_with_lse`` on the CPU beside ``attention_ref``."""
+    B_, K, G, qp, kp, window = LSE_CASES[name]
+    Dh = 16
+    rng = np.random.default_rng(len(name))
+    q = rng.standard_normal((B_, len(qp), K, G, Dh)).astype(np.float32)
+    k = rng.standard_normal((B_, len(kp), K, Dh)).astype(np.float32)
+    qp, kp = qp.astype(np.int32), kp.astype(np.int32)
+    scores = jnp.einsum("bqkgd,bskd->bkgqs", q, k) / np.sqrt(Dh)
+    mask = RL._build_mask(jnp.broadcast_to(qp, (B_, len(qp))),
+                          jnp.broadcast_to(kp, (B_, len(kp))), True, window,
+                          jnp.broadcast_to(kp >= 0, (B_, len(kp))))
+    want = np.asarray(jax.nn.logsumexp(
+        jnp.where(mask, scores, RL.NEG_INF), axis=-1)).transpose(0, 1, 3, 2)
+    tq, tk = torch.as_tensor(q), torch.as_tensor(k)
+    tqp, tkp = torch.as_tensor(qp), torch.as_tensor(kp)
+    got = fa.attention_lse_ref(tq, tk, tqp, tkp, causal=True, window=window)
+    assert got.shape == (B_, K, len(qp), G) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=0)
+    if name == "ring-empty-row":
+        assert bool((got[:, :, 0] == fa.ref.NEG_INF).all())
+        assert bool((got[:, :, 1:] > -100).all())
+    out, lse = fa.flash_attention_with_lse(tq, tk, tk, tqp, tkp, causal=True,
+                                           window=window)
+    assert torch.equal(lse, got)
+    assert torch.equal(out, fa.attention_ref(tq, tk, tk, tqp, tkp,
+                                             causal=True, window=window))
+
+
+def test_flash_attention_with_lse_decode_writes_none():
+    """One query position takes the decode route, which writes no LSE:
+    the CPU path mirrors it, and the backward recomputes the LSE."""
+    q = torch.randn(1, 1, 2, 3, 16)
+    k = torch.randn(1, 5, 2, 16)
+    pos = torch.tensor([4], dtype=torch.int32)
+    kv_pos = torch.arange(5, dtype=torch.int32)
+    out, lse = fa.flash_attention_with_lse(q, k, k, pos, kv_pos)
+    assert lse is None
+    assert torch.equal(out, fa.attention_ref(q, k, k, pos, kv_pos))
+    leaf = q.clone().requires_grad_(True)
+    y = fa.flash_attention_differentiable(leaf, k, k, pos, kv_pos)
+    assert y.grad_fn.saved_tensors[-1] is None
+    (g,) = torch.autograd.grad(y, leaf, torch.ones_like(y))
+    want = fa.attention_backward_ref(q, k, k, out, torch.ones_like(out),
+                                     pos, kv_pos)[0]
+    assert torch.equal(g, want)
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "strided"])
+def test_flash_attention_backward_refuses_a_bad_lse(bad):
+    q = torch.randn(1, 4, 2, 3, 16)
+    k = torch.randn(1, 4, 2, 16)
+    pos = torch.arange(4, dtype=torch.int32)
+    lse = {"shape": torch.zeros(1, 2, 3, 4),
+           "dtype": torch.zeros(1, 2, 4, 3, dtype=torch.float64),
+           "strided": torch.zeros(1, 2, 3, 4).transpose(2, 3)}[bad]
+    with pytest.raises(ValueError, match="lse must be"):
+        fa.flash_attention_backward(q, k, k, q, q, pos, pos, lse=lse)
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"),
+                                         (torch.float32, "simt")])
+def test_backward_route_table(dtype, route):
+    """The backward's route follows the dtype alone: the tensor-core
+    kernels for bfloat16, the CUDA-core ones for float32."""
+    from repro_torch.kernels.flash_attention.ops import _backward_route
+    assert _backward_route(dtype) == route
 
 
 def test_plain_rmsnorm_backward_matches_jax_vjp():
