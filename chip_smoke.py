@@ -82,11 +82,10 @@ nonzero:
    card (127 rows) against the CPU's; the many-epoch cell
    (``results/BENCH_sim_scale.json``'s mphx-4p-86x9 workload, 1,547
    epochs in the reference) with and without the recorder, in turns,
-   kernels and plain: its walls, the extra sum launches (one for the
+   kernels and plain, one run a turn: its walls, the extra sum launches (one for the
    link selection, one a journaled epoch), outputs bit for bit unmoved,
    and, through the kernels, the walls of a journal that buffers the
-   epochs' rates and sums them at once (``buffered_journal``) in the
-   same turns; the profiler's device-to-host copies and the
+   epochs' rates and sums them at once (``buffered_journal``); the profiler's device-to-host copies and the
    synchronizing calls (torch's sync debug mode) with and without the
    recorder at the golden trace's 127 epochs and the cell's 1,547,
    counted in a fresh process (``chip_smoke.py --count-copies``); the
@@ -116,9 +115,11 @@ nonzero:
    walls.  Then ``--suite failures`` at mphx-4p-86x9 (66,564 NICs,
    uncut) and mphx-2p-16x16 under ``link:0.01,plane:1`` and
    ``switch:0.02,seed:3``, uniform, three reroute modes, 4 protection
-   layers: twice through the kernels (rows equal but the walls; the
-   second run also checks that each local reroute put no load on a
-   failed edge and conserved its Gbps within 1e-9), on the plain path
+   layers: through the kernels, at 16 x 16 twice (rows equal but the
+   walls), one run at each size checking that each local reroute put no
+   load on a failed edge and conserved its Gbps within 1e-9 (at 86 x 9
+   the only kernel run, its walls with these checks in them: its repeat
+   cut for time), on the plain path
    (at 86 x 9 the first spec alone: reduced) and on the CPU (16 x 16
    under the switch failure alone: reduced), every row at 1e-9
    relative, integers exact, each side's
@@ -140,8 +141,8 @@ nonzero:
    phase spans add up to the rows' ``comm_ms``.  (b) ``--suite cosim
    --topos mphx-4p-86x9 --ranks 16384`` (kimi-k2-1t-a32b dp 1,024 x tp
    16 x ep 8 and mixtral-8x22b dp 2,048 x tp 8 x ep 8; array engine
-   linear and mapped, graph engine linear) twice through the kernels
-   (rows equal but the walls) and once on the plain path (1e-9), then
+   linear and mapped, graph engine linear) through the kernels and on
+   the plain path (1e-9; its kernel repeat cut for time), then
    ``--topos mphx-2p-16x16 --ranks 4096`` through the kernels and on
    the CPU (1e-9); each run's wall, peak device memory and launches,
    each row's wall, phase flows and steps and ``comm_over_analytic``.
@@ -258,7 +259,23 @@ nonzero:
    wave is
    profiled, and a float32 model at full width and 5 of its 26 layers
    must agree at 2e-5.
-18. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
+18. ``ssm_serve``, each line stamped with ``phase_s``: RMSNorm against
+   its plain version at xlstm-125m's shapes, (4,096, 768) and (4, 768) on
+   the ``narrow`` route, (4,096, 1,536) and (4, 1,536) (the mLSTM's
+   ``out_norm``) on ``register``, as in phase 14; one mLSTM block in
+   float32 at full width, the chunkwise form against the sequential one
+   over 1,024 tokens (outputs and final C, n, m within 1e-4 of their
+   max).  Then xlstm-125m uncut (12 layers, random bf16 weights from
+   seed 0, the gates and the sLSTM float32) serves the same traffic
+   through the kernels, with the launch counts read around that run
+   alone (25 RMSNorm launches a forward pass, 1,650 in all, no other
+   kernel), then on the plain path; the share of a prefill wave's wall in
+   the sLSTM time loop; teacher-forced logits within 5e-2 of max |logit|,
+   also for a 1,000-token request (the chunkwise form pads its last
+   chunk); a decode wave profiled; the float32 model uncut at 2e-5; and
+   ``python -m repro_torch.launch.serve --arch xlstm-125m`` at its
+   defaults.
+19. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
@@ -362,13 +379,13 @@ FAILURE_UNCOMPARED_KEYS = ("phase_wall_s", "t_offset_s", "sim_wall_s",
                            "time_to_90_s", "conservation_residual")
 # the cosim_serving phase: --suite serving with the four tenant presets;
 # one training step of kimi-k2 and mixtral on 16,384 ranks of the paper's
-# Table-2 MPHX (twice through the kernels, once on the plain path) and on
+# Table-2 MPHX (through the kernels and on the plain path; its kernel
+# repeat cut for time) and on
 # 4,096 ranks of mphx-2p-16x16 (kernels and the CPU); the serving mix at
 # 4 x its rates on mphx-2p-8x8 (the many-epoch host-bound cell)
 SERVING_TENANTS = ["chat", "burst", "train", "web"]
 COSIM_CELLS = [
     (MAIN_TOPO, 16_384, (("cuda", "cuda", "cuda"),
-                         ("cuda again", "cuda", "cuda"),
                          ("torch", "cuda", "torch"))),
     (COLLECTIVE_TOPO, 4096, (("cuda", "cuda", "cuda"),
                              ("cpu", "cpu", "torch"))),
@@ -442,6 +459,13 @@ HYBRID_ARCH, HYBRID_F32_LAYERS = "recurrentgemma-2b", 5
 HYBRID_WINDOW_PROMPT = 2304
 # the RG-LRU scan against its plain version: tests/test_kernels.py's 1e-5
 LRU_TOL = 1e-5
+# the ssm serve path: xlstm-125m uncut (134.3 M parameters), the traffic
+# of yi-9b; its float32 check runs it uncut too.  One request of a length
+# that is no multiple of the 256-token chunk (its last chunk padded), and
+# the chunkwise mLSTM against its sequential oracle in float32, each
+# output within this share of its max |value|
+SSM_ARCH, SSM_PADDED_PROMPT = "xlstm-125m", 1000
+MLSTM_FORM_TOL = 1e-4
 # mask_probe through the bf16 attention routes: exact weights summed in
 # fp32 and acc / l rounded once to bf16, so within 2^-8 of each value
 PROBE_REL_TOL = 2.0 ** -8
@@ -1873,8 +1897,8 @@ def phase_table2_trace() -> dict:
 
     # the many-epoch cell: BENCH_sim_scale.json's mphx-4p-86x9 workload,
     # its wall without the recorder ("off"), with it ("on") and, through
-    # the kernels, with the buffered journal ("buffered"), in turns whose
-    # order runs forth and back; the overheads from the medians
+    # the kernels, with the buffered journal ("buffered"), one run each
+    # (cut from turns forth and back for time); the overheads from them
     inc, size, caps, start = sim_scale_case(MAIN_TOPO, "cuda")
     cell = {"topology": MAIN_TOPO, "flows": inc.n_flows, "nnz": inc.nnz}
     sim = sim_scale_runner(inc, size, caps, start)
@@ -1882,8 +1906,8 @@ def phase_table2_trace() -> dict:
     sim("torch")
     sim("cuda", TraceRecorder(), buffered=True)
     for backend in ("cuda", "torch"):
-        turns = ("off", "on", "buffered", "buffered", "on", "off") * 2 \
-            if backend == "cuda" else ("off", "on", "on", "off")
+        turns = ("off", "on", "buffered") if backend == "cuda" \
+            else ("off", "on")
         walls = {turn: [] for turn in turns}
         for turn in turns:
             rec = TraceRecorder() if turn != "off" else None
@@ -2250,8 +2274,9 @@ def phase_failures() -> dict:
     """Failure injection and fast-reroute protection on the card:
     ``--suite failures`` through the CLI at its defaults, then at
     mphx-4p-86x9 and mphx-2p-16x16 (``FAILURE_SPECS``, uniform, three
-    reroute modes) twice through the kernels, on the plain path and on
-    the CPU, then the segment kernels at the protection's shapes.
+    reroute modes) through the kernels (16 x 16 twice), on the plain
+    path and on the CPU, then the segment kernels at the protection's
+    shapes.
     Returns each path's launch counts."""
     from repro_torch.experiments.simsuite import run_failures_suite
     from repro_torch.experiments.sweep import SWEEP_TOPOLOGIES
@@ -2308,17 +2333,22 @@ def phase_failures() -> dict:
                   launches=by_path["failures default"],
                   rows_agree_plain=True, rows_agree_cpu=True, ok=True)
 
-    # (b), (c) the Table-2 MPHX and 16 x 16: twice through the kernels
-    # (walls from the first, the local reroutes' checks in the second),
-    # the plain path (86 x 9: the first spec alone) and the CPU (16 x 16)
+    # (b), (c) the Table-2 MPHX and 16 x 16 through the kernels, the
+    # plain path (86 x 9: the first spec alone) and the CPU (16 x 16).
+    # 16 x 16 runs twice through the kernels (walls from the first, the
+    # local reroutes' checks in the second); 86 x 9 once (reduced for
+    # time: its repeat took ~60 s), with the checks, so its walls include
+    # them
     for topo_name in FAILURE_TOPOS:
-        plan = [("cuda", "cuda", "cuda", FAILURE_SPECS),
-                ("cuda again", "cuda", "cuda", FAILURE_SPECS)]
+        plan = [("cuda", "cuda", "cuda", FAILURE_SPECS)]
         if topo_name == MAIN_TOPO:
             plan.append(("torch", "cuda", "torch", FAILURE_SPECS[:1]))
+            spied = "cuda"
         else:
-            plan += [("torch", "cuda", "torch", FAILURE_SPECS),
+            plan += [("cuda again", "cuda", "cuda", FAILURE_SPECS),
+                     ("torch", "cuda", "torch", FAILURE_SPECS),
                      ("cpu", "cpu", "torch", FAILURE_SPECS[1:])]
+            spied = "cuda again"
         runs, checks = {}, []
         path = f"failures {topo_name}"
         for run, dev, backend, specs in plan:
@@ -2334,7 +2364,7 @@ def phase_failures() -> dict:
                     sim_backend=backend, device=dev)
 
             with collecting() as mx:
-                if run == "cuda again":
+                if run == spied:
                     (payload, wall), checks = spy_reroutes(
                         lambda: timed(suite))
                 else:
@@ -2347,6 +2377,7 @@ def phase_failures() -> dict:
                 path=path, run=run, specs=specs,
                 reduced=specs != FAILURE_SPECS,
                 suite_wall_s=wall,
+                walls_include_reroute_checks=run == spied,
                 peak_bytes=torch.cuda.max_memory_allocated()
                 if dev == "cuda" else None,
                 launches=dict(LAUNCHES) if dev == "cuda" else None,
@@ -2355,9 +2386,12 @@ def phase_failures() -> dict:
                 counters={k: v for k, v in snap["counters"].items()
                           if k.startswith(("protection.", "failures."))},
                 device_name=payload["params"]["device_name"])
-        compare_failure_rows(runs["cuda"], runs["cuda again"],
-                             f"{path} repeat", exact=True)
-        for run, *_, specs in plan[2:]:
+        if "cuda again" in runs:
+            compare_failure_rows(runs["cuda"], runs["cuda again"],
+                                 f"{path} repeat", exact=True)
+        for run, *_, specs in plan:
+            if run in ("cuda", "cuda again"):
+                continue
             labels = {parse_failure_spec(s).label() for s in specs}
             compare_failure_rows(
                 [r for r in runs["cuda"] if r.get("failures") in labels],
@@ -2367,7 +2401,8 @@ def phase_failures() -> dict:
                     or c["conservation_residual"] >= 1e-9:
                 raise AssertionError(f"{path}: local reroute {c}")
         emit_failures(path=path, local_reroutes=checks,
-                      rows_repeat=True, rows_agree_plain=True,
+                      rows_repeat="cuda again" in runs,
+                      rows_agree_plain=True,
                       rows_agree_cpu="cpu" in runs, ok=True)
         # the summary a spec: every mode's phase walls and time to 90 %
         for spec in FAILURE_SPECS:
@@ -2456,8 +2491,8 @@ def phase_cosim_serving() -> dict:
     (a) ``--suite cosim`` and ``--suite serving`` (four tenants) through
     the CLI at their defaults on the kernels, the plain path and the CPU,
     ``--cosim-method batches`` on the kernels and the CPU, ``--suite
-    cosim --trace``; (b) the 16,384-rank step on mphx-4p-86x9 twice
-    through the kernels and once on the plain path, and 4,096 ranks on
+    cosim --trace``; (b) the 16,384-rank step on mphx-4p-86x9 through
+    the kernels and on the plain path, and 4,096 ranks on
     mphx-2p-16x16 on the kernels and the CPU; (c) the serving mix at
     4 x its rates on mphx-2p-8x8 twice through the kernels (byte-equal
     ``serving.json``) and once on the plain path.  Returns each path's
@@ -2526,8 +2561,8 @@ def phase_cosim_serving() -> dict:
             cosim_phases=payload["telemetry"]["counters"]["cosim.phases"],
             ok=True)
 
-    # (b) one training step of 16,384 ranks on the paper's Table-2 MPHX:
-    # twice through the kernels, once on the plain path; then 4,096 ranks
+    # (b) one training step of 16,384 ranks on the paper's Table-2 MPHX
+    # through the kernels and on the plain path; then 4,096 ranks
     # on mphx-2p-16x16 through the kernels and on the CPU
     for topo_name, ranks, plan in COSIM_CELLS:
         path = f"cosim {topo_name}"
@@ -2549,8 +2584,7 @@ def phase_cosim_serving() -> dict:
         for other in runs:
             if other != "cuda":
                 compare_rows(runs["cuda"], runs[other],
-                             f"{path} cuda vs {other}",
-                             exact=other == "cuda again")
+                             f"{path} cuda vs {other}")
         emit_cs(path=path, ranks=ranks, rows_agree=sorted(runs),
                 device_name=card, ok=True)
 
@@ -2837,10 +2871,13 @@ def check_grouped_matmul() -> dict:
     return results
 
 
-def check_rmsnorm_path(phase: str, entries, gen) -> dict:
-    """RMSNorm at a serve path's shapes, ``entries`` of (arch, d_model,
+def check_rmsnorm_path(phase: str, entries, gen,
+                       t_phase: "float | None" = None) -> dict:
+    """RMSNorm at a serve path's shapes, ``entries`` of (arch, width,
     rows): float32 at its tolerance, then bf16 (timed), held per row.
-    Returns the first entry's row of the kernels line."""
+    Each line is stamped with ``phase_s`` when the phase's start
+    ``t_phase`` is given.  Returns the first entry's row of the kernels
+    line."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import rmsnorm as rn
@@ -2880,7 +2917,9 @@ def check_rmsnorm_path(phase: str, entries, gen) -> dict:
         route = rn.ops.call_plan(x, s)
         kernel_name = ("rmsnorm_row_kernel" if route.route == "register"
                        else "rmsnorm_kernel")
-        emit(phase, kernel="rmsnorm", arch=arch,
+        stamp = {} if t_phase is None else \
+            {"phase_s": time.perf_counter() - t_phase}
+        emit(phase, kernel="rmsnorm", arch=arch, **stamp,
              case="prefill" if rows > SERVE_BATCH else "decode",
              shape=[rows, d], dtype="bfloat16",
              kernel_route=route._asdict(), **row,
@@ -3198,14 +3237,14 @@ def serve_run(cfg, model, params, requests: int = SERVE_REQUESTS,
         torch.cuda.max_memory_allocated()
 
 
-def emit_serve_runs(phase: str, card: str, runs: dict) -> None:
-    """One line per path of the timed serve runs; every request must
-    have its SERVE_NEW tokens."""
+def emit_serve_runs(phase: str, card: str, runs: dict, **stamp) -> None:
+    """One line per path of the timed serve runs (each with ``stamp``'s
+    fields); every request must have its SERVE_NEW tokens."""
     for backend, (stats, reqs, wall, peak) in runs.items():
         if stats.tokens_out != SERVE_REQUESTS * SERVE_NEW or any(
                 len(r.output) != SERVE_NEW or not r.done for r in reqs):
             raise AssertionError(f"{backend}: {stats.tokens_out} tokens out")
-        emit(phase, card=card, kernel_backend=backend,
+        emit(phase, card=card, kernel_backend=backend, **stamp,
              requests=SERVE_REQUESTS, prompt_tokens=SERVE_PROMPT,
              new_tokens=SERVE_NEW, max_batch=SERVE_BATCH, waves=stats.waves,
              wall_s=wall, prefill_s=stats.prefill_s,
@@ -3868,6 +3907,217 @@ def phase_hybrid_serve(card: str) -> "tuple[dict, dict]":
     del params32
     torch.cuda.empty_cache()
     return launches, results
+
+
+# ---------------------------------------------------------------- ssm
+
+
+def check_mlstm_forms(model, gen, emit_ss) -> None:
+    """One mLSTM block in float32 at the model's full width: the
+    chunkwise form (the prefill's) against the sequential oracle (one
+    recurrent step a token, the decode's) over SERVE_PROMPT tokens of
+    SERVE_BATCH rows, outputs and final (C, n, m) each within
+    MLSTM_FORM_TOL of its max |value|."""
+    from repro_torch.models import xlstm
+
+    chunk = model.cfg.hybrid.chunk_size
+    p = xlstm.mlstm_init(gen, model.d_in, model.H, torch.float32, "cuda")
+    x = torch.randn(SERVE_BATCH, SERVE_PROMPT, model.d_in, device="cuda",
+                    generator=gen)
+    (hc, sc), chunkwise_s = timed(lambda: xlstm.mlstm_chunkwise(
+        p, x, model.H, chunk=chunk))
+    (hs, ss), sequential_s = timed(lambda: xlstm.mlstm_sequential(
+        p, x, model.H))
+    rel = {}
+    for name, got, want in (("h", hc, hs), *((k, sc[k], ss[k])
+                                             for k in ("C", "n", "m"))):
+        gap, top = logits_gap(got, want)
+        rel[name] = gap / top
+    if max(rel.values()) > MLSTM_FORM_TOL:
+        raise AssertionError(f"mLSTM chunkwise vs sequential: {rel} of max "
+                             f"|value| > {MLSTM_FORM_TOL}")
+    emit_ss(check="mLSTM chunkwise vs sequential, float32",
+            shape=[SERVE_BATCH, SERVE_PROMPT, model.d_in], heads=model.H,
+            head_dim=model.d_in // model.H, chunk=chunk, rel_diff=rel,
+            tolerance=MLSTM_FORM_TOL, chunkwise_s=chunkwise_s,
+            sequential_s=sequential_s, ok=True)
+
+
+def slstm_loop_share(model, params, prompts) -> dict:
+    """One prefill wave with each ``slstm_sequential`` call (its input
+    product and its time loop) timed between device synchronizes: the
+    share of the prefill's wall it takes, and the device kernels one
+    sLSTM step launches (profiled over 64 steps at the wave's batch)."""
+    from repro_torch.models import xlstm
+
+    real = xlstm.slstm_sequential
+    walls = []
+
+    def timed_slstm(*args, **kw):
+        out, wall = timed(lambda: real(*args, **kw))
+        walls.append(wall)
+        return out
+
+    xlstm.slstm_sequential = timed_slstm
+    try:
+        _, wall = timed(lambda: model.prefill(params, prompts,
+                                              max_len=SERVE_MAX_LEN))
+    finally:
+        xlstm.slstm_sequential = real
+    B, S = prompts.shape
+    p = next(up[name]["slstm"] for up in params["units"] for name in up
+             if name.startswith("slstm"))
+    x = torch.zeros(B, 64, model.cfg.d_model, device="cuda",
+                    dtype=model.adtype)
+    real(p, x, model.H)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        real(p, x, model.H)
+        torch.cuda.synchronize()
+    kernels = sum(c for _, c, _ in device_events(prof))
+    return {"prefill_wall_s": wall, "slstm_blocks": len(walls),
+            "slstm_steps": len(walls) * S, "slstm_s": sum(walls),
+            "slstm_share_of_prefill": sum(walls) / wall,
+            "slstm_us_per_step": sum(walls) / (len(walls) * S) * 1e6,
+            "device_kernels_per_step_64": kernels / 64}
+
+
+def check_serve_cli(emit_ss) -> None:
+    """``python -m repro_torch.launch.serve --arch xlstm-125m`` at its
+    defaults on the card: exit 0 and every requested token out."""
+    import re
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                           "--arch", SSM_ARCH], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=600)
+    found = re.search(r"\| (\d+) tokens \|", proc.stdout)
+    tokens = int(found.group(1)) if found else None
+    ok = proc.returncode == 0 and tokens == 8 * 16
+    emit_ss(check="launch.serve CLI --arch " + SSM_ARCH,
+            returncode=proc.returncode, tokens_out=tokens,
+            stdout=proc.stdout.strip().splitlines()[-2:],
+            wall_s=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise AssertionError(f"serve CLI: rc {proc.returncode}\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+
+
+def phase_ssm_serve(card: str) -> dict:
+    """xlstm-125m uncut serves yi-9b's traffic through the RMSNorm kernel
+    (the only kernel on its path), then on the plain path."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import rg_lru
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import segment_fairshare as sf
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.registry import get_config, get_model
+
+    t_phase = time.perf_counter()
+
+    def emit_ss(**fields):
+        emit("ssm_serve", phase_s=time.perf_counter() - t_phase, **fields)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    cfg = get_config(SSM_ARCH)
+    kern = get_model(cfg, kernel_backend="cuda")
+    plain = get_model(cfg, kernel_backend="torch")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    # RMSNorm at the path's shapes: d_model 768 (narrow) and the mLSTM's
+    # out_norm width 1,536 (register), prefill rows and decode rows
+    rows = SERVE_BATCH * SERVE_PROMPT
+    check_rmsnorm_path("ssm_serve", [
+        (SSM_ARCH, cfg.d_model, rows), (SSM_ARCH, kern.d_in, rows),
+        (SSM_ARCH, cfg.d_model, SERVE_BATCH),
+        (SSM_ARCH, kern.d_in, SERVE_BATCH)], gen, t_phase)
+    check_mlstm_forms(kern, gen, emit_ss)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = kern.init(SERVE_SEED)
+    torch.cuda.synchronize()
+    emit_ss(card=card, arch=SSM_ARCH, layers=cfg.n_layers,
+            unit=list(kern.unit), units=kern.n_units, tail=list(kern.tail),
+            d_model=cfg.d_model, d_in=kern.d_in, heads=kern.H,
+            chunk=cfg.hybrid.chunk_size, params=kern.param_count(),
+            param_dtype=cfg.param_dtype,
+            weight_fill_s=time.perf_counter() - t0,
+            weights_GB=torch.cuda.memory_allocated() / 1e9,
+            reduced="none: full width and all 12 layers")
+
+    # a short run of each path first: neither timed run pays first use
+    serve_run(cfg, kern, params, 1, 64, 2)
+    serve_run(cfg, plain, params, 1, 64, 2)
+    mods = (rn, fa, gm, rg_lru, sf)
+    for mod in mods:
+        mod.reset_launch_counts()
+    runs = {"cuda": serve_run(cfg, kern, params)}
+    launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+    runs["torch"] = serve_run(cfg, plain, params)
+    emit_serve_runs("ssm_serve", card, runs,
+                    phase_s=time.perf_counter() - t_phase)
+    # each wave: one prefill, then one decode step per new token; every
+    # block has 2 RMSNorms, and the final norm 1; no other kernel
+    waves = runs["cuda"][0].waves
+    passes = waves * (1 + SERVE_NEW)
+    want = dict.fromkeys(launches, 0)
+    want["rmsnorm"] = passes * (2 * cfg.n_layers + 1)
+    if launches != want:
+        raise AssertionError(f"ssm_serve launches {launches} != {want} "
+                             f"({passes} forward passes, {waves} prefills)")
+    emit_ss(launches=launches, forward_passes=passes, prefill_passes=waves,
+            rmsnorm_per_pass=launches["rmsnorm"] / passes,
+            tokens_equal_to_plain_path=tokens_equal(runs),
+            tokens_total=SERVE_REQUESTS * SERVE_NEW)
+
+    prompts = torch.as_tensor(np.stack(
+        [r.prompt for r in runs["cuda"][1][:SERVE_BATCH]]), device="cuda")
+    emit_ss(check="sLSTM time loop in a prefill wave",
+            **slstm_loop_share(kern, params, prompts))
+    bf16 = teacher_forced(kern, plain, params, prompts, SERVE_NEW,
+                          SERVE_TOL["bfloat16"], f"{SSM_ARCH} bf16")
+    emit_ss(check="teacher-forced logits, kernels vs plain",
+            dtype="bfloat16", **bf16, ok=True)
+
+    # a prompt that is no multiple of the 256-token chunk: each mLSTM
+    # block's chunkwise form pads its last chunk
+    padded = torch.as_tensor(make_requests(cfg, 1, SSM_PADDED_PROMPT,
+                                           WINDOW_NEW, SERVE_SEED + 1)[0]
+                             .prompt, device="cuda")[None]
+    pad_gate = teacher_forced(kern, plain, params, padded, WINDOW_NEW,
+                              SERVE_TOL["bfloat16"],
+                              f"{SSM_ARCH} padded chunk",
+                              max_len=SSM_PADDED_PROMPT + WINDOW_NEW + 1)
+    emit_ss(check="padded last chunk: teacher-forced logits, kernels vs "
+            "plain", prompt_tokens=SSM_PADDED_PROMPT,
+            chunk=cfg.hybrid.chunk_size,
+            padded_steps=-SSM_PADDED_PROMPT % cfg.hybrid.chunk_size,
+            dtype="bfloat16", **pad_gate, ok=True)
+
+    emit_ss(card=card,
+            **profile_decode_wave(kern, params, prompts, SERVE_MAX_LEN))
+    del params
+    torch.cuda.empty_cache()
+
+    # float32 at full width and depth: the kernel without bf16 rounding
+    cfg32 = cfg.replace(param_dtype="float32", activation_dtype="float32")
+    kern32 = get_model(cfg32, kernel_backend="cuda")
+    params32 = kern32.init(SERVE_SEED)
+    f32 = teacher_forced(kern32, get_model(cfg32, kernel_backend="torch"),
+                         params32, prompts, 8, SERVE_TOL["float32"],
+                         f"{SSM_ARCH} float32")
+    emit_ss(check="teacher-forced logits, kernels vs plain",
+            dtype="float32", layers=cfg32.n_layers, reduced="none",
+            **f32, ok=True)
+    del params32
+    torch.cuda.empty_cache()
+    check_serve_cli(emit_ss)
+    return launches
 
 
 # ---------------------------------------------------------------- train
@@ -4550,6 +4800,7 @@ def main() -> int:
     kernel_results.update(ragged)
     by_path[f"{HYBRID_ARCH} serve"], hybrid = phase_hybrid_serve(card)
     kernel_results["lru_scan"] = hybrid["lru_scan"]
+    by_path[f"{SSM_ARCH} serve"] = phase_ssm_serve(card)
     emit("done", script_s=time.perf_counter() - t0)
 
     sources = {name: (replaces, SOURCE) for name, replaces in KERNELS.items()}

@@ -5,12 +5,13 @@ The simulator's state is the routed flow set (the incidence COO and the
 edge capacities) and the demand matrix: an incidence's ``flow``,
 ``edge``, ``frac``, ``n_flows`` and ``capacity``, a demand set's
 ``src``, ``dst`` and ``gbps``.  A model's state (the decoder LM's, the
-hybrid's) is its parameter tree; a trainer's is its ``TrainState``
-(params, AdamW's step, moments and master weights, the error-feedback
-residual).  The functions take plain numpy arrays (nested dicts of them
-for a parameter tree), so nothing of the reference package is imported;
-``decoder_params_to_numpy`` goes the other way, so that a test can hold
-the port's parameters against the reference's after training steps.
+hybrid's, the xLSTM's) is its parameter tree; a trainer's is its
+``TrainState`` (params, AdamW's step, moments and master weights, the
+error-feedback residual).  The functions take plain numpy arrays (nested
+dicts of them for a parameter tree), so nothing of the reference package
+is imported; ``decoder_params_to_numpy`` goes the other way, so that a
+test can hold the port's parameters against the reference's after
+training steps.
 """
 
 from __future__ import annotations
@@ -66,8 +67,9 @@ def _tensor(a, dtype, device) -> torch.Tensor:
 
 # subtrees that stay float32 whatever the parameters' dtype, as the
 # reference's init makes them: the MoE router, the RG-LRU's gates and
-# ``lam``, and the recurrent block's conv taps
-FLOAT32_SUBTREES = ("router", "lru", "conv")
+# ``lam``, the recurrent block's conv taps, the mLSTM's gate weights and
+# bias, and the whole sLSTM
+FLOAT32_SUBTREES = ("router", "lru", "conv", "w_gates", "b_gates", "slstm")
 
 
 def _tree(tree, dtype, device):
@@ -122,18 +124,11 @@ def decoder_params_from_numpy(tree: dict, cfg: ModelConfig,
                     torch_dtype(cfg.param_dtype))
 
 
-def hybrid_params_from_numpy(tree: dict, cfg: ModelConfig,
-                             device=None) -> dict:
-    """The reference ``RGLRUModel``'s parameter tree (``embed``,
-    ``final_norm``, ``units`` with the blocks of one unit, ``rec_0``,
-    ``rec_1``, ``attn_2``, stacked on a leading ``(n_units, ...)`` axis,
-    and a ``tail`` list of blocks) as the port's parameters: the same
-    dicts with ``units`` a list of per-unit dicts, in ``cfg.param_dtype``
-    (everything under ``lru`` and ``conv`` in float32) on ``device``
-    (default ``cuda``)."""
-    if cfg.family != "hybrid":
-        raise NotImplementedError("hybrid parameters are of the family "
-                                  f"'hybrid', not {cfg.family!r}")
+def _units_and_tail(tree: dict, cfg: ModelConfig, device) -> dict:
+    """A reference recurrent model's tree (``units`` stacked on a leading
+    ``(n_units, ...)`` axis, a ``tail`` list of blocks) in the port's
+    layout, ``units`` a list of per-unit dicts, through :func:`_tree`;
+    its block count checked against the config's layers."""
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
     out = {k: _tree(v, dtype, dev) for k, v in tree.items()
@@ -148,6 +143,36 @@ def hybrid_params_from_numpy(tree: dict, cfg: ModelConfig,
     if n != cfg.n_layers:
         raise ValueError(f"tree has {n} layers, config {cfg.n_layers}")
     return out
+
+
+def hybrid_params_from_numpy(tree: dict, cfg: ModelConfig,
+                             device=None) -> dict:
+    """The reference ``RGLRUModel``'s parameter tree (``embed``,
+    ``final_norm``, ``units`` with the blocks of one unit, ``rec_0``,
+    ``rec_1``, ``attn_2``, stacked on a leading ``(n_units, ...)`` axis,
+    and a ``tail`` list of blocks) as the port's parameters: the same
+    dicts with ``units`` a list of per-unit dicts, in ``cfg.param_dtype``
+    (everything under ``lru`` and ``conv`` in float32) on ``device``
+    (default ``cuda``)."""
+    if cfg.family != "hybrid":
+        raise NotImplementedError("hybrid parameters are of the family "
+                                  f"'hybrid', not {cfg.family!r}")
+    return _units_and_tail(tree, cfg, device)
+
+
+def ssm_params_from_numpy(tree: dict, cfg: ModelConfig,
+                          device=None) -> dict:
+    """The reference ``XLSTMModel``'s parameter tree (``embed``,
+    ``final_norm``, ``units`` with the blocks ``mlstm_0`` and ``slstm_1``
+    stacked on a leading ``(n_units, ...)`` axis, and a ``tail`` list of
+    blocks) as the port's parameters: the same dicts with ``units`` a
+    list of per-unit dicts, in ``cfg.param_dtype`` (the mLSTM's
+    ``w_gates`` and ``b_gates`` and everything under ``slstm`` in
+    float32) on ``device`` (default ``cuda``)."""
+    if cfg.family != "ssm":
+        raise NotImplementedError("ssm parameters are of the family "
+                                  f"'ssm', not {cfg.family!r}")
+    return _units_and_tail(tree, cfg, device)
 
 
 def train_state_from_numpy(state: dict, cfg: ModelConfig, device=None):

@@ -20,15 +20,17 @@ ARCH_IDS = [
     "recurrentgemma-2b",
 ]
 
-# configs copied from repro/configs so far: the dense and MoE decoders
-# and the hybrid
+# configs copied from repro/configs so far: the dense and MoE decoders,
+# the hybrid and the ssm family
 PORTED_ARCH_IDS = ["kimi-k2-1t-a32b", "mixtral-8x22b", "phi3-medium-14b",
-                   "qwen3-32b", "yi-9b", "qwen1.5-32b", "recurrentgemma-2b"]
-# the families DecoderLM serves; get_model also serves "hybrid" (RGLRUModel)
+                   "qwen3-32b", "yi-9b", "qwen1.5-32b", "recurrentgemma-2b",
+                   "xlstm-125m"]
+# the families DecoderLM serves; get_model also serves "hybrid"
+# (RGLRUModel) and "ssm" (XLSTMModel)
 DECODER_FAMILIES = ("dense", "moe")
 # where ROADMAP.md says when the rest comes
-NOT_PORTED = ("is not ported yet (ROADMAP.md queue 1: the families after "
-              "the hybrid slice)")
+NOT_PORTED = ("is not ported yet (ROADMAP.md queue 1: the audio and vlm "
+              "families)")
 
 
 def _module_name(arch_id: str) -> str:
@@ -59,5 +61,8 @@ def get_model(cfg: ModelConfig, run=None, *, device=None,
     if cfg.family == "hybrid":
         from .rglru import RGLRUModel
         return RGLRUModel(cfg, device=device, kernel_backend=kernel_backend)
+    if cfg.family == "ssm":
+        from .xlstm import XLSTMModel
+        return XLSTMModel(cfg, device=device, kernel_backend=kernel_backend)
     raise NotImplementedError(f"the model of family {cfg.family!r} "
                               f"{NOT_PORTED}")

@@ -86,7 +86,8 @@ class Trainer:
                 f"the port trains the families {TRAINED_FAMILIES}, not "
                 f"{cfg.family!r} ({cfg.arch_id}): MoE and hybrid training "
                 "need backward kernels of the grouped matmuls and of the "
-                "RG-LRU scan (ROADMAP.md queue 1)")
+                "RG-LRU scan, ssm training the sLSTM time loop under "
+                "autograd (ROADMAP.md queue 1)")
         if run.grad_compression not in ("none", "int8_ef"):
             raise ValueError(f"unknown grad_compression "
                              f"{run.grad_compression!r}")

@@ -39,7 +39,8 @@ from repro_torch import (resolve_kernel_backend,  # noqa: E402
 from repro_torch.convert import (decoder_params_from_numpy,  # noqa: E402
                                  demands_from_arrays,
                                  hybrid_params_from_numpy,
-                                 incidence_from_arrays)
+                                 incidence_from_arrays,
+                                 ssm_params_from_numpy)
 from repro_torch.core.hyperx import MPHX  # noqa: E402
 from repro_torch.cosim import (CollectivePhase, TrainJob,  # noqa: E402
                                simulate_step)
@@ -77,6 +78,7 @@ from repro_torch.kernels.rmsnorm import (  # noqa: E402
 from repro_torch.train import Checkpointer, Trainer  # noqa: E402
 from repro_torch.models.registry import get_config, get_model  # noqa: E402
 from repro_torch.models.rglru import RGLRUModel  # noqa: E402
+from repro_torch.models.xlstm import XLSTMModel  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
 from repro_torch.routing.protection import ProtectedRouter  # noqa: E402
 from repro_torch.sim.events import (FlowSpec, flows_to_demands,  # noqa
@@ -167,6 +169,10 @@ def test_package_runs_with_jax_blocked(tmp_path):
                        "cpu", "--requests", "2", "--prompt-len", "10",
                        "--max-new", "3"])
         assert stats.tokens_out == 6, stats
+        stats = serve(["--arch", "xlstm-125m", "--smoke", "--device", "cpu",
+                       "--requests", "2", "--prompt-len", "20",
+                       "--max-new", "3"])
+        assert stats.tokens_out == 6, stats
         assert "jax" not in sys.modules or sys.modules["jax"] is None
         sys.exit(rc)
     """)
@@ -222,6 +228,11 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(no_cuda, tmp_path):
         lambda: hybrid_params_from_numpy({}, get_config("recurrentgemma-2b",
                                                         smoke=True)),
         lambda: serve_main(["--arch", "recurrentgemma-2b", "--smoke"]),
+        lambda: XLSTMModel(get_config("xlstm-125m", smoke=True)),
+        lambda: get_model(get_config("xlstm-125m", smoke=True)),
+        lambda: ssm_params_from_numpy({}, get_config("xlstm-125m",
+                                                     smoke=True)),
+        lambda: serve_main(["--arch", "xlstm-125m", "--smoke"]),
         lambda: serve_main(["--smoke"]),
         lambda: cli_main(["--trace", str(tmp_path / "t.json"),
                           "--out", str(tmp_path)]),

@@ -1794,6 +1794,81 @@ def test_hybrid_through_kernels_matches_plain(cuda, dtype):
     assert rn.LAUNCHES["rmsnorm"] == 5 * (2 * cfg.n_layers + 1)
 
 
+# xlstm-125m's RMSNorm shapes on its serve path: prefill rows of d_model
+# (the narrow route) and of the mLSTM's out_norm width d_in (register),
+# and their decode rows
+XLSTM_NORM_SHAPES = {"prefill d_model": (4096, 768),
+                     "prefill d_in": (4096, 1536),
+                     "decode d_model": (4, 768), "decode d_in": (4, 1536)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(XLSTM_NORM_SHAPES))
+def test_rmsnorm_kernel_at_the_xlstm_shapes(cuda, dtype, name):
+    n, d = XLSTM_NORM_SHAPES[name]
+    gen = torch.Generator(device=cuda).manual_seed(n + d)
+    x = torch.randn(n, d, device=cuda, generator=gen).to(dtype)
+    scale = torch.randn(d, device=cuda, generator=gen).to(dtype)
+    want_route = "narrow" if d < rn.ops.NARROW_BELOW else "register"
+    assert rn.ops.call_plan(x, scale).route == want_route
+    rn.reset_launch_counts()
+    check_twice(rn.rmsnorm, rn.rmsnorm_ref, x, scale, 1e-6)
+    assert rn.LAUNCHES["rmsnorm"] == 2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_xlstm_through_kernels_matches_plain(cuda, dtype):
+    """xlstm-125m's smoke config (one (mlstm, slstm) unit and an mlstm
+    tail): prefill of a 40-token prompt (the chunkwise form pads its third
+    chunk of 16) and 4 decode steps through the RMSNorm kernel against
+    the plain path, with 2 RMSNorm launches a block and the final one a
+    pass and no other kernel."""
+    cfg = get_config("xlstm-125m", smoke=True).replace(
+        param_dtype=dtype, activation_dtype=dtype)
+    kern = get_model(cfg, device=cuda, kernel_backend="cuda")
+    plain = get_model(cfg, device=cuda, kernel_backend="torch")
+    params = kern.init(seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(1))
+    for mod in (rn, fa, rg_lru, gm):
+        mod.reset_launch_counts()
+    got, caches = kern.prefill(params, tokens)
+    assert rn.LAUNCHES["rmsnorm"] == 2 * cfg.n_layers + 1 == 7
+    want, pcaches = plain.prefill(params, tokens)
+    tol = 2e-5 if dtype == "float32" else 5e-2
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol * scale
+    for step in range(4):
+        tok = torch.argmax(want, -1)[:, None]
+        got, caches = kern.decode_step(params, tok, caches)
+        want, pcaches = plain.decode_step(params, tok, pcaches)
+        assert float((got - want).abs().max()) <= tol * scale, step
+    assert rn.LAUNCHES["rmsnorm"] == 5 * 7
+    assert fa.LAUNCHES["flash_attention"] == rg_lru.LAUNCHES["lru_scan"] \
+        == gm.LAUNCHES["grouped_matmul"] == 0
+
+
+def test_xlstm_full_size_forward_launches(cuda):
+    """One forward pass of xlstm-125m at full width and depth (random
+    bf16 weights): 25 RMSNorm launches (2 in each of the 12 blocks and
+    the final norm), on the narrow route at d_model 768 and the register
+    route at the mLSTM's 1,536, and finite logits."""
+    cfg = get_config("xlstm-125m")
+    model = get_model(cfg, device=cuda)
+    params = model.init(seed=0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 24), device=cuda,
+                           generator=torch.Generator(device=cuda)
+                           .manual_seed(2))
+    rn.reset_launch_counts()
+    logits, _ = model.forward(params, tokens)
+    torch.cuda.synchronize()
+    assert rn.LAUNCHES["rmsnorm"] == 2 * cfg.n_layers + 1 == 25
+    assert logits.shape == (2, 24, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert model.param_count() == 134_300_976
+
+
 # ------------------------------------------------------------- failures ----
 
 

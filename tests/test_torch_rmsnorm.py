@@ -133,13 +133,16 @@ def test_wrapper_takes_strided_rows(n):
 
 PLAN_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the register route at the serve paths' widths, bf16: (threads, vectors)
-SERVE_PLANS = {2560: (160, 2), 4096: (256, 2), 6144: (192, 4)}
+SERVE_PLANS = {1536: (192, 1), 2560: (160, 2), 4096: (256, 2),
+               6144: (192, 4)}
 
 
 def config_widths() -> "list[int]":
-    """Every row width the port's configs normalise: d_model, and the
-    head dim of a config with per-head q/k norm."""
+    """Every row width the port's configs normalise: d_model, the head
+    dim of a config with per-head q/k norm, and the mLSTM's ``out_norm``
+    width d_in of an ssm config."""
     from repro_torch.models.registry import PORTED_ARCH_IDS, get_config
+    from repro_torch.models.xlstm import XLSTMModel
 
     widths = set()
     for arch in PORTED_ARCH_IDS:
@@ -148,11 +151,13 @@ def config_widths() -> "list[int]":
             widths.add(cfg.d_model)
             if cfg.qk_norm:
                 widths.add(cfg.resolved_head_dim)
+            if cfg.family == "ssm":
+                widths.add(XLSTMModel(cfg, device="meta").d_in)
     return sorted(widths)
 
 
 @pytest.mark.parametrize("dtype", sorted(PLAN_DTYPES))
-@pytest.mark.parametrize("d", [2560, 4096, 5120, 6144, 7168])
+@pytest.mark.parametrize("d", [1536, 2560, 4096, 5120, 6144, 7168])
 def test_plan_register_route_at_model_widths(d, dtype):
     """The serve paths' widths and the other configs' d_model take the
     one-pass register route, every thread of the row holding the same
@@ -172,6 +177,7 @@ def test_plan_register_route_at_model_widths(d, dtype):
 
 @pytest.mark.parametrize("d,aligned,route", [
     (80, True, "narrow"),         # qwen3-32b's per-head q/k norm
+    (768, True, "narrow"),        # xlstm-125m's d_model
     (128, True, "narrow"),
     (128, False, "narrow"),
     (1, True, "narrow"),
@@ -216,6 +222,7 @@ def test_plan_splits_rows_evenly(dtype):
     only where no split exists.  Every width of the port's configs, and
     every multiple of 8 up to 20,000."""
     dt = PLAN_DTYPES[dtype]
+    assert {80, 128, 768, 1536} <= set(config_widths())
     widths = sorted(set(config_widths()) | set(range(1024, 20001, 8)))
     assert {80, 2560, 4096, 5120, 6144, 7168} <= set(widths)
     for d in widths:
