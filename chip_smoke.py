@@ -275,7 +275,24 @@ nonzero:
    chunk); a decode wave profiled; the float32 model uncut at 2e-5; and
    ``python -m repro_torch.launch.serve --arch xlstm-125m`` at its
    defaults.
-19. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
+19. ``audio_serve``, each line stamped with ``phase_s``: attention at
+   whisper-small's shapes (a wave of 4, 12 heads of 64, G = 1) against
+   its plain version and ``mask_probe``'s answer, as in phase 14, timed
+   beside SDPA with 20-call CUDA graphs: non-causal, the encoder's
+   self-attention over 1,500 frames, the prompt's cross-attention (4
+   queries over the frames) and a decode step's (the decode route);
+   causal, the prompt's self-attention and the last decode step's over
+   its ring.  Then whisper-small uncut (12 encoder and 12 decoder layers,
+   random bf16 weights from seed 0) serves 8 requests of 1,500 frames
+   (0.1 x N(0, 1)), a 4-token prompt and 64 new greedy tokens each, in
+   waves of 4, through ``EncDecLM.prefill`` and ``decode_step`` (neither
+   serve CLI takes audio): through the kernels, with the launch counts
+   read around that run alone (36 ``tc`` launches a prefill, 24
+   ``decode`` ones a decode step, no other kernel), then on the plain
+   path; the encoder pass's wall, teacher-forced bf16 logits within 5e-2
+   of max |logit|, a decode wave profiled, the float32 model uncut at
+   2e-5 with its greedy tokens all equal.
+20. A ``{"kernels": [...]}`` line, the card's ``nvidia-smi`` line, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Exits nonzero, printing no result, without a CUDA device or outside a
@@ -466,6 +483,15 @@ LRU_TOL = 1e-5
 # output within this share of its max |value|
 SSM_ARCH, SSM_PADDED_PROMPT = "xlstm-125m", 1000
 MLSTM_FORM_TOL = 1e-4
+# the audio serve path: whisper-small uncut (238.2 M parameters, 0.48 GB in
+# bf16; its float32 check runs it uncut too).  8 requests in waves of 4,
+# each of 1,500 encoder frames (whisper's 30-s window after the conv
+# stack's 2x downsampling; the frontend is a stub that takes frames) drawn
+# as 0.1 x N(0, 1), a 4-token decoder prompt and 64 new greedy tokens
+AUDIO_ARCH = "whisper-small"
+AUDIO_REQUESTS, AUDIO_BATCH, AUDIO_FRAMES = 8, 4, 1500
+AUDIO_PROMPT, AUDIO_NEW = 4, 64
+AUDIO_MAX_LEN = AUDIO_PROMPT + AUDIO_NEW + 1
 # mask_probe through the bf16 attention routes: exact weights summed in
 # fp32 and acc / l rounded once to bf16, so within 2^-8 of each value
 PROBE_REL_TOL = 2.0 ** -8
@@ -2943,7 +2969,8 @@ def position_at(p: int) -> torch.Tensor:
     return torch.tensor([p], dtype=torch.int32, device="cuda")
 
 
-def check_mask_probe(q_pos, kv_pos, B, K, G, Dh, window, where) -> float:
+def check_mask_probe(q_pos, kv_pos, B, K, G, Dh, window, where,
+                     causal: bool = True) -> float:
     """``mask_probe``'s exact answer through the bf16 route of ``q_pos``'s
     length (the tensor-core kernel for Sq > 1, the decode kernel for
     Sq = 1), with NaN in the empty ring slots' k and v: every value within
@@ -2953,13 +2980,13 @@ def check_mask_probe(q_pos, kv_pos, B, K, G, Dh, window, where) -> float:
     from repro_torch.kernels.flash_attention.ops import _route
 
     counter = f"flash_attention_{_route(torch.bfloat16, q_pos.numel())}"
-    q, k, v, want = fa.mask_probe(B, K, G, Dh, q_pos, kv_pos, causal=True,
+    q, k, v, want = fa.mask_probe(B, K, G, Dh, q_pos, kv_pos, causal=causal,
                                   window=window)
     empty = kv_pos < 0
     k[:, empty] = float("nan")
     v[:, empty] = float("nan")
     before = fa.LAUNCHES[counter]
-    got = fa.flash_attention(q, k, v, q_pos, kv_pos, causal=True,
+    got = fa.flash_attention(q, k, v, q_pos, kv_pos, causal=causal,
                              window=window).double()
     torch.cuda.synchronize()
     if fa.LAUNCHES[counter] != before + 1:
@@ -2972,16 +2999,23 @@ def check_mask_probe(q_pos, kv_pos, B, K, G, Dh, window, where) -> float:
     return float((gap / want.clamp_min(1e-300)).max())
 
 
-def check_attention_path(phase: str, path, gen) -> dict:
+def check_attention_path(phase: str, path, gen, causal: bool = True,
+                         t_phase: "float | None" = None,
+                         graph_calls: "int | None" = None,
+                         rows: "dict | None" = None) -> dict:
     """Attention at a serve path's shapes, ``path`` of (arch, case, B, K,
-    G, Sq, q_pos, kv_pos, window, Dh): float32 at 2e-5 first (the decode
-    kernel for Sq = 1, the CUDA-core kernel otherwise: no bf16 rounding
-    hides a dropped tile, a lost split or a wrong mask there), then bf16
-    (timed), held per row and to the mask probe's exact answer, on its
-    own route (``tc`` for Sq > 1, ``decode`` for Sq = 1), beside SDPA as
-    the yardstick.  Device times come from the profiler and from 20 calls
-    in one CUDA graph timed by CUDA events, for the kernel and for SDPA
-    alike.  Returns the first entry's row of the kernels line."""
+    G, Sq, q_pos, kv_pos, window, Dh), causal or not as ``causal`` says:
+    float32 at 2e-5 first (the decode kernel for Sq = 1, the CUDA-core
+    kernel otherwise: no bf16 rounding hides a dropped tile, a lost split
+    or a wrong mask there), then bf16 (timed), held per row and to the
+    mask probe's exact answer, on its own route (``tc`` for Sq > 1,
+    ``decode`` for Sq = 1), beside SDPA as the yardstick.  Device times
+    come from the profiler and from ``graph_calls`` calls (default 5 for
+    Sq > 1, 20 for decode) in one CUDA graph timed by CUDA events, for the
+    kernel and for SDPA alike.  Each line is stamped with ``phase_s`` when
+    the phase's start ``t_phase`` is given, and each case's row with its
+    device times is kept in ``rows`` when given.  Returns the first
+    entry's row of the kernels line."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -2991,10 +3025,10 @@ def check_attention_path(phase: str, path, gen) -> dict:
     results = {}
     for arch, name, B, K, G, Sq, q_pos, kv_pos, window, Dh in path:
         Skv = kv_pos.numel()
-        kw = dict(causal=True, window=window)
+        kw = dict(causal=causal, window=window)
         route = _route(torch.bfloat16, Sq)
         probe = check_mask_probe(q_pos, kv_pos, B, K, G, Dh, window,
-                                 f"{arch} path {name}")
+                                 f"{arch} path {name}", causal=causal)
         q, k, v = attention_inputs(gen, B, Sq, K, G, Skv, Dh, torch.float32)
         args = (q, k, v, q_pos, kv_pos)
         err32 = check_close("flash_attention", fa.flash_attention(*args, **kw),
@@ -3018,9 +3052,13 @@ def check_attention_path(phase: str, path, gen) -> dict:
         # the yardstick: SDPA on (B, H, S, Dh) copies made beforehand
         qs = q.reshape(B, Sq, K * G, Dh).transpose(1, 2).contiguous()
         ks, vs = (t.transpose(1, 2).contiguous() for t in (k, v))
-        causal_only = name == "prefill" and window is None
-        sdpa_kw = dict(is_causal=True) if causal_only else \
-            dict(attn_mask=fa.attention_mask(q_pos, kv_pos, True, window))
+        causal_only = causal and name == "prefill" and window is None
+        # non-causal over keys all filled: every key attended, no mask
+        unmasked = not causal and window is None and bool((kv_pos >= 0)
+                                                          .all())
+        sdpa_kw = dict(is_causal=True) if causal_only else {} if unmasked \
+            else dict(attn_mask=fa.attention_mask(q_pos, kv_pos, causal,
+                                                  window))
 
         def call():
             fa.flash_attention(*args, **kw)
@@ -3037,19 +3075,21 @@ def check_attention_path(phase: str, path, gen) -> dict:
                "plain_ms": time_ms(lambda: fa.attention_ref(*args, **kw),
                                    reps=3 if heavy else 20, samples=3),
                "library_ms": time_ms(lib_call, reps=5 if heavy else 20),
-               **attention_cost(q, k, q_pos, kv_pos, True, window),
+               **attention_cost(q, k, q_pos, kv_pos, causal, window),
                "kernel_route": route}
         results.setdefault("flash_attention", row)
         kern_dev = device_time(call, "flash_attention_kernel")
         lib_dev = device_time(lib_call, "")
+        calls = graph_calls or (5 if heavy else 20)
         times = {"kernel_device_ms": kern_dev["ms"],
                  "kernel_device_runs_recorded": kern_dev["recorded"],
                  # the decode route is two kernels a call (split, combine)
                  "kernel_device_runs_expected": 20 * (1 if heavy else 2),
                  "library_device_ms": lib_dev["ms"],
                  "library_device_runs_recorded": lib_dev["recorded"],
-                 "kernel_graph_ms": graph_ms(call, 5 if heavy else 20),
-                 "library_graph_ms": graph_ms(lib_call, 5 if heavy else 20)}
+                 "kernel_graph_ms": graph_ms(call, calls),
+                 "library_graph_ms": graph_ms(lib_call, calls),
+                 "graph_calls": calls}
         if not heavy:
             # the decode kernel's device time against its bound and SDPA's
             for how in ("device", "graph"):
@@ -3058,16 +3098,21 @@ def check_attention_path(phase: str, path, gen) -> dict:
                     ms / row["bound_ms"] if ms else None
                 times[f"kernel_{how}_ms_over_library"] = \
                     ms / lib if ms and lib else None
-        emit(phase, kernel="flash_attention", arch=arch, case=name,
+        if rows is not None:
+            rows[name] = {**row, **times}
+        stamp = {} if t_phase is None else \
+            {"phase_s": time.perf_counter() - t_phase}
+        emit(phase, kernel="flash_attention", arch=arch, case=name, **stamp,
              q=list(q.shape), kv=list(k.shape), window=window,
-             dtype="bfloat16", **row,
+             causal=causal, dtype="bfloat16", **row,
              max_row_rel_err=row_err, row_tolerance=ATTN_ROW_TOL_BF16,
              mask_probe_max_rel_gap=probe, mask_probe_tolerance=PROBE_REL_TOL,
              float32_route=_route(torch.float32, Sq),
              float32_max_abs_err=err32,
              float32_tolerance=tol[torch.float32],
-             library="scaled_dot_product_attention(enable_gqa=True, "
-                     + ("is_causal=True)" if causal_only else "attn_mask)"),
+             library="scaled_dot_product_attention(enable_gqa=True"
+                     + (", is_causal=True)" if causal_only else ")"
+                        if unmasked else ", attn_mask)"),
              library_max_abs_err_vs_plain=lib_err, **times,
              achieved_TFLOPs=row["flops"] / (row["ms"] * 1e-3) / 1e12,
              achieved_GBps=row["bytes"] / (row["ms"] * 1e-3) / 1e9,
@@ -3190,12 +3235,15 @@ def logits_gap(got, want) -> "tuple[float, float]":
 
 
 def teacher_forced(kern, plain, params, prompts, steps: int, tol: float,
-                   where: str, max_len: int = SERVE_MAX_LEN) -> dict:
+                   where: str, max_len: int = SERVE_MAX_LEN,
+                   frames=None) -> dict:
     """Prefill and ``steps`` decode steps on both paths, each fed the
     plain path's greedy token, so one near-tie cannot decide the
-    comparison.  Every logit within ``tol * max |logit|``."""
-    lk, ck = kern.prefill(params, prompts, max_len=max_len)
-    lp, cp = plain.prefill(params, prompts, max_len=max_len)
+    comparison.  Every logit within ``tol * max |logit|``.  ``frames``:
+    an encoder-decoder's encoder input, given to both prefills."""
+    inputs = (prompts,) if frames is None else (prompts, frames)
+    lk, ck = kern.prefill(params, *inputs, max_len=max_len)
+    lp, cp = plain.prefill(params, *inputs, max_len=max_len)
     if lk.shape != (prompts.shape[0], kern.cfg.vocab_size) \
             or lk.dtype != torch.float32:
         raise AssertionError(f"{where}: logits {tuple(lk.shape)} {lk.dtype}")
@@ -3260,16 +3308,19 @@ def tokens_equal(runs: dict) -> int:
                for a, b in zip(r.output, p.output))
 
 
-def profile_decode_wave(model, params, prompts, max_len: int) -> dict:
-    """Where the time goes in one decode wave of SERVE_NEW steps (sampling
-    and the host read of the tokens included, as in the engine)."""
-    _, caches = model.prefill(params, prompts, max_len=max_len)
+def profile_decode_wave(model, params, prompts, max_len: int,
+                        steps: int = SERVE_NEW, frames=None) -> dict:
+    """Where the time goes in one decode wave of ``steps`` steps (sampling
+    and the host read of the tokens included, as in the engine);
+    ``frames``: an encoder-decoder's encoder input."""
+    inputs = (prompts,) if frames is None else (prompts, frames)
+    _, caches = model.prefill(params, *inputs, max_len=max_len)
     tok = prompts[:, -1:]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(SERVE_NEW):
+        for _ in range(steps):
             logits, caches = model.decode_step(params, tok, caches)
             tok = torch.argmax(logits, dim=-1)[:, None]
             tok.cpu()
@@ -3278,7 +3329,7 @@ def profile_decode_wave(model, params, prompts, max_len: int) -> dict:
     events = device_events(prof)
     busy_ms = sum(e[2] for e in events) / 1e3
     attn = [(c, t) for n, c, t in events if "flash_attention_kernel" in n]
-    return {"profiled": "decode wave", "steps": SERVE_NEW, "wall_s": wall,
+    return {"profiled": "decode wave", "steps": steps, "wall_s": wall,
             "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
             "attention_device_ms": sum(t for _, t in attn) / 1e3,
@@ -4120,6 +4171,197 @@ def phase_ssm_serve(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- audio
+
+
+def audio_inputs(cfg, gen) -> "tuple[torch.Tensor, torch.Tensor]":
+    """AUDIO_REQUESTS prompts of AUDIO_PROMPT random tokens (numpy, from
+    SERVE_SEED) on the card, and their frames (AUDIO_REQUESTS,
+    AUDIO_FRAMES, d_model), 0.1 x N(0, 1) in float32 drawn on the card
+    from ``gen`` (the encoder casts them to its activation dtype)."""
+    from repro_torch.launch.serve import make_requests
+
+    reqs = make_requests(cfg, AUDIO_REQUESTS, AUDIO_PROMPT, AUDIO_NEW,
+                         SERVE_SEED)
+    prompts = torch.as_tensor(np.stack([r.prompt for r in reqs]),
+                              dtype=torch.int64, device="cuda")
+    frames = torch.randn(AUDIO_REQUESTS, AUDIO_FRAMES, cfg.d_model,
+                         device="cuda", generator=gen).mul_(0.1)
+    return prompts, frames
+
+
+def audio_serve_run(model, params, prompts, frames, new: int = AUDIO_NEW):
+    """The requests in waves of AUDIO_BATCH, each as ``ServeEngine`` runs
+    a wave: a prefill (the encoder and the decoder prompt), then ``new``
+    decode steps, each step's greedy tokens read by the host.  Returns
+    (tokens (requests, new) numpy, prefill s, decode s, waves, peak
+    device bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, prefill_s, decode_s = [], 0.0, 0.0
+    for i in range(0, prompts.shape[0], AUDIO_BATCH):
+        wave, wave_frames = prompts[i:i + AUDIO_BATCH], \
+            frames[i:i + AUDIO_BATCH]
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(params, wave, wave_frames,
+                                       max_len=wave.shape[1] + new + 1)
+        torch.cuda.synchronize()
+        prefill_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        toks = []
+        for _ in range(new):
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            toks.append(tok[:, 0].cpu().numpy())
+            logits, caches = model.decode_step(params, tok, caches)
+        torch.cuda.synchronize()
+        decode_s += time.perf_counter() - t0
+        out.append(np.stack(toks, axis=1))
+    return np.concatenate(out), prefill_s, decode_s, len(out), \
+        torch.cuda.max_memory_allocated()
+
+
+def phase_audio_serve(card: str) -> "tuple[dict, dict]":
+    """whisper-small uncut serves 8 requests of 1,500 frames through the
+    attention kernel (the only kernel on its path), then on the plain
+    path.  Returns the launch counts of the kernel run and attention's
+    rows at the path's shapes."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import grouped_matmul as gm
+    from repro_torch.kernels import rg_lru
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import segment_fairshare as sf
+    from repro_torch.models.registry import get_config, get_model
+
+    t_phase = time.perf_counter()
+
+    def emit_as(**fields):
+        emit("audio_serve", phase_s=time.perf_counter() - t_phase, **fields)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    cfg = get_config(AUDIO_ARCH)
+    kern = get_model(cfg, kernel_backend="cuda")
+    plain = get_model(cfg, kernel_backend="torch")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n_enc, n_dec = cfg.encdec.n_encoder_layers, cfg.n_layers
+
+    # attention at the path's shapes, a wave of 4, 12 heads of 64 (G = 1):
+    # non-causal, timed, the encoder's self-attention over 1,500 frames,
+    # the prompt's cross-attention and the last decode step's; causal, the
+    # prompt's self-attention and the last decode step's over its ring
+    # (one slot still empty)
+    arange, at = positions_range, position_at
+    B, S, T = AUDIO_BATCH, AUDIO_PROMPT, AUDIO_FRAMES
+    H, Dh = cfg.n_heads, cfg.resolved_head_dim
+    last = S + AUDIO_NEW - 1
+    rows = {}
+    check_attention_path("audio_serve", [
+        (AUDIO_ARCH, "encoder", B, H, 1, T, arange(T), arange(T), None, Dh),
+        (AUDIO_ARCH, "cross prefill", B, H, 1, S, arange(S), arange(T), None,
+         Dh),
+        (AUDIO_ARCH, "decode cross", B, H, 1, 1, at(last), arange(T), None,
+         Dh)], gen, causal=False, t_phase=t_phase, graph_calls=20, rows=rows)
+    check_attention_path("audio_serve", [
+        (AUDIO_ARCH, "decoder self prefill", B, H, 1, S, arange(S), arange(S),
+         None, Dh),
+        (AUDIO_ARCH, "decode self", B, H, 1, 1, at(last),
+         ring_kv_pos(AUDIO_MAX_LEN, last + 1, "cuda"), None, Dh)], gen,
+        t_phase=t_phase, graph_calls=20)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = kern.init(SERVE_SEED)
+    torch.cuda.synchronize()
+    emit_as(card=card, arch=AUDIO_ARCH, encoder_layers=n_enc,
+            decoder_layers=n_dec, d_model=cfg.d_model, heads=H,
+            head_dim=Dh, d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+            params=kern.param_count(), param_dtype=cfg.param_dtype,
+            weight_fill_s=time.perf_counter() - t0,
+            weights_GB=torch.cuda.memory_allocated() / 1e9,
+            reduced="none: full width, all 12 encoder and 12 decoder layers")
+    prompts, frames = audio_inputs(cfg, gen)
+    wave, wave_frames = prompts[:B], frames[:B]
+
+    # a short run of each path first: neither timed run pays first use
+    audio_serve_run(kern, params, wave, wave_frames, 2)
+    audio_serve_run(plain, params, wave, wave_frames, 2)
+    encoder_s = {backend: sorted(timed(lambda m=m: m.encode(
+        params, wave_frames))[1] for _ in range(5))
+        for backend, m in (("cuda", kern), ("torch", plain))}
+    mods = (rn, fa, gm, rg_lru, sf)
+    for mod in mods:
+        mod.reset_launch_counts()
+    runs = {"cuda": audio_serve_run(kern, params, prompts, frames)}
+    launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+    runs["torch"] = audio_serve_run(plain, params, prompts, frames)
+    for backend, (_, prefill_s, decode_s, waves, peak) in runs.items():
+        emit_as(card=card, kernel_backend=backend, requests=AUDIO_REQUESTS,
+                frames=T, prompt_tokens=S, new_tokens=AUDIO_NEW,
+                max_batch=B, waves=waves, prefill_s=prefill_s,
+                decode_s=decode_s,
+                decode_tok_per_s=AUDIO_REQUESTS * AUDIO_NEW / decode_s,
+                prefill_tok_per_s=AUDIO_REQUESTS * S / prefill_s,
+                prefill_frames_per_s=AUDIO_REQUESTS * T / prefill_s,
+                encoder_pass_s=encoder_s[backend][2],
+                encoder_pass_s_min_max=[encoder_s[backend][0],
+                                        encoder_s[backend][-1]],
+                peak_memory_GB=peak / 1e9)
+    # each wave: one prefill (the encoder's 12 self-attentions, the
+    # decoder's 12 self- and 12 cross-attentions, all on the tensor cores),
+    # then AUDIO_NEW decode steps of 24 on the decode route; no other kernel
+    waves = runs["cuda"][3]
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention_tc"] = waves * (n_enc + 2 * n_dec)
+    want["flash_attention_decode"] = waves * AUDIO_NEW * 2 * n_dec
+    want["flash_attention"] = want["flash_attention_tc"] + \
+        want["flash_attention_decode"]
+    if launches != want:
+        raise AssertionError(f"audio_serve launches {launches} != {want} "
+                             f"({waves} waves)")
+    tokens_equal = int((runs["cuda"][0] == runs["torch"][0]).sum())
+    emit_as(launches=launches, prefill_passes=waves,
+            decode_passes=waves * AUDIO_NEW,
+            tc_per_prefill=want["flash_attention_tc"] / waves,
+            decode_per_step=2 * n_dec, dtype="bfloat16",
+            tokens_equal_to_plain_path=tokens_equal,
+            tokens_total=AUDIO_REQUESTS * AUDIO_NEW)
+
+    bf16 = teacher_forced(kern, plain, params, wave, AUDIO_NEW,
+                          SERVE_TOL["bfloat16"], f"{AUDIO_ARCH} bf16",
+                          max_len=AUDIO_MAX_LEN, frames=wave_frames)
+    emit_as(check="teacher-forced logits, kernels vs plain",
+            dtype="bfloat16", **bf16, ok=True)
+    emit_as(card=card, **profile_decode_wave(kern, params, wave,
+                                             AUDIO_MAX_LEN, steps=AUDIO_NEW,
+                                             frames=wave_frames))
+    del params
+    torch.cuda.empty_cache()
+
+    # float32 uncut: the kernel without bf16 rounding, teacher-forced and
+    # then free greedy (one wave each path: every token equal)
+    cfg32 = cfg.replace(param_dtype="float32", activation_dtype="float32")
+    kern32 = get_model(cfg32, kernel_backend="cuda")
+    plain32 = get_model(cfg32, kernel_backend="torch")
+    params32 = kern32.init(SERVE_SEED)
+    f32 = teacher_forced(kern32, plain32, params32, wave, 8,
+                         SERVE_TOL["float32"], f"{AUDIO_ARCH} float32",
+                         max_len=AUDIO_MAX_LEN, frames=wave_frames)
+    greedy = [audio_serve_run(m, params32, wave, wave_frames)[0]
+              for m in (kern32, plain32)]
+    equal32 = int((greedy[0] == greedy[1]).sum())
+    if equal32 != greedy[1].size:
+        raise AssertionError(f"{AUDIO_ARCH} float32: {equal32} of "
+                             f"{greedy[1].size} greedy tokens equal")
+    emit_as(check="teacher-forced logits, kernels vs plain",
+            dtype="float32", weights_GB=kern32.param_count() * 4 / 1e9,
+            reduced="none", **f32, greedy_tokens_equal=equal32,
+            greedy_tokens_total=greedy[1].size, ok=True)
+    del params32
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
 # ---------------------------------------------------------------- train
 
 
@@ -4801,6 +5043,7 @@ def main() -> int:
     by_path[f"{HYBRID_ARCH} serve"], hybrid = phase_hybrid_serve(card)
     kernel_results["lru_scan"] = hybrid["lru_scan"]
     by_path[f"{SSM_ARCH} serve"] = phase_ssm_serve(card)
+    by_path[f"{AUDIO_ARCH} serve"], audio_rows = phase_audio_serve(card)
     emit("done", script_s=time.perf_counter() - t0)
 
     sources = {name: (replaces, SOURCE) for name, replaces in KERNELS.items()}
@@ -4832,6 +5075,13 @@ def main() -> int:
     # launches count every route, the tensor-core and decode ones beside
     attn = next(k for k in kernels if k["name"] == "flash_attention")
     attn["kernel_route"] = kernel_results["flash_attention"]["kernel_route"]
+    # and whisper-small's shapes (non-causal, head dim 64, G = 1) beside
+    attn["rows_whisper_small_serve"] = {
+        case: {key: row[key] for key in (
+            "kernel_route", "ms", "kernel_device_ms", "kernel_graph_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_device_ms", "library_graph_ms", "max_abs_err")}
+        for case, row in audio_rows.items()}
     for route in ("tc", "decode"):
         attn[f"launches_{route}_by_path"] = {
             path: counts[f"flash_attention_{route}"]

@@ -5,13 +5,13 @@ The simulator's state is the routed flow set (the incidence COO and the
 edge capacities) and the demand matrix: an incidence's ``flow``,
 ``edge``, ``frac``, ``n_flows`` and ``capacity``, a demand set's
 ``src``, ``dst`` and ``gbps``.  A model's state (the decoder LM's, the
-hybrid's, the xLSTM's) is its parameter tree; a trainer's is its
-``TrainState`` (params, AdamW's step, moments and master weights, the
-error-feedback residual).  The functions take plain numpy arrays (nested
-dicts of them for a parameter tree), so nothing of the reference package
-is imported; ``decoder_params_to_numpy`` goes the other way, so that a
-test can hold the port's parameters against the reference's after
-training steps.
+hybrid's, the xLSTM's, the encoder-decoder's) is its parameter tree; a
+trainer's is its ``TrainState`` (params, AdamW's step, moments and
+master weights, the error-feedback residual).  The functions take plain
+numpy arrays (nested dicts of them for a parameter tree), so nothing of
+the reference package is imported; ``decoder_params_to_numpy`` goes the
+other way, so that a test can hold the port's parameters against the
+reference's after training steps.
 """
 
 from __future__ import annotations
@@ -90,21 +90,27 @@ def _layer(i, tree):
     return tree[i].clone()
 
 
-def _unstack(tree: dict, cfg: ModelConfig, dev, dtype) -> dict:
-    """A reference decoder tree (layer groups stacked) in the port's layout,
-    a list of per-layer dicts under each group, through :func:`_tree`."""
+def _unstack(tree: dict, cfg: ModelConfig, dev, dtype,
+             layers: "dict[str, int] | None" = None) -> dict:
+    """A reference tree (layer groups stacked) in the port's layout, a list
+    of per-layer dicts under each group, through :func:`_tree`.  The
+    groups are ``layers``' keys, each with its own layer count, or by
+    default the decoder's :data:`GROUPS`, whose counts add up to the
+    config's ``n_layers``."""
+    groups = GROUPS if layers is None else tuple(layers)
     out = {k: _tree(v, dtype, dev) for k, v in tree.items()
-           if k not in GROUPS}
-    n = 0
-    for group in GROUPS:
+           if k not in groups}
+    sizes = {}
+    for group in groups:
         if group not in tree:
             continue
         stacked = _tree(tree[group], dtype, dev)
-        size = len(tree[group]["attn_norm"]["scale"])
-        out[group] = [_layer(i, stacked) for i in range(size)]
-        n += size
-    if n != cfg.n_layers:
-        raise ValueError(f"tree has {n} layers, config {cfg.n_layers}")
+        sizes[group] = len(tree[group]["attn_norm"]["scale"])
+        out[group] = [_layer(i, stacked) for i in range(sizes[group])]
+    got, want = (sum(sizes.values()), cfg.n_layers) if layers is None \
+        else (sizes, layers)
+    if got != want:
+        raise ValueError(f"tree has {got} layers, config {want}")
     return out
 
 
@@ -173,6 +179,23 @@ def ssm_params_from_numpy(tree: dict, cfg: ModelConfig,
         raise NotImplementedError("ssm parameters are of the family "
                                   f"'ssm', not {cfg.family!r}")
     return _units_and_tail(tree, cfg, device)
+
+
+def encdec_params_from_numpy(tree: dict, cfg: ModelConfig,
+                             device=None) -> dict:
+    """The reference ``EncDecLM``'s parameter tree (``embed``,
+    ``enc_norm``, ``final_norm``, and ``enc_layers`` / ``dec_layers`` with
+    their leaves stacked on a leading ``(L, ...)`` axis) as the port's
+    parameters: the same dicts with a list of per-layer dicts under each
+    of the two groups, in ``cfg.param_dtype`` on ``device`` (default
+    ``cuda``)."""
+    if cfg.family != "audio" or cfg.encdec is None:
+        raise NotImplementedError("audio parameters are of the family "
+                                  f"'audio', not {cfg.family!r}")
+    return _unstack(tree, cfg, resolve_device(device),
+                    torch_dtype(cfg.param_dtype),
+                    {"enc_layers": cfg.encdec.n_encoder_layers,
+                     "dec_layers": cfg.n_layers})
 
 
 def train_state_from_numpy(state: dict, cfg: ModelConfig, device=None):

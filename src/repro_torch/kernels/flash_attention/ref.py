@@ -38,10 +38,11 @@ NEG_INF = -1e30
 
 def attention_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
                    window: Optional[int]) -> torch.Tensor:
-    """(Sq, Skv) bool, True = attend."""
+    """(Sq, Skv) bool, True = attend (every row written out, also where
+    neither ``causal`` nor ``window`` ties a key to the query)."""
     qp = q_pos[:, None]
     kp = kv_pos[None, :]
-    m = kp >= 0
+    m = (kp >= 0).expand(qp.shape[0], -1)
     if causal:
         m = m & (kp <= qp)
     if window is not None:

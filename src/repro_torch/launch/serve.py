@@ -7,7 +7,11 @@ Usage:
 Runs on ``cuda`` unless ``--device`` says otherwise (without a card it
 raises); ``--kernel-backend torch`` swaps the CUDA kernels for their
 plain PyTorch versions.  The weights are random, drawn on the device from
-a generator seeded with ``--seed``.
+a generator seeded with ``--seed``.  The audio family (whisper-small) is
+refused before any model is built, as the reference's launcher refuses
+it: its requests need encoder frames as well as tokens, and
+``EncDecLM``'s ``prefill`` / ``decode_step`` are driven directly
+instead.
 """
 
 from __future__ import annotations
@@ -48,6 +52,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg.family in ("audio",):
+        raise SystemExit("serve driver targets decoder LMs; whisper decode "
+                         "is exercised in tests/benchmarks")
     model = get_model(cfg, device=args.device,
                       kernel_backend=args.kernel_backend)
     params = model.init(args.seed)

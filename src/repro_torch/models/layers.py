@@ -1,5 +1,6 @@
-"""Layers of the decoder LMs and the hybrid: a PyTorch copy of the parts
-of ``repro/models/layers.py`` that their serving paths run.
+"""Layers of the decoder LMs, the hybrid and the encoder-decoder: a
+PyTorch copy of the parts of ``repro/models/layers.py`` that their
+serving paths run.
 
 Conventions
 -----------
@@ -14,6 +15,9 @@ Conventions
   broadcasts one ``arange`` to ``(B, S)``); a cache's ``kv_pos`` is
   ``(capacity,)`` with ``-1`` for an empty slot, which replaces the
   reference's separate ``kv_valid``.
+* LayerNorm, the GELU MLP and the sinusoidal positions (the
+  encoder-decoder's) are plain PyTorch ops, as the reference computes
+  them outside any Pallas kernel.
 * ``backend`` selects the RMSNorm and attention implementation: ``cuda``
   (the hand-written kernels of :mod:`repro_torch.kernels`, whose wrappers
   take the plain version only for CPU tensors) or ``torch`` (the plain
@@ -119,6 +123,20 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6, *,
     fn = rmsnorm_differentiable if backend == "cuda" else rmsnorm_ref
     d = x.shape[-1]
     return fn(x.reshape(-1, d), p["scale"], eps).reshape(x.shape)
+
+
+def layernorm_init(d: int, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in float32 (the biased variance, as
+    ``jnp.var``), scale and bias in float32, cast back to x's dtype."""
+    d = x.shape[-1]
+    out = F.layer_norm(x.float(), (d,), p["scale"].float(),
+                       p["bias"].float(), eps)
+    return out.to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -314,6 +332,50 @@ def swiglu_init(generator, d: int, d_ff: int, dtype, device):
 def swiglu(p, x):
     g = F.silu((x @ p["w_gate"]).float()).to(x.dtype)
     return (g * (x @ p["w_up"])) @ p["w_down"]
+
+
+def gelu_mlp_init(generator, d: int, d_ff: int, dtype, device):
+    return {
+        "w1": dense_init(generator, (d, d_ff), dtype, device),
+        "b1": torch.zeros((d_ff,), dtype=dtype, device=device),
+        "w2": dense_init(generator, (d_ff, d), dtype, device,
+                         in_axis_size=d_ff),
+        "b2": torch.zeros((d,), dtype=dtype, device=device),
+    }
+
+
+def gelu_mlp(p, x):
+    """``jax.nn.gelu``'s default, the tanh approximation, in float32."""
+    h = F.gelu((x @ p["w1"] + p["b1"]).float(), approximate="tanh")
+    return h.to(x.dtype) @ p["w2"] + p["b2"]
+
+
+# --------------------------------------------------------------------------
+# sinusoidal positions (the encoder-decoder's)
+# --------------------------------------------------------------------------
+
+
+def _sinusoids(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """(n,) float32 positions -> (n, d): sin at the even columns, cos at
+    the odd ones, of ``pos / 10000 ** (dim / d)``, in float32."""
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=pos.device)
+    angle = pos[:, None] / torch.pow(10_000.0, dim / d)[None, :]
+    pe = torch.zeros((pos.numel(), d), dtype=torch.float32, device=pos.device)
+    pe[:, 0::2] = torch.sin(angle)
+    pe[:, 1::2] = torch.cos(angle)
+    return pe
+
+
+def sinusoidal_positions(max_len: int, d: int, device) -> torch.Tensor:
+    """Positions 0..max_len-1 -> (max_len, d) float32."""
+    return _sinusoids(torch.arange(max_len, dtype=torch.float32,
+                                   device=device), d)
+
+
+def sinusoidal_position_at(pos: int, d: int, device) -> torch.Tensor:
+    """The embedding of one position -> (1, d) float32."""
+    return _sinusoids(torch.full((1,), pos, dtype=torch.float32,
+                                 device=device), d)
 
 
 # --------------------------------------------------------------------------

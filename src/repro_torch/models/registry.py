@@ -21,16 +21,15 @@ ARCH_IDS = [
 ]
 
 # configs copied from repro/configs so far: the dense and MoE decoders,
-# the hybrid and the ssm family
+# the hybrid, the ssm and the audio family
 PORTED_ARCH_IDS = ["kimi-k2-1t-a32b", "mixtral-8x22b", "phi3-medium-14b",
                    "qwen3-32b", "yi-9b", "qwen1.5-32b", "recurrentgemma-2b",
-                   "xlstm-125m"]
+                   "xlstm-125m", "whisper-small"]
 # the families DecoderLM serves; get_model also serves "hybrid"
-# (RGLRUModel) and "ssm" (XLSTMModel)
+# (RGLRUModel), "ssm" (XLSTMModel) and "audio" (EncDecLM)
 DECODER_FAMILIES = ("dense", "moe")
 # where ROADMAP.md says when the rest comes
-NOT_PORTED = ("is not ported yet (ROADMAP.md queue 1: the audio and vlm "
-              "families)")
+NOT_PORTED = "is not ported yet (ROADMAP.md queue 1: the vlm family)"
 
 
 def _module_name(arch_id: str) -> str:
@@ -64,5 +63,9 @@ def get_model(cfg: ModelConfig, run=None, *, device=None,
     if cfg.family == "ssm":
         from .xlstm import XLSTMModel
         return XLSTMModel(cfg, device=device, kernel_backend=kernel_backend)
+    if cfg.family == "audio":
+        from .encdec import EncDecLM
+        return EncDecLM(cfg, run, device=device,
+                        kernel_backend=kernel_backend)
     raise NotImplementedError(f"the model of family {cfg.family!r} "
                               f"{NOT_PORTED}")

@@ -24,8 +24,8 @@ from repro.kernels.flash_attention import (  # noqa: E402
     attention_ref as jax_kernel_ref, flash_attention as pallas_flash)
 from repro.models import layers as RL  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    LAUNCHES, attention_ref, flash_attention, flash_attention_kernel_layout,
-    reset_launch_counts)
+    LAUNCHES, attention_mask, attention_ref, flash_attention,
+    flash_attention_kernel_layout, reset_launch_counts)
 from repro_torch.models import layers as L  # noqa: E402
 
 DTYPES = {"float32": (torch.float32, jnp.float32, 2e-5),
@@ -172,3 +172,24 @@ def test_wrapper_checks_its_inputs():
         flash_attention(q, k, k, qp, kp, window=0)
     with pytest.raises(ValueError, match="no kernel for device meta"):
         flash_attention(*(t.to("meta") for t in (q, k, k, qp, kp)))
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 6), (False, 6)])
+def test_attention_mask_matches_reference(causal, window):
+    """The (Sq, Skv) mask against the reference layer's ``_build_mask``
+    (with ``kv_valid`` for the empty slots), every row written out: a
+    non-causal mask without a window too, whose count of attended pairs
+    the chip script's bounds read."""
+    q_pos = np.arange(9, 21, dtype=np.int32)
+    kv_pos = np.array([-1, 0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13,
+                       14, 15, 16, 17, 18, 19, 20, -1], np.int32)
+    want = RL._build_mask(jnp.asarray(q_pos)[None], jnp.asarray(kv_pos)[None],
+                          causal, window,
+                          jnp.asarray(kv_pos >= 0)[None])[0, 0, 0]
+    got = attention_mask(torch.as_tensor(q_pos), torch.as_tensor(kv_pos),
+                         causal, window)
+    assert got.shape == (len(q_pos), len(kv_pos))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if not causal and window is None:
+        assert int(got.sum()) == len(q_pos) * 21

@@ -5,9 +5,10 @@
   (an AST scan).
 * With ``jax`` and ``repro`` blocked, every module imports and the CPU
   slices run: the sim CLI (under ``--trace``), the table2 CLI, the cost
-  model and the collective closed forms, the serve CLI (yi-9b and
-  recurrentgemma-2b) and a yi-9b and a mixtral-8x22b smoke forward pass
-  (a subprocess).
+  model and the collective closed forms, the serve CLI (yi-9b,
+  recurrentgemma-2b and xlstm-125m), a yi-9b and a mixtral-8x22b smoke
+  forward pass and a whisper-small smoke prefill and decode step (a
+  subprocess).
 * With no CUDA device, entry points called without ``device="cpu"`` raise
   instead of running on the CPU (the trainer, ``launch.train`` and a
   checkpoint's restore among them); unknown backends raise; a wrapper
@@ -38,6 +39,7 @@ from repro_torch import (resolve_kernel_backend,  # noqa: E402
                          resolve_sim_backend)
 from repro_torch.convert import (decoder_params_from_numpy,  # noqa: E402
                                  demands_from_arrays,
+                                 encdec_params_from_numpy,
                                  hybrid_params_from_numpy,
                                  incidence_from_arrays,
                                  ssm_params_from_numpy)
@@ -79,6 +81,7 @@ from repro_torch.train import Checkpointer, Trainer  # noqa: E402
 from repro_torch.models.registry import get_config, get_model  # noqa: E402
 from repro_torch.models.rglru import RGLRUModel  # noqa: E402
 from repro_torch.models.xlstm import XLSTMModel  # noqa: E402
+from repro_torch.models.encdec import EncDecLM  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
 from repro_torch.routing.protection import ProtectedRouter  # noqa: E402
 from repro_torch.sim.events import (FlowSpec, flows_to_demands,  # noqa
@@ -173,6 +176,16 @@ def test_package_runs_with_jax_blocked(tmp_path):
                        "--requests", "2", "--prompt-len", "20",
                        "--max-new", "3"])
         assert stats.tokens_out == 6, stats
+        model = get_model(get_config("whisper-small", smoke=True),
+                          device="cpu")
+        logits, caches = model.prefill(model.init(0),
+                                       torch.zeros((2, 3), dtype=torch.int64),
+                                       torch.zeros((2, 8, 64)), max_len=5)
+        logits, _ = model.decode_step(model.init(0),
+                                      torch.zeros((2, 1), dtype=torch.int64),
+                                      caches)
+        assert logits.shape == (2, 512)
+        assert bool(torch.isfinite(logits).all())
         assert "jax" not in sys.modules or sys.modules["jax"] is None
         sys.exit(rc)
     """)
@@ -233,6 +246,10 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(no_cuda, tmp_path):
         lambda: ssm_params_from_numpy({}, get_config("xlstm-125m",
                                                      smoke=True)),
         lambda: serve_main(["--arch", "xlstm-125m", "--smoke"]),
+        lambda: EncDecLM(get_config("whisper-small", smoke=True)),
+        lambda: get_model(get_config("whisper-small", smoke=True)),
+        lambda: encdec_params_from_numpy({}, get_config("whisper-small",
+                                                        smoke=True)),
         lambda: serve_main(["--smoke"]),
         lambda: cli_main(["--trace", str(tmp_path / "t.json"),
                           "--out", str(tmp_path)]),

@@ -55,6 +55,11 @@ step through the kernels against the plain path (2e-5 / 5e-2 of each
 leaf's max), repeatable.  The forward's LSE: the output keeps its bits
 when the LSE is written too, and the LSE lies within 1e-5 of
 ``attention_lse_ref`` (relative, or absolute below 1).
+The audio slice (``-k whisper``): attention at whisper-small's routes in
+small (non-causal, head dim 64, G = 1; the encoder's, the cross prefill's
+and the decode step's cross shapes) at the tolerances above and
+``mask_probe``'s answer, and the smoke ``EncDecLM`` through the kernel
+against the plain path with its launch counts.
 """
 
 import dataclasses
@@ -1867,6 +1872,126 @@ def test_xlstm_full_size_forward_launches(cuda):
     assert logits.shape == (2, 24, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all())
     assert model.param_count() == 134_300_976
+
+
+# whisper-small's attention, small: 12 heads of 64 (G = 1, n_kv_heads ==
+# n_heads), non-causal everywhere but the decoder's self-attention: the
+# encoder's self-attention (Sq = Skv), the decoder prompt's
+# cross-attention (4 queries over the frames) and a decode step's (one
+# query over the frames; the decode route): B, Sq, Skv, the query's
+# first position
+WHISPER_ATTN_CASES = {"encoder": (2, 300, 300, 0), "cross": (2, 4, 300, 0),
+                      "decode-cross": (2, 1, 300, 7)}
+
+
+def whisper_attention_inputs(cuda, name, dtype):
+    B, Sq, Skv, first = WHISPER_ATTN_CASES[name]
+    gen = torch.Generator(device=cuda).manual_seed(Sq + Skv)
+    q = torch.randn(B, Sq, 12, 1, 64, device=cuda, generator=gen).to(dtype)
+    k, v = (torch.randn(B, Skv, 12, 64, device=cuda, generator=gen).to(dtype)
+            for _ in range(2))
+    q_pos = torch.arange(first, first + Sq, dtype=torch.int32, device=cuda)
+    kv_pos = torch.arange(Skv, dtype=torch.int32, device=cuda)
+    return q, k, v, q_pos, kv_pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(WHISPER_ATTN_CASES))
+def test_flash_attention_at_the_whisper_routes(cuda, dtype, name):
+    """Non-causal, head dim 64, G = 1: against the plain version, two calls
+    the same bits, each on its route (decode for Sq = 1, the tensor cores
+    for bf16 with Sq > 1)."""
+    q, k, v, q_pos, kv_pos = whisper_attention_inputs(cuda, name, dtype)
+    fa.reset_launch_counts()
+    check_twice(fa.flash_attention, fa.attention_ref, q, k, v, q_pos, kv_pos,
+                causal=False)
+    route = fa.ops._route(dtype, q.shape[1])
+    assert fa.LAUNCHES["flash_attention"] == 2
+    for r in ("tc", "decode"):
+        assert fa.LAUNCHES[f"flash_attention_{r}"] == (2 if route == r else 0)
+
+
+@pytest.mark.parametrize("name", sorted(WHISPER_ATTN_CASES))
+def test_flash_attention_mask_probe_at_the_whisper_routes(cuda, name):
+    """``mask_probe``'s exact answer with ``causal=False`` through the bf16
+    route of the shape: every query attends every frame."""
+    B, Sq, Skv, first = WHISPER_ATTN_CASES[name]
+    q_pos = torch.arange(first, first + Sq, dtype=torch.int32, device=cuda)
+    kv_pos = torch.arange(Skv, dtype=torch.int32, device=cuda)
+    q, k, v, want = fa.mask_probe(B, 12, 1, 64, q_pos, kv_pos, causal=False)
+    fa.reset_launch_counts()
+    got = fa.flash_attention(q, k, v, q_pos, kv_pos, causal=False)
+    route = fa.ops._route(torch.bfloat16, Sq)
+    assert fa.LAUNCHES[f"flash_attention_{route}"] == 1
+    gap = (got.double() - want[None, :, None, None, :]).abs()
+    assert bool((gap <= 2.0 ** -8 * want[None, :, None, None, :]).all()), \
+        float(gap.max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whisper_through_kernels_matches_plain(cuda, dtype):
+    """whisper-small's smoke config (2 encoder and 2 decoder layers): a
+    prefill of 6 prompt tokens over 20 frames and 4 decode steps through
+    the attention kernel against the plain path, with one launch an
+    encoder layer and two a decoder layer each pass (the tensor-core
+    route at bf16 prefill, the decode route at every step), and no other
+    kernel."""
+    cfg = get_config("whisper-small", smoke=True).replace(
+        param_dtype=dtype, activation_dtype=dtype)
+    kern = get_model(cfg, device=cuda, kernel_backend="cuda")
+    plain = get_model(cfg, device=cuda, kernel_backend="torch")
+    params = kern.init(seed=0)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 6), device=cuda,
+                           generator=gen)
+    frames = 0.1 * torch.randn(2, 20, cfg.d_model, device=cuda,
+                               generator=gen)
+    for mod in (rn, fa, rg_lru, gm):
+        mod.reset_launch_counts()
+    got, caches = kern.prefill(params, tokens, frames, max_len=12)
+    per_prefill = cfg.encdec.n_encoder_layers + 2 * cfg.n_layers
+    assert fa.LAUNCHES["flash_attention"] == per_prefill == 6
+    assert fa.LAUNCHES["flash_attention_tc"] == \
+        (per_prefill if dtype == "bfloat16" else 0)
+    want, pcaches = plain.prefill(params, tokens, frames, max_len=12)
+    tol = 2e-5 if dtype == "float32" else 5e-2
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol * scale
+    for step in range(4):
+        tok = torch.argmax(want, -1)[:, None]
+        got, caches = kern.decode_step(params, tok, caches)
+        want, pcaches = plain.decode_step(params, tok, pcaches)
+        assert float((got - want).abs().max()) <= tol * scale, step
+    assert fa.LAUNCHES["flash_attention_decode"] == 4 * 2 * cfg.n_layers
+    assert fa.LAUNCHES["flash_attention"] == per_prefill + 4 * 2 * \
+        cfg.n_layers
+    assert rn.LAUNCHES["rmsnorm"] == rg_lru.LAUNCHES["lru_scan"] \
+        == gm.LAUNCHES["grouped_matmul"] == 0
+
+
+def test_whisper_full_size_prefill_launches(cuda):
+    """One prefill of whisper-small at full size (random bf16 weights):
+    4 prompt tokens over 1,500 frames, 12 tensor-core launches in the
+    encoder and 24 in the decoder, then one decode step's 24 on the decode
+    route; finite logits."""
+    cfg = get_config("whisper-small")
+    model = get_model(cfg, device=cuda)
+    params = model.init(seed=0)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 4), device=cuda,
+                           generator=gen)
+    frames = (0.1 * torch.randn(2, 1500, cfg.d_model, device=cuda,
+                                generator=gen)).bfloat16()
+    fa.reset_launch_counts()
+    logits, caches = model.prefill(params, tokens, frames, max_len=8)
+    assert fa.LAUNCHES["flash_attention_tc"] == 12 + 24
+    logits, _ = model.decode_step(params, tokens[:, :1], caches)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention_decode"] == 24
+    assert fa.LAUNCHES["flash_attention"] == 12 + 24 + 24
+    assert logits.shape == (2, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert model.param_count() == 238_200_576
 
 
 # ------------------------------------------------------------- failures ----

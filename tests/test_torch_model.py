@@ -141,8 +141,7 @@ def test_unported_archs_and_families_raise():
             get_config(arch)
     cfg = get_config("yi-9b", smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(cfg.replace(family="audio", encdec=object()),
-                  device="cpu")
+        get_model(cfg.replace(family="vlm", vlm=object()), device="cpu")
     hybrid = get_config("recurrentgemma-2b", smoke=True)
     with pytest.raises(NotImplementedError, match="DecoderLM serves"):
         DecoderLM(hybrid, device="cpu")
